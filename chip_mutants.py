@@ -1,0 +1,89 @@
+#!/usr/bin/env python3
+"""Show on one NVIDIA GPU that the kernel checks can fail.
+
+    python3 chip_mutants.py
+
+For each mutant below, the script copies the repository's files into a
+temporary directory, breaks one line of one CUDA source in the copy, and
+runs there (a) that kernel's phase of ``chip_smoke.py`` and (b) that
+kernel's card tests. Both must fail on every mutant; the script prints the
+phase's own report (how far outside the bound the broken kernel lands) and
+exits non-zero if any mutant passes a check. The repository itself is never
+edited.
+"""
+
+from __future__ import annotations
+
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PKG = "snn_automotive_object_detection_tpu_torch"
+
+# (name, source under csrc/, the line as it stands, the broken line,
+#  chip_smoke phase, pytest -k expression)
+MUTANTS = [
+    ("K5: b_lat left in the border halo (not zero outside the image)",
+     "fpn_level.cu", "float v0 = 0.0f, v1 = 0.0f;",
+     "float v0 = __bfloat162float(blat[ch]), v1 = __bfloat162float(blat[ch + 1]);",
+     "check_fpn", "fpn_level"),
+    ("K6: zero in place of the mean on taps outside the image",
+     "stem.cu", "v = ch == 0 ? mean_b0 : (ch == 1 ? mean_b1 : mean_b2);", "v = zero_b;",
+     "check_stem", "stem_kernel"),
+    ("K5: P rounded once (the conv sum not rounded before the bias add), even channels",
+     "fpn_level.cu",
+     "o.x = __float2bfloat16_rn(bf16_round(acc[i][nt][2 * h]) + __bfloat162float(bout[ch]));",
+     "o.x = __float2bfloat16_rn(acc[i][nt][2 * h] + __bfloat162float(bout[ch]));",
+     "check_fpn", "fpn_level"),
+]
+
+PHASE = """
+import torch, chip_smoke
+chip_smoke.reference_numerics()
+dev = torch.device("cuda:0")
+chip_smoke.{phase}(dev, torch.Generator(device=dev).manual_seed(1234), [])
+"""
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_mutants: no CUDA device", file=sys.stderr)
+        return 1
+    survived = 0
+    for name, src, old, new, phase, tests in MUTANTS:
+        with tempfile.TemporaryDirectory() as tmp:
+            tree = Path(tmp) / "tree"
+            shutil.copytree(ROOT, tree, ignore=shutil.ignore_patterns(
+                ".git", "_build", "__pycache__"))
+            path = tree / PKG / "csrc" / src
+            text = path.read_text()
+            if text.count(old) != 1:
+                print(f"chip_mutants: {src}: the line to break is not there once")
+                return 1
+            path.write_text(text.replace(old, new))
+            smoke = subprocess.run([sys.executable, "-c", PHASE.format(phase=phase)],
+                                   cwd=tree, capture_output=True, text=True)
+            card = subprocess.run(
+                [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider",
+                 "-q", "tests/test_torch_cuda_kernels.py", "-k", tests],
+                cwd=tree, capture_output=True, text=True)
+        print(f"mutant {name}")
+        for line in (smoke.stdout + smoke.stderr).strip().splitlines()[-6:]:
+            print(f"  smoke: {line}")
+        print(f"  smoke exit {smoke.returncode}; card tests exit {card.returncode}: "
+              f"{card.stdout.strip().splitlines()[-1] if card.stdout.strip() else ''}")
+        # pytest exits 1 when tests ran and failed (5 would mean none ran).
+        if "chip_smoke: FAILED" not in smoke.stderr or card.returncode != 1:
+            survived += 1
+            print("  SURVIVED a check")
+    print(f"chip_mutants: {len(MUTANTS) - survived} of {len(MUTANTS)} mutants fail both checks")
+    return 1 if survived else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

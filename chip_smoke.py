@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
   1. device  - a CUDA device must be present; prints its name and power
                limit as nvidia-smi reports them.
-  2. build   - compiles the four hand-written kernels from
+  2. build   - compiles the six hand-written kernels from
                snn_automotive_object_detection_tpu_torch/csrc (one nvcc per
                source, all started together).
   3. kernels - at the flagship shapes (768x1536 bucket, batch 2, 1000
@@ -18,13 +18,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
                the stated tolerance element by element and exact encoder
                spike counts, prints the largest output beside each error,
                spike rates, flipped LIF spikes and median times from CUDA
-               events.
+               events; beside each time the least time the card could take
+               (compulsory bytes over 3.35 TB/s against operations over the
+               dense bf16 tensor-core and the f32 peak, counting the spikes
+               these inputs produce), and for the stem and the FPN the time
+               of the unfused cuDNN chain in bf16 on the same inputs.
   4. main    - the flagship detector (ResNet-50-FPN, spiking RPN and box
                heads, bf16 GEMMs, f32 neuron states, random weights from a
                seed) on synthetic 2 x 768 x 1536 batches through
-               detector_apply; every kernel must have launched, no plain
-               version may have run on the GPU, outputs must be finite and
-               well formed; prints images/s, then one more batch under
+               detector_apply, which with bf16 takes the fused stem and the
+               fused FPN; every kernel must have launched, no plain version
+               may have run on the GPU, outputs must be finite and well
+               formed; prints images/s, then one more batch under
                torch.profiler: device time by kernel and the busy share.
 
 The line before last is a JSON object listing the kernels; the last line is
@@ -59,6 +64,39 @@ def _median_ms(fn, iters, warmup=2):
 
 def _fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+# Published peaks of one H100 SXM: device memory, dense bf16 tensor cores,
+# f32 outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(n_bytes, tensor_ops, f32_ops=0.0):
+    """The least time for the work, in ms, and which resource sets it: each
+    input byte read once and each output byte written once over the memory
+    rate, against the operations over the peak rate for their type."""
+    t_bytes = n_bytes / PEAK_BYTES_S
+    t_ops = tensor_ops / PEAK_BF16_FLOPS + f32_ops / PEAK_F32_FLOPS
+    return dict(bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _record(results, name, replaces, err, ms, pms, bound, library_ms=None):
+    results.append(dict(
+        name=name, route="cuda",
+        source=f"snn_automotive_object_detection_tpu_torch/csrc/{name}.cu",
+        replaces=f"snn_automotive_object_detection_tpu/{replaces}",
+        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=library_ms, **bound))
+    lib = "" if library_ms is None else f", {library_ms:.3f} ms unfused cuDNN chain in bf16"
+    print(f"{name}: {ms:.3f} ms kernel, {pms:.3f} ms plain{lib}; bound "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+          f"({ms / bound['bound_ms']:.1f}x)")
 
 
 def check_kernels(dev, results):
@@ -111,11 +149,14 @@ def check_kernels(dev, results):
             lif_p == 0 or flips > 1e-3 * lif_p:
         _fail("K1 disagrees with its plain version")
     ms, pms = _median_ms(k1_kernel, 10), _median_ms(k1_plain, 5)
-    results.append(dict(name="rpn_head", route="cuda",
-                        source="snn_automotive_object_detection_tpu_torch/csrc/rpn_head.cu",
-                        replaces="snn_automotive_object_detection_tpu/snn/pallas_rpn.py:449",
-                        max_abs_err=err, ms=ms, plain_ms=pms))
-    print(f"K1 rpn_head: {ms:.3f} ms kernel, {pms:.3f} ms plain (5 levels)")
+    # A sparse conv does 2 x 256 operations for each of the (at most) 9
+    # outputs an encoder spike reaches; the readout is dense, the LIF update
+    # about 10 f32 operations per neuron and step.
+    _record(results, "rpn_head", "snn/pallas_rpn.py:449", err, ms, pms,
+            _bound(_nbytes(*feats, w9, wo, *[a[0] for a in got], *[a[1] for a in got],
+                           *[a[2] for a in got]),
+                   2.0 * enc_p * 9 * 256 + sum(2.0 * 2 * h * w * 256 * 15 for h, w in levels),
+                   10.0 * neurons))
 
     # K2: RoIAlign of 2 x 1000 boxes over P2..P5.
     pooled_feats = [torch.randn((2, h, w, 256), generator=g, device=dev).to(bf)
@@ -135,11 +176,10 @@ def check_kernels(dev, results):
         _fail("K2 disagrees with its plain version")
     ms = _median_ms(lambda: k2._launch(pooled_feats, boxes, (768, 1536)), 10)
     pms = _median_ms(lambda: k2.plain(pooled_feats, boxes, (768, 1536)), 5)
-    results.append(dict(name="roi_align", route="cuda",
-                        source="snn_automotive_object_detection_tpu_torch/csrc/roi_align.cu",
-                        replaces="snn_automotive_object_detection_tpu/ops/pallas_roi_align.py:309",
-                        max_abs_err=err, ms=ms, plain_ms=pms))
-    print(f"K2 roi_align: {ms:.3f} ms kernel, {pms:.3f} ms plain")
+    # Each output is the mean of 2 x 2 samples of 4 corners: about 8 x 4 f32
+    # operations.
+    _record(results, "roi_align", "ops/pallas_roi_align.py:309", err, ms, pms,
+            _bound(_nbytes(*pooled_feats, boxes, got), 0.0, 32.0 * got.numel()))
 
     # K3: encoder + fc6, R = 2000 rows of 7*7*256.
     x = (torch.rand((2000, 12544), generator=g, device=dev) * 2.5).to(bf)
@@ -156,11 +196,9 @@ def check_kernels(dev, results):
         _fail("K3 disagrees with its plain version")
     ms = _median_ms(lambda: k3._launch(x, w6, 12), 10)
     pms = _median_ms(lambda: k3.encoder_fc6_plain(x, w6, 12), 3)
-    results.append(dict(name="encoder_fc6", route="cuda",
-                        source="snn_automotive_object_detection_tpu_torch/csrc/encoder_fc6.cu",
-                        replaces="snn_automotive_object_detection_tpu/snn/pallas_fc6.py:227",
-                        max_abs_err=err, ms=ms, plain_ms=pms))
-    print(f"K3 encoder_fc6: {ms:.3f} ms kernel, {pms:.3f} ms plain")
+    # A sparse product adds one 1024-wide w6 row for each encoder spike.
+    _record(results, "encoder_fc6", "snn/pallas_fc6.py:227", err, ms, pms,
+            _bound(_nbytes(x, w6, got, cnt_k), 2.0 * cnt_p.sum().item() * 1024))
 
     # K4: box-head tail on bf16 fc6 currents around the LIF threshold.
     cur6 = (torch.randn((12, 2000, 1024), generator=g, device=dev) * 0.15).to(bf)
@@ -186,11 +224,149 @@ def check_kernels(dev, results):
         _fail("K4 disagrees with its plain version")
     ms = _median_ms(lambda: k4._launch(cur6, w7b, wro, 9), 10)
     pms = _median_ms(lambda: k4.box_tail_plain(cur6, w7, wc, wb), 5)
-    results.append(dict(name="box_tail", route="cuda",
-                        source="snn_automotive_object_detection_tpu_torch/csrc/box_tail.cu",
-                        replaces="snn_automotive_object_detection_tpu/snn/pallas_tail.py:241",
-                        max_abs_err=err, ms=ms, plain_ms=pms))
-    print(f"K4 box_tail: {ms:.3f} ms kernel, {pms:.3f} ms plain")
+    # fc7 adds one 1024-wide row for each fc6 spike and the readout one
+    # 45-wide row for each fc7 spike; two LIF layers and the LI readout take
+    # about 10 f32 operations per neuron and step.
+    _record(results, "box_tail", "snn/pallas_tail.py:241", err, ms, pms,
+            _bound(_nbytes(cur6, w7b, wro, *got),
+                   2.0 * want[2].sum().item() * 1024 + 2.0 * want[3].sum().item() * 45,
+                   10.0 * 12 * 2000 * (2 * 1024 + 45)))
+    check_fpn(dev, g, results)
+    check_stem(dev, g, results)
+
+
+def check_fpn(dev, g, results):
+    """K5: the four FPN levels at flagship shapes, each level on the plain
+    version's coarser merged map so that both sides get the same inputs."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.models import resnet_fpn
+    from snn_automotive_object_detection_tpu_torch.ops import cuda_fpn as k5
+    from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
+
+    bf = torch.bfloat16
+    shapes = [(192, 384, 256), (96, 192, 512), (48, 96, 1024), (24, 48, 2048)]
+    # Inputs and weights scaled so that the merged maps and P are O(1).
+    cs = [torch.randn((2, h, w, c), generator=g, device=dev).to(bf) for h, w, c in shapes]
+    fpn = {"inner": [{"w": torch.randn((1, 1, c, 256), generator=g, device=dev) / c ** 0.5,
+                      "b": torch.randn(256, generator=g, device=dev) * 0.1}
+                     for _, _, c in shapes],
+           "layer": [{"w": torch.randn((3, 3, 256, 256), generator=g, device=dev) / 48.0,
+                      "b": torch.randn(256, generator=g, device=dev) * 0.1}
+                     for _ in shapes]}
+    ops = [dict(wlat=fpn["inner"][i]["w"].reshape(c, 256).to(bf).contiguous(),
+                blat=fpn["inner"][i]["b"].to(bf).contiguous(),
+                w9=fpn["layer"][i]["w"].reshape(9, 256, 256).to(bf).contiguous(),
+                bout=fpn["layer"][i]["b"].to(bf).contiguous())
+           for i, (_, _, c) in enumerate(shapes)]
+
+    def launch(i, merged_next, store_merged):
+        o = ops[i]
+        return k5._launch(cs[i], merged_next, o["wlat"], o["blat"], o["w9"], o["bout"],
+                          store_merged)
+
+    err = worst = top = 0.0
+    m_next = None
+    for i in (3, 2, 1, 0):
+        h, w, _ = shapes[i]
+        inner, layer = fpn["inner"][i], fpn["layer"][i]
+        got_p, got_m = launch(i, m_next, True)
+        want_m = k5.lateral_plain(cs[i], m_next, inner["w"], inner["b"])
+        addends = [ops[i]["blat"]]
+        if m_next is not None:
+            up = m_next.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)[:, :h, :w]
+            addends += [up, up]
+        ex_m = kc.chain_excess(got_m, want_m, 2 if m_next is None else 3, addends)
+        # P from the kernel's own merged map: the 3x3 alone, same inputs.
+        want_p = k5.outer_plain(got_m, layer["w"], layer["b"])
+        ex_p = kc.chain_excess(got_p, want_p, 2, (ops[i]["bout"],))
+        dm, dp = kc.differing(got_m, want_m), kc.differing(got_p, want_p)
+        # ... and from the plain merged map: the flips of the merged map reach P.
+        full_p = k5.outer_plain(want_m, layer["w"], layer["b"])
+        out1 = int(((got_p.float() - full_p.float()).abs()
+                    > kc.BF16_REL * full_p.float().abs() + kc.ATOL).sum())
+        e = max((got_m.float() - want_m.float()).abs().max().item(),
+                (got_p.float() - want_p.float()).abs().max().item())
+        lvl_ms = _median_ms(lambda: launch(i, m_next, i > 0), 10)
+        print(f"K5 fpn_level C{i + 2} [2, {h}, {w}, {shapes[i][2]}]: {lvl_ms:.3f} ms; merged "
+              f"{ex_m:.3g} of its bound, {dm} of {want_m.numel()} differ, max |merged| "
+              f"{want_m.float().abs().max().item():.4g}; P {ex_p:.3g} of its bound, "
+              f"{dp} differ, max |P| {want_p.float().abs().max().item():.4g}; max |diff| "
+              f"{e:.3g}; against the whole plain level {out1} P elements outside one ulp")
+        if ex_m > 1 or ex_p > 1 or max(dm, dp) > kc.MAX_DIFFERING * want_m.numel() \
+                or not torch.isfinite(got_p.float()).all():
+            _fail(f"K5 disagrees with its plain version on C{i + 2}")
+        if i == 0:   # the finest level stores no merged map: same P
+            only_p, none = launch(0, m_next, False)
+            if none is not None or not torch.equal(only_p, got_p):
+                _fail("K5 without the merged output gives another P")
+        err, worst = max(err, e), max(worst, ex_m, ex_p)
+        top = max(top, want_p.float().abs().max().item())
+        m_next = want_m
+    print(f"K5 fpn_level: max |diff| {err:.3g} at max |P| {top:.4g}, {worst:.3g} of the "
+          f"bound 2^-7 (roundings |want| + |addends|) + {kc.ATOL}")
+
+    def chain(level):
+        merged = None
+        for i in (3, 2, 1, 0):
+            _, merged = level(i, merged, i > 0)
+
+    def plain_level(i, merged, store_merged):
+        return k5.fpn_level_plain(cs[i], merged, fpn["inner"][i]["w"], fpn["inner"][i]["b"],
+                                  fpn["layer"][i]["w"], fpn["layer"][i]["b"], store_merged)
+
+    ms = _median_ms(lambda: chain(launch), 10)
+    pms = _median_ms(lambda: chain(plain_level), 5)
+    lms = _median_ms(lambda: resnet_fpn.fpn_unfused(fpn, cs), 10)
+    px = [2 * h * w for h, w, _ in shapes]
+    n_bytes = _nbytes(*cs, *[t for o in ops for t in o.values()]) \
+        + sum(p * 256 * 2 for p in px) + 2 * sum(p * 256 * 2 for p in px[1:])
+    flops = sum(2.0 * p * (c * 256 + 2304 * 256) for p, (_, _, c) in zip(px, shapes))
+    _record(results, "fpn_level", "ops/pallas_fpn.py:249", err, ms, pms,
+            _bound(n_bytes, flops), lms)
+
+
+def check_stem(dev, g, results):
+    """K6: the fused stem on a flagship image pair."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.models import resnet_fpn, transform
+    from snn_automotive_object_detection_tpu_torch.ops import cuda_stem as k6
+    from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
+
+    mean, std = transform.IMAGENET_MEAN, transform.IMAGENET_STD
+    images = torch.rand((2, 768, 1536, 3), generator=g, device=dev)
+    # He-normal weights times a frozen-BN scale, a BN bias around zero.
+    stem = {"w": torch.randn((7, 7, 3, 64), generator=g, device=dev) * (2.0 / (49 * 64)) ** 0.5,
+            "bn": {"scale": torch.rand(64, generator=g, device=dev) + 0.5,
+                   "bias": torch.randn(64, generator=g, device=dev) * 0.2}}
+    wf, bias = k6.fold_stem_weights(stem["w"], stem["bn"]["scale"], stem["bn"]["bias"],
+                                    mean, std)
+    wk, bias = k6.kernel_weights(wf), bias.contiguous()
+    got = k6._launch(images, wk, bias, mean)
+    want = k6._folded_plain(images, wf, bias, mean)
+    err = (got.float() - want.float()).abs().max().item()
+    worst = kc.chain_excess(got, want, 2, (bias,))
+    diff = kc.differing(got, want)
+    out1 = int(((got.float() - want.float()).abs()
+                > kc.BF16_REL * want.float().abs() + kc.ATOL).sum())
+    print(f"K6 stem: max |diff| {err:.3g} at max |out| {want.float().abs().max().item():.4g}, "
+          f"{worst:.3g} of the bound 2^-7 (2 |want| + |bias|) + {kc.ATOL}; {diff} of "
+          f"{want.numel()} elements differ, {out1} by more than one ulp of the value; "
+          f"{(want == 0).float().mean().item():.3f} of the outputs are zero")
+    if worst > 1 or diff > kc.MAX_DIFFERING * want.numel() or got.dtype != torch.bfloat16 \
+            or tuple(got.shape) != (2, 192, 384, 64) or not (want > 0).any():
+        _fail("K6 disagrees with its plain version")
+
+    def library():
+        x = transform.normalize_images(images, mean, std).to(torch.bfloat16)
+        return resnet_fpn.stem_apply_unfused(stem, x)
+
+    ms = _median_ms(lambda: k6._launch(images, wk, bias, mean), 10)
+    pms = _median_ms(lambda: k6._folded_plain(images, wf, bias, mean), 5)
+    lms = _median_ms(library, 10)
+    _record(results, "stem", "ops/pallas_stem.py:347", err, ms, pms,
+            _bound(_nbytes(images, wk, bias, got), 2.0 * 147 * 64 * 2 * 384 * 768), lms)
 
 
 def _pre_nms_rows(cfg):
@@ -283,8 +459,10 @@ def main_path(dev, iters=5):
 
     print(f"main path: {iters} batches of {n} x {h} x {w}: launches {launches}, "
           f"plain versions on the GPU {plain_calls}")
-    if any(v == 0 for v in launches.values()):
-        _fail("a kernel of the main path never launched")
+    want = {"rpn_head": 5 * iters, "roi_align": iters, "encoder_fc6": iters,
+            "box_tail": iters, "fpn_level": 4 * iters, "stem": iters}
+    if launches != want:
+        _fail(f"the main path's launches are not {want}")
     if any(v != 0 for v in plain_calls.values()):
         _fail("a plain version ran on the GPU in the main path")
     _check_outputs(out, n, cfg.rpn.post_nms_top_n_test,
@@ -302,6 +480,19 @@ def main_path(dev, iters=5):
     return launches
 
 
+def reference_numerics():
+    """f32 products and convolutions run in full f32, not TF32: the plain
+    versions are the references the kernels are held against, and the f32
+    readouts in them must not lose precision to TF32. For the same reason
+    cuBLAS may not reduce bf16 products in bf16: the references round each
+    product once, from f32, as the kernels do."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
 def main() -> int:
     import torch
 
@@ -310,14 +501,7 @@ def main() -> int:
         return 1
     from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
 
-    # f32 products and convolutions run in full f32, not TF32: the plain
-    # versions are the references the kernels are held against, and the
-    # f32 readouts in them must not lose precision to TF32. For the same
-    # reason cuBLAS may not reduce bf16 products in bf16: the references
-    # round each product once, from f32, as the kernels do.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    reference_numerics()
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -10,6 +10,13 @@ are rescaled to the original image sizes.
 On a CUDA device the four spiking-core stages run as hand-written kernels
 (K1 RPN head, K2 RoIAlign, K3 encoder+fc6, K4 box tail); on the CPU they
 run as the kernels' plain PyTorch versions.
+
+The compute dtype picks the backbone's route, by the reference's rule (its
+bf16 runs take the fused kernels, its float32 runs keep the unfused chain):
+with bf16 the raw image goes through the fused stem (K6, normalisation
+folded in) and the levels through the fused FPN (K5), kernels on a CUDA
+device and plain versions on the CPU; with float32 the image is normalised
+and takes the unfused chain on either device.
 """
 
 from __future__ import annotations
@@ -24,12 +31,14 @@ from snn_automotive_object_detection_tpu_torch.models import roi_heads as roi_mo
 from snn_automotive_object_detection_tpu_torch.models import rpn as rpn_mod
 from snn_automotive_object_detection_tpu_torch.models.resnet_fpn import (
     resnet50_fpn_apply,
+    resnet50_fpn_apply_from_p1,
 )
 from snn_automotive_object_detection_tpu_torch.models.transform import (
     normalize_images,
     rescale_boxes,
 )
 from snn_automotive_object_detection_tpu_torch.ops.anchors import generate_anchors
+from snn_automotive_object_detection_tpu_torch.ops.cuda_stem import stem_apply
 
 
 @functools.lru_cache(maxsize=8)
@@ -58,8 +67,15 @@ def detector_apply(params: Dict, batch: Dict[str, torch.Tensor], config,
     images = batch["images"]
     cd = config.compute_dtype
     _, hb, wb, _ = images.shape
-    x = normalize_images(images, config.image_mean, config.image_std)
-    feats = resnet50_fpn_apply(params["backbone"], x, cd)
+    if cd == torch.bfloat16:
+        if images.dtype == torch.uint8:
+            images = images.float() / 255.0
+        p1 = stem_apply(params["backbone"]["stem"], images, config.image_mean,
+                        config.image_std)
+        feats = resnet50_fpn_apply_from_p1(params["backbone"], p1)
+    else:
+        x = normalize_images(images, config.image_mean, config.image_std)
+        feats = resnet50_fpn_apply(params["backbone"], x, cd)
 
     shapes = tuple((f.shape[1], f.shape[2]) for f in feats)
     anchors, anchor_counts = _anchors(shapes, (hb, wb), config.anchor_spec,

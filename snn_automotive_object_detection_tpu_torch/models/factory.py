@@ -19,7 +19,6 @@ import torch
 
 from snn_automotive_object_detection_tpu_torch.models.resnet_fpn import (
     BLOCKS_PER_STAGE,
-    FPN_CHANNELS,
     STAGE_WIDTHS,
 )
 from snn_automotive_object_detection_tpu_torch.models.roi_heads import RoIConfig
@@ -29,6 +28,8 @@ from snn_automotive_object_detection_tpu_torch.models.transform import (
     IMAGENET_STD,
 )
 from snn_automotive_object_detection_tpu_torch.ops.anchors import AnchorSpec
+from snn_automotive_object_detection_tpu_torch.ops.cuda_fpn import FPN_CHANNELS
+from snn_automotive_object_detection_tpu_torch.utils.constants import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +56,19 @@ class DetectorConfig:
         return AnchorSpec()
 
 
+def _draw_device(g: torch.Generator, device) -> torch.device:
+    """The device the parameters are drawn on (None: the CUDA device). The
+    generator must live there too: a draw with a generator of another
+    device would have to happen elsewhere and be copied."""
+    device = resolve_device(device, "init_params")
+    if g.device != device:
+        raise ValueError(
+            f"init_params: the generator lives on {g.device} but the "
+            f"parameters are drawn on {device}; make it with "
+            f"torch.Generator(device={str(device)!r})")
+    return device
+
+
 def _normal(g, shape, std, device):
     return torch.randn(shape, generator=g, device=device) * std
 
@@ -74,6 +88,9 @@ def _bn(cout, device):
 
 
 def init_resnet50_fpn(g: torch.Generator, device=None) -> Dict[str, Any]:
+    """Backbone parameters drawn from ``g`` on ``device`` (None: the CUDA
+    device; raises where there is none)."""
+    device = _draw_device(g, device)
     params: Dict[str, Any] = {"stem": {"w": _conv_he(g, 7, 7, 3, 64, device),
                                        "bn": _bn(64, device)}}
     cin = 64
@@ -106,7 +123,10 @@ def init_params(config: DetectorConfig, g: torch.Generator,
                 device=None) -> Dict[str, Any]:
     """Random parameters with the JAX init's distributions: He-normal
     backbone, normal(0.01) RPN head, torch.nn.Linear's uniform box head
-    (bias-free), drawn from the seeded generator ``g``."""
+    (bias-free), drawn from the seeded generator ``g`` on ``device``. With
+    ``device=None`` that is the CUDA device, and the call raises where there
+    is none; the generator must live on the same device."""
+    device = _draw_device(g, device)
     c = config.fpn_channels
     a = config.anchor_spec.num_anchors_per_location[0]
     rep = config.representation_size

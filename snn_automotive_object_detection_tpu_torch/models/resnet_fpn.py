@@ -1,10 +1,16 @@
 """ResNet-50 + FPN backbone, functional PyTorch, NHWC, frozen BatchNorm.
 
-Port of ``snn_automotive_object_detection_tpu/models/resnet_fpn.py`` with
-its FPN tail in plain ops (the fused FPN and stem kernels come with a
-later slice). Parameters keep the JAX layout: HWIO conv weights, BN as a
-per-channel affine (scale, bias). Activations are NHWC in the compute
-dtype; every conv rounds its output to that dtype, as the reference does.
+Port of ``snn_automotive_object_detection_tpu/models/resnet_fpn.py``.
+Parameters keep the JAX layout: HWIO conv weights, BN as a per-channel
+affine (scale, bias). Activations are NHWC in the compute dtype; every conv
+rounds its output to that dtype, as the reference does.
+
+The dtype picks the route, as in the reference (bf16 runs its fused
+kernels, float32 keeps the unfused chain): a bf16 map takes the fused FPN
+(``ops/cuda_fpn.py``: the K5 kernel on a CUDA device, its plain version on
+the CPU), a float32 map the unfused FPN tail below. The fused stem
+(``ops/cuda_stem.py``) replaces :func:`stem_apply_unfused` in front of
+:func:`resnet50_fpn_apply_from_p1`; ``models/detector.py`` does that.
 """
 
 from __future__ import annotations
@@ -14,9 +20,10 @@ from typing import Any, Dict, List
 import torch
 import torch.nn.functional as F
 
+from snn_automotive_object_detection_tpu_torch.ops.cuda_fpn import fpn_apply
+
 BLOCKS_PER_STAGE = (3, 4, 6, 3)
 STAGE_WIDTHS = (256, 512, 1024, 2048)
-FPN_CHANNELS = 256
 
 
 def conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -52,25 +59,18 @@ def _upsample_nearest_2x(x: torch.Tensor, target_hw) -> torch.Tensor:
     return y[:, :th, :tw, :]
 
 
-def resnet50_fpn_apply(params: Dict[str, Any], x: torch.Tensor,
-                       compute_dtype=torch.bfloat16) -> List[torch.Tensor]:
-    """x: [N, H, W, 3] normalised float. Returns the five NHWC levels
-    [P2, P3, P4, P5, P6 (pool)], 256 channels, strides 4..64."""
-    x = x.to(compute_dtype)
-    stem = params["stem"]
+def stem_apply_unfused(stem: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+    """7x7/2 conv (pad 3) + frozen BN + ReLU + 3x3/2 max-pool (pad 1) of the
+    normalised image ``x`` [N, H, W, 3], op by op, in x's dtype."""
     y = conv_nhwc(x, stem["w"], stride=2, padding=(3, 3))
     y = y * stem["bn"]["scale"].to(y.dtype) + stem["bn"]["bias"].to(y.dtype)
     y = torch.relu(y)
-    y = F.max_pool2d(y.permute(0, 3, 1, 2), 3, 2, padding=1).permute(0, 2, 3, 1)
+    return F.max_pool2d(y.permute(0, 3, 1, 2), 3, 2, padding=1).permute(0, 2, 3, 1)
 
-    cs = []
-    for stage in range(4):
-        for b, bp in enumerate(params[f"layer{stage + 1}"]):
-            y = _bottleneck(y, bp, 2 if (b == 0 and stage > 0) else 1)
-        cs.append(y)
 
-    fpn = params["fpn"]
-
+def fpn_unfused(fpn: Dict[str, Any], cs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The FPN tail op by op in the maps' dtype: lateral 1x1 convs, top-down
+    nearest upsample and add, 3x3 output convs, and the pool level."""
     def inner(i, t):
         return conv_nhwc(t, fpn["inner"][i]["w"]) + fpn["inner"][i]["b"].to(t.dtype)
 
@@ -86,3 +86,26 @@ def resnet50_fpn_apply(params: Dict[str, Any], x: torch.Tensor,
     # LastLevelMaxPool: kernel 1, stride 2 (pure subsampling).
     outs.append(outs[3][:, ::2, ::2])
     return [o.contiguous() for o in outs]
+
+
+def resnet50_fpn_apply_from_p1(params: Dict[str, Any],
+                               y: torch.Tensor) -> List[torch.Tensor]:
+    """Layers 1-4 and the FPN from the stem's output ``y`` [N, H/4, W/4, 64].
+    Returns the five NHWC levels [P2, P3, P4, P5, P6 (pool)], 256 channels,
+    strides 4..64, in y's dtype. A bf16 ``y`` takes the fused FPN."""
+    cs = []
+    for stage in range(4):
+        for b, bp in enumerate(params[f"layer{stage + 1}"]):
+            y = _bottleneck(y, bp, 2 if (b == 0 and stage > 0) else 1)
+        cs.append(y)
+    if y.dtype == torch.bfloat16:
+        return fpn_apply([c.contiguous() for c in cs], params["fpn"])
+    return fpn_unfused(params["fpn"], cs)
+
+
+def resnet50_fpn_apply(params: Dict[str, Any], x: torch.Tensor,
+                       compute_dtype=torch.bfloat16) -> List[torch.Tensor]:
+    """x: [N, H, W, 3] normalised float. The unfused stem, then
+    :func:`resnet50_fpn_apply_from_p1`."""
+    return resnet50_fpn_apply_from_p1(
+        params, stem_apply_unfused(params["stem"], x.to(compute_dtype)))

@@ -16,6 +16,22 @@ from typing import Hashable
 import torch
 
 
+def resolve_device(device, who: str) -> torch.device:
+    """``device`` as a ``torch.device`` with its index; None means the
+    current CUDA device, and raises where there is none: the port runs on
+    the card unless the caller asks for the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{who}: device=None means the CUDA device, and none is "
+                f"available; pass device='cpu' to stay on the CPU")
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 @functools.lru_cache(maxsize=256)
 def device_constant(values: Hashable, dtype: torch.dtype,
                     device: torch.device) -> torch.Tensor:

@@ -30,7 +30,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
-KERNELS = ("rpn_head", "roi_align", "encoder_fc6", "box_tail")
+KERNELS = ("rpn_head", "roi_align", "encoder_fc6", "box_tail", "fpn_level",
+           "stem")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

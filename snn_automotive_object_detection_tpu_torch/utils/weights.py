@@ -14,9 +14,13 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from snn_automotive_object_detection_tpu_torch.utils.constants import resolve_device
+
 
 def from_numpy_tree(tree: Any, device=None, dtype=torch.float32) -> Any:
-    """Same nesting, each numpy leaf a torch tensor of ``dtype``."""
+    """Same nesting, each numpy leaf a torch tensor of ``dtype`` on
+    ``device``; None means the CUDA device and raises where there is none."""
+    device = resolve_device(device, "from_numpy_tree")
     if isinstance(tree, dict):
         return {k: from_numpy_tree(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

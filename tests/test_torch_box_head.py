@@ -34,7 +34,7 @@ from snn_automotive_object_detection_tpu_torch.utils.weights import from_numpy_t
 @pytest.fixture(scope="module")
 def head():
     params = jheads.init_fastrcnn_snn(jax.random.PRNGKey(3), 512, 128, 6)
-    return params, from_numpy_tree(jax.tree.map(np.asarray, params))
+    return params, from_numpy_tree(jax.tree.map(np.asarray, params), device="cpu")
 
 
 @pytest.mark.parametrize("t,dtype", [(4, "float32"), (12, "float32"),

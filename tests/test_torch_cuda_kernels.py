@@ -1,4 +1,4 @@
-"""The four hand-written CUDA kernels against their plain PyTorch versions,
+"""The six hand-written CUDA kernels against their plain PyTorch versions,
 on the card, at small and ragged shapes (the flagship shapes are
 chip_smoke.py's): pixel rows that end inside a 32-pixel segment, RoI rows
 that end inside a row tile, boxes on and past the image border.
@@ -21,13 +21,22 @@ Tolerances, on identical bf16 inputs:
     element a bf16 value;
   * K2: 1e-5 absolute on N(0, 1) features (the same f32 operations on the
     same bf16 values; measured bit-equal on an H100);
-  * K3: 1e-3 absolute (sums of 0/1 x bf16 weights in another order).
+  * K3: 1e-3 absolute (sums of 0/1 x bf16 weights in another order);
+  * K5 merged map and P, K6: ``kernel_checks.chain_excess``: a product sum
+    taken in another order may round one bf16 ulp apart, by 2^-7 of its own
+    magnitude, which the bf16 adds after it (bias, upsample) can largely
+    cancel, so the bound is 2^-7 (roundings |want| + |addends|) + 1e-4; and
+    at most 1% of the elements may differ at all (a rounding made at
+    another place would flip far more). P is held against the plain 3x3 on
+    the kernel's own merged map, so that both sides get the same inputs.
 """
 
 import pytest
 import torch
 
+from snn_automotive_object_detection_tpu_torch.ops import cuda_fpn as k5
 from snn_automotive_object_detection_tpu_torch.ops import cuda_roi_align as k2
+from snn_automotive_object_detection_tpu_torch.ops import cuda_stem as k6
 from snn_automotive_object_detection_tpu_torch.snn import cuda_fc6 as k3
 from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
 from snn_automotive_object_detection_tpu_torch.snn import cuda_tail as k4
@@ -118,6 +127,65 @@ def test_box_tail_kernel_matches_plain(dev, r, t):
     assert kc.excess(box, p_box) <= 1
 
 
+@pytest.mark.parametrize("n,shapes,cins", [
+    (1, [(25, 50), (13, 25), (7, 13), (4, 7)], (256, 512, 1024, 2048)),   # odd pyramid
+    (3, [(9, 17), (5, 9), (3, 5), (2, 3)], (256, 512, 1024, 2048)),       # ragged tiles
+    (2, [(24, 48), (12, 24), (6, 12), (3, 6)], (256, 512, 1024, 2048)),   # exact pyramid
+    (1, [(17, 33), (9, 17), (5, 9), (3, 5)], (32, 64, 96, 160)),   # Cin below the ring's depth
+])
+def test_fpn_level_kernel_matches_plain(dev, n, shapes, cins):
+    g = torch.Generator(device=dev).manual_seed(n + shapes[0][0])
+    merged = None
+    for i in (3, 2, 1, 0):
+        h, w = shapes[i]
+        c = torch.randn((n, h, w, cins[i]), generator=g, device=dev).to(BF)
+        wlat = torch.randn((1, 1, cins[i], 256), generator=g, device=dev) / cins[i] ** 0.5
+        blat = torch.randn(256, generator=g, device=dev) * 0.1
+        wout = torch.randn((3, 3, 256, 256), generator=g, device=dev) / 48.0
+        bout = torch.randn(256, generator=g, device=dev) * 0.1
+        before = cb.LAUNCHES[k5.NAME]
+        got_p, got_m = k5.fpn_level(c, merged, wlat, blat, wout, bout, store_merged=True)
+        torch.cuda.synchronize()
+        assert cb.LAUNCHES[k5.NAME] == before + 1
+        want_m = k5.lateral_plain(c, merged, wlat, blat)
+        addends = [blat.to(BF)]
+        if merged is not None:
+            up = merged.repeat_interleave(2, 1).repeat_interleave(2, 2)[:, :h, :w]
+            addends += [up, up]
+        assert got_m.shape == got_p.shape == (n, h, w, 256) and got_p.dtype == BF
+        assert kc.chain_excess(got_m, want_m, 2 if merged is None else 3, addends) <= 1
+        want_p = k5.outer_plain(got_m, wout, bout)
+        assert kc.chain_excess(got_p, want_p, 2, (bout.to(BF),)) <= 1
+        assert kc.differing(got_m, want_m) <= kc.MAX_DIFFERING * want_m.numel()
+        assert kc.differing(got_p, want_p) <= kc.MAX_DIFFERING * want_p.numel()
+        only_p, none = k5.fpn_level(c, merged, wlat, blat, wout, bout, store_merged=False)
+        assert none is None and torch.equal(only_p, got_p)
+        merged = want_m
+
+
+@pytest.mark.parametrize("n,h,w", [(1, 68, 132), (3, 36, 76), (2, 64, 256), (1, 4, 4)])
+def test_stem_kernel_matches_plain(dev, n, h, w):
+    """H and W multiples of 4 but not of 8 or 256; bucket-padding zeros."""
+    g = torch.Generator(device=dev).manual_seed(h + w)
+    mean, std = (0.2869, 0.3251, 0.2839), (0.1870, 0.1902, 0.1872)
+    images = torch.rand((n, h, w, 3), generator=g, device=dev)
+    images[:, h * 3 // 4:] = 0.0
+    stem = {"w": torch.randn((7, 7, 3, 64), generator=g, device=dev) * 0.025,
+            "bn": {"scale": torch.rand(64, generator=g, device=dev) + 0.5,
+                   "bias": torch.randn(64, generator=g, device=dev) * 0.2}}
+    before = cb.LAUNCHES[k6.NAME]
+    got = k6.stem_apply(stem, images, mean, std)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES[k6.NAME] == before + 1
+    want = k6.stem_plain(stem, images, mean, std)
+    _, bias = k6.fold_stem_weights(stem["w"], stem["bn"]["scale"], stem["bn"]["bias"],
+                                   mean, std)
+    assert got.shape == (n, h // 4, w // 4, 64) and got.dtype == BF
+    assert float(want.float().max()) > 0
+    assert kc.chain_excess(got, want, 2, (bias,)) <= 1
+    assert kc.differing(got, want) <= kc.MAX_DIFFERING * want.numel()
+
+
 def test_kernels_refuse_other_dtypes(dev):
     feat = torch.zeros((1, 2, 2, 256), device=dev)
     with pytest.raises(TypeError):
@@ -125,3 +193,14 @@ def test_kernels_refuse_other_dtypes(dev):
                      torch.zeros((256, 15), device=dev), 4)
     with pytest.raises(TypeError):
         k3.encoder_fc6(torch.zeros((4, 64), device=dev), torch.zeros((64, 64), device=dev), 4)
+    with pytest.raises(TypeError):
+        k5.fpn_level(torch.zeros((1, 4, 4, 256), device=dev), None,
+                     torch.zeros((1, 1, 256, 256), device=dev), torch.zeros(256, device=dev),
+                     torch.zeros((3, 3, 256, 256), device=dev), torch.zeros(256, device=dev),
+                     store_merged=False)
+    with pytest.raises(TypeError):
+        k6.stem_apply({"w": torch.zeros((7, 7, 3, 64), device=dev),
+                       "bn": {"scale": torch.ones(64, device=dev),
+                              "bias": torch.zeros(64, device=dev)}},
+                      torch.zeros((1, 8, 8, 3), device=dev, dtype=torch.float64),
+                      (0.5, 0.5, 0.5), (0.2, 0.2, 0.2))

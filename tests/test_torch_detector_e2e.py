@@ -110,7 +110,7 @@ def _run_both():
                        "original_sizes": jnp.asarray(orig)},
                       jcfg, training=False, collect_rates=True)
     jdet = jax.tree.map(np.asarray, jdet)
-    tparams = from_numpy_tree(params)
+    tparams = from_numpy_tree(params, device="cpu")
     tbatch = {"images": torch.from_numpy(images), "image_sizes": torch.from_numpy(sizes),
               "original_sizes": torch.from_numpy(orig)}
     tdet = detector_apply(tparams, tbatch, tcfg, collect_rates=True)

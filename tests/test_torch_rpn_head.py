@@ -36,7 +36,7 @@ def setup():
     params = jheads.init_rpn_head_snn(jax.random.PRNGKey(0), 256, 3)
     feats = [rng.uniform(0, 2.0, (2, h, w, 256)).astype(np.float32)
              for h, w in SHAPES]
-    tparams = from_numpy_tree(jax.tree.map(np.asarray, params))
+    tparams = from_numpy_tree(jax.tree.map(np.asarray, params), device="cpu")
     return params, tparams, feats
 
 
