@@ -38,6 +38,18 @@ MUTANTS = [
      "o.x = __float2bfloat16_rn(bf16_round(acc[i][nt][2 * h]) + __bfloat162float(bout[ch]));",
      "o.x = __float2bfloat16_rn(acc[i][nt][2 * h] + __bfloat162float(bout[ch]));",
      "check_fpn", "fpn_level"),
+    ("K7: the last reverse step (t = 0) left out",
+     "rpn_head_bwd.cu", "for (int t = T - 1; t >= 0; --t) {", "for (int t = T - 1; t >= 1; --t) {",
+     "check_rpn_bwd", "rpn_head_bwd or rpn_level_train"),
+    ("K7: the reset's gate (1 - s_t) left out of the reverse step",
+     "rpn_head_bwd.cu", "const float keep = (u > 0.0f) ? 0.0f : 1.0f;     // 1 - s_t",
+     "const float keep = 1.0f;", "check_rpn_bwd", "rpn_head_bwd or rpn_level_train"),
+    ("K7: the weight gradient's spikes shifted against the tap (x mirrored)",
+     "rpn_head_bwd.cu", "const int gx = x0 + px + dx;", "const int gx = x0 + px - dx;",
+     "check_rpn_bwd", "rpn_head_bwd or rpn_level_train"),
+    ("K7: the first split's partial left out of the fixed-order sum",
+     "rpn_head_bwd.cu", "for (int sp = 0; sp < S; ++sp) {", "for (int sp = 1; sp < S; ++sp) {",
+     "check_rpn_bwd", "rpn_head_bwd or rpn_level_train"),
 ]
 
 PHASE = """

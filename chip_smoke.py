@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
   1. device  - a CUDA device must be present; prints its name and power
                limit as nvidia-smi reports them.
-  2. build   - compiles the six hand-written kernels from
+  2. build   - compiles the seven hand-written kernels from
                snn_automotive_object_detection_tpu_torch/csrc (one nvcc per
                source, all started together).
   3. kernels - at the flagship shapes (768x1536 bucket, batch 2, 1000
@@ -22,7 +22,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
                (compulsory bytes over 3.35 TB/s against operations over the
                dense bf16 tensor-core and the f32 peak, counting the spikes
                these inputs produce), and for the stem and the FPN the time
-               of the unfused cuDNN chain in bf16 on the same inputs.
+               of the unfused cuDNN chain in bf16 on the same inputs. The
+               RPN head's backward kernel gets seeded cotangents: both
+               weight gradients within 5e-4 of their largest element, the
+               replay's spike sum equal to the forward kernel's neuron by
+               neuron, and the same bits on a second run.
   4. main    - the flagship detector (ResNet-50-FPN, spiking RPN and box
                heads, bf16 GEMMs, f32 neuron states, random weights from a
                seed) on synthetic 2 x 768 x 1536 batches through
@@ -31,6 +35,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
                may have run on the GPU, outputs must be finite and well
                formed; prints images/s, then one more batch under
                torch.profiler: device time by kernel and the busy share.
+  5. train   - the same configuration with a frozen backbone through
+               make_train_step (AdamW) on a seeded 2 x 768 x 1536 batch with
+               seeded targets: one warm-up step, three timed ones. The four
+               losses must be finite, the gradients of the RPN head and the
+               box head finite and not all zero, every trainable leaf must
+               have moved and no frozen one; per step the stem kernel
+               launches once, the RPN head's forward and backward kernels
+               five times each and the four inference-only kernels never,
+               and no plain version runs on the GPU. Prints steps/s,
+               images/s, peak memory and one profiled step by kernel with
+               its count of stream synchronisations.
 
 The line before last is a JSON object listing the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -233,6 +248,7 @@ def check_kernels(dev, results):
                    10.0 * 12 * 2000 * (2 * 1024 + 45)))
     check_fpn(dev, g, results)
     check_stem(dev, g, results)
+    check_rpn_bwd(dev, g, results)
 
 
 def check_fpn(dev, g, results):
@@ -369,6 +385,68 @@ def check_stem(dev, g, results):
             _bound(_nbytes(images, wk, bias, got), 2.0 * 147 * 64 * 2 * 384 * 768), lms)
 
 
+def check_rpn_bwd(dev, g, results):
+    """K7: the RPN head's backward for its weights, all five levels at
+    flagship shapes, T = 8, features at the K1 check's rate."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
+    from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
+
+    bf = torch.bfloat16
+    levels = [(192, 384), (96, 192), (48, 96), (24, 48), (12, 24)]
+    feats = [torch.rand((2, h, w, 256), generator=g, device=dev).mul(2.0).to(bf)
+             for h, w in levels]
+    cots = [torch.randn((2, h, w, 15), generator=g, device=dev) for h, w in levels]
+    w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.01
+    w_out = torch.randn((256, 15), generator=g, device=dev) * 0.01
+    w9, wo = k1._taps(w_shared), w_out.to(bf).contiguous()
+
+    def kernel(spike_sum=False):
+        return [k1._launch_bwd(f, w9, wo, c, 8, spike_sum) for f, c in zip(feats, cots)]
+
+    def plain(spike_sum=False):
+        return [k1.rpn_level_bwd_plain(f, w_shared, w_out, c, 8, spike_sum)
+                for f, c in zip(feats, cots)]
+
+    got, again, want = kernel(True), kernel(), plain(True)
+    fwd = [k1._launch(f, w9, wo, 8, True) for f in feats]
+    err = worst = 0.0
+    for (h, w), a, a2, b, fw, c in zip(levels, got, again, want, fwd, cots):
+        want9 = b[0].reshape(9, 256, 256)
+        replay = int((a[2] != fw[3]).sum())        # against K1's spike sum
+        flips = int((a[2] != b[2]).sum())          # forward kernel against plain version
+        # dwout is linear in the spike sums: where the two forwards differ in
+        # a spike it is held against the plain product of the replay's own.
+        want_out = b[1] if flips == 0 else k1.dwout_plain(a[2], c)
+        ex9, exo = kc.grad_excess(a[0], want9), kc.grad_excess(a[1], want_out)
+        e9, eo = (a[0] - want9).abs().max().item(), (a[1] - want_out).abs().max().item()
+        same = bool(torch.equal(a[0], a2[0]) and torch.equal(a[1], a2[1]))
+        print(f"K7 rpn_head_bwd [2, {h}, {w}, 256]: max|dw9 diff| {e9:.3g} at max|dw9| "
+              f"{want9.abs().max().item():.4g} ({ex9:.3g} of the bound {kc.GRAD_REL} of "
+              f"the largest element); max|dwout diff| {eo:.3g} at max|dwout| "
+              f"{b[1].abs().max().item():.4g} ({exo:.3g} of the bound); neurons whose "
+              f"replayed spike sum differs from the forward kernel's {replay}, from the "
+              f"plain version's {flips}; same bits on a second run {same}")
+        if not (ex9 <= 1 and exo <= 1) or replay != 0 or not same \
+                or flips > 1e-3 * int((b[2] != 0).sum()) or not want9.abs().max().item() > 0:
+            _fail(f"K7 disagrees with its plain version on [2, {h}, {w}, 256]")
+        err, worst = max(err, e9, eo), max(worst, ex9, exo)
+    print(f"K7 rpn_head_bwd: max |diff| {err:.3g}, {worst:.3g} of the bound")
+    ms, pms = _median_ms(kernel, 10), _median_ms(plain, 3)
+    # The replayed conv and the weight gradient each do 2 x 256 operations
+    # for each of the (at most) 9 outputs or taps an encoder spike reaches;
+    # gw and dwout are dense products with the 15 readout channels; the
+    # replay's LIF update and the reverse step take about 25 f32 operations
+    # per neuron and step.
+    enc = sum(a[1].sum().item() for a in fwd)
+    px = [2 * h * w for h, w in levels]
+    _record(results, "rpn_head_bwd", "snn/pallas_rpn.py:1012", err, ms, pms,
+            _bound(_nbytes(*feats, *cots, w9, wo, *[a[0] for a in got], *[a[1] for a in got]),
+                   2 * 2.0 * enc * 9 * 256 + sum(2 * 2.0 * p * 256 * 15 for p in px),
+                   25.0 * 8 * 256 * sum(px)))
+
+
 def _pre_nms_rows(cfg):
     h, w = cfg.bucket
     return sum(min(cfg.rpn.pre_nms_top_n_test, (h // s) * (w // s) * 3)
@@ -395,9 +473,10 @@ def _check_outputs(out, n, p, d, c, s):
                 _fail(f"{group}/{k}: rates outside [0, 1]")
 
 
-def _profile(run):
+def _profile(run, what="batch"):
     """Device time of one ``run()`` by kernel, the device's busy share of
-    the wall time, and the host-side ops with the most self time."""
+    the wall time, the count of synchronisations, and the host-side ops
+    with the most self time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -419,9 +498,11 @@ def _profile(run):
     busy = sum(r[0] for r in rows)
     if busy <= 0:
         _fail("the profiler recorded no device time")
-    print(f"profile: one batch {wall_us / 1e3:.3f} ms wall, {busy / 1e3:.3f} ms "
+    syncs = sum(h[1] for h in host if "Synchronize" in h[2])
+    print(f"profile: one {what} {wall_us / 1e3:.3f} ms wall, {busy / 1e3:.3f} ms "
           f"kernel and copy time on the device ({100 * busy / wall_us:.1f}% busy), "
-          f"{sum(r[1] for r in rows)} device events")
+          f"{sum(r[1] for r in rows)} device events, {syncs} stream or device "
+          f"synchronisations")
     for us, count, key in rows[:25]:
         print(f"profile: {us / 1e3:10.3f} ms {100 * us / busy:5.1f}% x{count:<4d} {key[:90]}")
     for us, count, key in host[:10]:
@@ -451,7 +532,7 @@ def main_path(dev, iters=5):
     cb.reset_counts()
     t0 = time.perf_counter()
     for i in range(iters):
-        out = detector_apply(params, batches[i % 2], cfg, collect_rates=True)
+        out, _ = detector_apply(params, batches[i % 2], cfg, collect_rates=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(cb.LAUNCHES)
@@ -460,7 +541,8 @@ def main_path(dev, iters=5):
     print(f"main path: {iters} batches of {n} x {h} x {w}: launches {launches}, "
           f"plain versions on the GPU {plain_calls}")
     want = {"rpn_head": 5 * iters, "roi_align": iters, "encoder_fc6": iters,
-            "box_tail": iters, "fpn_level": 4 * iters, "stem": iters}
+            "box_tail": iters, "fpn_level": 4 * iters, "stem": iters,
+            "rpn_head_bwd": 0}
     if launches != want:
         _fail(f"the main path's launches are not {want}")
     if any(v != 0 for v in plain_calls.values()):
@@ -477,6 +559,93 @@ def main_path(dev, iters=5):
     print(f"main path: {ips:.3f} images/s ({dt / iters * 1000:.1f} ms per batch, "
           f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB)")
     _profile(lambda: detector_apply(params, batches[0], cfg, collect_rates=True))
+    return launches
+
+
+def _tree_sums(leaves):
+    import torch
+
+    return torch.stack([leaf.detach().double().sum() for leaf in leaves])
+
+
+def train_path(dev, steps=3):
+    """The flagship training step, frozen backbone, through make_train_step."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.models.factory import (
+        DetectorConfig, init_params)
+    from snn_automotive_object_detection_tpu_torch.train import optim
+    from snn_automotive_object_detection_tpu_torch.train.steps import make_train_step
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+    from snn_automotive_object_detection_tpu_torch.utils.weights import (
+        flatten_tree, tree_leaves)
+
+    cfg = DetectorConfig(num_classes=9, t_rpn=8, t_det=12)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    trainable, frozen = optim.split_trainable(params)
+    optimizer, scheduler = optim.build_optimizer(trainable, "AdamW", 0.0025)
+    step = make_train_step(cfg, optimizer, scheduler)
+
+    n, (h, w), n_gt = 2, cfg.bucket, 8
+    g = torch.Generator(device=dev).manual_seed(2)
+    # Targets: 3 and 5 valid boxes inside the image, labels in 1..8, padded
+    # to 8 rows per image.
+    ctr = torch.rand((n, n_gt, 2), generator=g, device=dev) * torch.tensor(
+        [w - 400.0, h - 300.0], device=dev) + torch.tensor([200.0, 150.0], device=dev)
+    half = torch.rand((n, n_gt, 2), generator=g, device=dev) * torch.tensor(
+        [170.0, 120.0], device=dev) + 20.0
+    valid = torch.arange(n_gt, device=dev)[None] < torch.tensor([[3], [5]], device=dev)
+    batch = {"images": torch.rand((n, h, w, 3), generator=g, device=dev),
+             "image_sizes": torch.tensor([[h, w]] * n, device=dev),
+             "original_sizes": torch.tensor([[1024, 2048]] * n, device=dev),
+             "targets": {"boxes": torch.cat([ctr - half, ctr + half], dim=-1),
+                         "labels": torch.randint(1, 9, (n, n_gt), generator=g, device=dev),
+                         "valid": valid}}
+    t_leaves, f_leaves = tree_leaves(trainable), tree_leaves(frozen)
+    t_before, f_before = _tree_sums(t_leaves), _tree_sums(f_leaves)
+
+    first = step(trainable, frozen, batch, g)          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cb.reset_counts()
+    t0 = time.perf_counter()
+    history = [step(trainable, frozen, batch, g) for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(cb.LAUNCHES)
+    plain_calls = dict(cb.PLAIN_CUDA_CALLS)
+
+    print(f"training: {steps} steps of {n} x {h} x {w}: launches {launches}, plain "
+          f"versions on the GPU {plain_calls}")
+    want = {"stem": steps, "rpn_head": 5 * steps, "rpn_head_bwd": 5 * steps,
+            "roi_align": 0, "encoder_fc6": 0, "box_tail": 0, "fpn_level": 0}
+    if launches != want:
+        _fail(f"the training path's launches are not {want}")
+    if any(v != 0 for v in plain_calls.values()):
+        _fail("a plain version ran on the GPU in the training path")
+    names = ("loss_objectness", "loss_rpn_box_reg", "loss_classifier", "loss_box_reg")
+    for i, losses in enumerate([first] + history):
+        row = {k: round(losses[k].item(), 5) for k in names + ("loss_total",)}
+        print(f"training: step {i} losses {row}")
+        if sorted(losses) != sorted(names + ("loss_total",)) or not all(
+                torch.isfinite(v).all() for v in losses.values()):
+            _fail("a training loss is missing or not finite")
+    for group in ("rpn_head", "box_head"):
+        for name, leaf in flatten_tree(trainable[group]).items():
+            gr = leaf.grad
+            if gr is None or not torch.isfinite(gr).all() or not (gr != 0).any():
+                _fail(f"the gradient of {group}/{name} is missing, not finite or all zero")
+            print(f"training: max |grad {group}/{name}| {gr.abs().max().item():.4g}")
+    if bool((_tree_sums(t_leaves) == t_before).any()):
+        _fail("a trainable leaf did not move")
+    if not torch.equal(_tree_sums(f_leaves), f_before) or any(
+            leaf.grad is not None for leaf in f_leaves):
+        _fail("a frozen leaf moved or got a gradient")
+    print(f"training: {steps / dt:.3f} steps/s, {n * steps / dt:.3f} images/s "
+          f"({dt / steps * 1000:.1f} ms per step, peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB); {len(t_leaves)} "
+          f"trainable leaves moved, {len(f_leaves)} frozen leaves did not")
+    _profile(lambda: step(trainable, frozen, batch, g), "training step")
     return launches
 
 
@@ -519,9 +688,12 @@ def main() -> int:
 
     results = []
     check_kernels(dev, results)
-    launches = main_path(dev)
+    by_path = {"inference": main_path(dev), "training": train_path(dev)}
     for r in results:
-        r["launches"] = launches[r["name"]]
+        r["launches_by_path"] = {k: v[r["name"]] for k, v in by_path.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
+        if r["launches"] == 0:
+            _fail(f"{r['name']} was launched on no path")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,76 +34,16 @@
 // spike sum goes through shared memory into the 15-channel readout, so the
 // level needs one launch and no second pass. Spike counts are exact 64-bit
 // integers.
+//
+// The shared-memory layout, the encoder's period map and spike halo and the
+// conv step live in rpn_head_common.cuh, which the backward kernel
+// (rpn_head_bwd.cu) includes too: its replay runs the same code.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "rpn_head_common.cuh"
 
-using namespace nvcuda;
+using namespace rpn;
 
 namespace {
-
-constexpr int kC = 256;            // channels in and out of the 3x3 conv
-constexpr int kTP = 32;            // pixels per block (one row segment)
-constexpr int kHalo = kTP + 2;     // halo width
-constexpr int kLdz = 272;          // spike row stride: 544 B keeps WMMA pointers 32 B aligned
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxT = 32;
-constexpr int kMaxOut = 64;
-
-constexpr int kStageRows = 64;     // tap-weight rows (input channels) per stage
-constexpr int kStages = 3;         // ring depth: stage s + 2 loads while s computes
-constexpr int kLdw = kC + 8;       // stage row stride: 528 B keeps fragment pointers 32 B aligned
-constexpr int kStagesPerStep = 9 * kC / kStageRows;
-
-constexpr int kPerBytes = 3 * kHalo * kC;                       // uint8 periods
-constexpr int kZBytes = 3 * kHalo * kLdz * 2;                   // bf16 spikes
-constexpr int kIdxOff = kPerBytes + kZBytes;
-constexpr int kConstOff = kIdxOff + 256 * 4;
-constexpr int kMaskOff = kConstOff + 2 * kMaxT * 4;
-constexpr int kWOff = (kMaskOff + kMaxT * 8 + 127) / 128 * 128;
-constexpr int kStageBytes = kStageRows * kLdw * 2;
-constexpr int kSmemBytes = kWOff + kStages * kStageBytes;
-
-static_assert(kPerBytes % 128 == 0, "spike halo must stay aligned");
-static_assert(kIdxOff % 32 == 0 && kStageBytes % 32 == 0, "fragment pointers need 32 B");
-static_assert(kTP * kC * 4 <= kZBytes, "spike-sum staging reuses the spike halo");
-static_assert(kStageRows * kC / 8 % kThreads == 0, "whole 16-byte copies per thread");
-static_assert(kSmemBytes <= 232448, "shared memory of one block");
-
-using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_one() {  // all but the newest group
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// Stage s of a step: rows (s % 4) * 64 .. + 63 of tap s / 4, into the ring.
-__device__ __forceinline__ void load_stage(__nv_bfloat16* ring, const __nv_bfloat16* w9,
-                                           int s, int tid) {
-  if (s >= kStagesPerStep) return;
-  __nv_bfloat16* dst = ring + (s % kStages) * (kStageRows * kLdw);
-  const __nv_bfloat16* src = w9 + (int64_t)s * kStageRows * kC;  // taps are contiguous
-#pragma unroll
-  for (int i = 0; i < kStageRows * kC / 8 / kThreads; ++i) {
-    const int q = tid + kThreads * i;
-    const int row = q / (kC / 8);
-    const int col = (q % (kC / 8)) * 8;
-    cp_async16(dst + row * kLdw + col, src + row * kC + col);
-  }
-}
 
 __device__ __forceinline__ unsigned long long warp_sum(unsigned long long v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -120,13 +60,7 @@ rpn_level_kernel(const __nv_bfloat16* __restrict__ feat,   // [N, H, W, C]
                  float* __restrict__ ssum_out,             // [N, H, W, C] or null
                  int H, int W, int T, int n_out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  uint8_t* per = smem;
-  __nv_bfloat16* z = reinterpret_cast<__nv_bfloat16*>(smem + kPerBytes);
-  float* idx = reinterpret_cast<float*>(smem + kIdxOff);
-  float* thr = reinterpret_cast<float*>(smem + kConstOff);
-  float* li = thr + kMaxT;
-  unsigned long long* spk_mask = reinterpret_cast<unsigned long long*>(smem + kMaskOff);
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem + kWOff);
+  const Smem sm = carve(smem);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -137,115 +71,28 @@ rpn_level_kernel(const __nv_bfloat16* __restrict__ feat,   // [N, H, W, C]
   const int ph = warp >> 3;          // pixel half: pixels ph*16 .. ph*16+15
   const int cg = warp & 7;           // channels cg*32 .. cg*32+31
 
-  if (tid < 256) idx[tid] = (float)tid;
-  if (tid < T) {
-    thr[tid] = consts[tid];
-    li[tid] = consts[T + tid];
-    unsigned long long m = 0;  // periods p <= T + 1 that spike at step tid
-    for (int p = 1; p <= T + 1; ++p) m |= ((tid + 1) % p == 0) ? (1ull << p) : 0ull;
-    spk_mask[tid] = m;
-  }
+  load_constants(sm, consts, T, tid);
   __syncthreads();
-
-  // Period map of the 3 x 34 halo, 8 channels per item. Outside the image
-  // the conv's zero padding never spikes: period T + 1.
-  constexpr int kVec = 8;
-  constexpr int kItems = 3 * kHalo * kC / kVec;
-  for (int q = tid; q < kItems; q += kThreads) {
-    const int e0 = q * kVec;
-    const int row = e0 / (kHalo * kC);
-    const int hp = (e0 / kC) % kHalo;
-    const int ch = e0 % kC;
-    const int gy = y + row - 1;
-    const int gx = x0 + hp - 1;
-    uint8_t p8[kVec];
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          feat + (((int64_t)n * H + gy) * W + gx) * kC + ch);
-      const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&raw);
-      for (int j = 0; j < kVec; ++j) {
-        const float xf = __bfloat162float(xv[j]);
-        int p = 1;
-        for (int m = 0; m < T; ++m) p += (xf * thr[m] <= 0.25f) ? 1 : 0;
-        p8[j] = (uint8_t)p;
-      }
-    } else {
-      for (int j = 0; j < kVec; ++j) p8[j] = (uint8_t)(T + 1);
-    }
-    *reinterpret_cast<uint2*>(per + e0) = *reinterpret_cast<const uint2*>(p8);
-  }
+  build_period_map(sm, feat, n, y, x0, H, W, T, tid);
 
   Acc pos, acc[2], v[2], cu[2], ss[2];
-  wmma::load_matrix_sync(pos, idx, 16, wmma::mem_row_major);
+  wmma::load_matrix_sync(pos, sm.idx, 16, wmma::mem_row_major);
   for (int f = 0; f < 2; ++f) {
     wmma::fill_fragment(v[f], 0.0f);
     wmma::fill_fragment(cu[f], 0.0f);
     wmma::fill_fragment(ss[f], 0.0f);
   }
   unsigned long long enc_cnt = 0, lif_cnt = 0;
-  const __nv_bfloat16 one = __float2bfloat16(1.0f);
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
-    // The first two weight stages load while the spikes are built (the
-    // previous step ended with a barrier, so the ring is free).
-    load_stage(ring, w9, 0, tid);
-    cp_async_commit();
-    load_stage(ring, w9, 1, tid);
-    cp_async_commit();
-
-    // Encoder spikes of the halo for this step.
-    const unsigned long long m_t = spk_mask[t];
-    for (int q = tid; q < kItems; q += kThreads) {
-      const int e0 = q * kVec;
-      const int row = e0 / (kHalo * kC);
-      const int hp = (e0 / kC) % kHalo;
-      const int ch = e0 % kC;
-      const uint2 praw = *reinterpret_cast<const uint2*>(per + e0);
-      const uint8_t* p8 = reinterpret_cast<const uint8_t*>(&praw);
-      __align__(16) __nv_bfloat16 zv[kVec];
-      int nz = 0;
-      for (int j = 0; j < kVec; ++j) {
-        const bool s = (m_t >> p8[j]) & 1ull;
-        zv[j] = s ? one : zero;
-        nz += s ? 1 : 0;
-      }
-      *reinterpret_cast<uint4*>(z + (row * kHalo + hp) * kLdz + ch) =
-          *reinterpret_cast<const uint4*>(zv);
-      if (row == 1 && hp >= 1 && hp <= kTP && x0 + hp - 1 < W) enc_cnt += nz;
-    }
-
-    // 3x3 conv on the tensor cores, the tap weights streaming through the ring.
-    wmma::fill_fragment(acc[0], 0.0f);
-    wmma::fill_fragment(acc[1], 0.0f);
-    for (int st = 0; st < kStagesPerStep; ++st) {
-      cp_async_wait_one();  // stage st has landed (for this thread's copies)
-      __syncthreads();      // ... for all threads; stage st - 1 is consumed
-      load_stage(ring, w9, st + 2, tid);
-      cp_async_commit();    // possibly empty, which keeps the group count uniform
-      const int k = st / (kC / kStageRows);
-      const int dy = k / 3 - 1;
-      const int dx = k % 3 - 1;
-      const int kc0 = (st % (kC / kStageRows)) * (kStageRows / 16);
-      const __nv_bfloat16* a_base =
-          z + ((1 + dy) * kHalo + ph * 16 + 1 + dx) * kLdz + kc0 * 16;
-      const __nv_bfloat16* b_base = ring + (st % kStages) * (kStageRows * kLdw) + cg * 32;
-#pragma unroll
-      for (int kk = 0; kk < kStageRows / 16; ++kk) {
-        FragA a;
-        FragB b0, b1;
-        wmma::load_matrix_sync(a, a_base + kk * 16, kLdz);
-        wmma::load_matrix_sync(b0, b_base + kk * 16 * kLdw, kLdw);
-        wmma::load_matrix_sync(b1, b_base + kk * 16 * kLdw + 16, kLdw);
-        wmma::mma_sync(acc[0], a, b0, acc[0]);
-        wmma::mma_sync(acc[1], a, b1, acc[1]);
-      }
-    }
+    prefetch_weights(sm, w9, tid);
+    enc_cnt += build_spikes(sm, t, x0, W, tid);
+    conv_step(acc, sm, w9, tid, ph, cg);
 
     // LIF (f32 state; the conv current is rounded to bf16 first) and the
     // LI-weighted spike sum.
-    const float lit = li[t];
+    const float lit = sm.li[t];
     for (int f = 0; f < 2; ++f) {
       for (int e = 0; e < acc[f].num_elements; ++e) {
         const float cur = __bfloat162float(__float2bfloat16_rn(acc[f].x[e]));
@@ -265,7 +112,7 @@ rpn_level_kernel(const __nv_bfloat16* __restrict__ feat,   // [N, H, W, C]
   }
 
   // Spike sum -> shared memory -> fused readout, rounded to bf16.
-  float* stage = reinterpret_cast<float*>(z);
+  float* stage = reinterpret_cast<float*>(sm.z);
   for (int f = 0; f < 2; ++f) {
     wmma::store_matrix_sync(stage + (ph * 16) * kC + cg * 32 + f * 16, ss[f], kC,
                             wmma::mem_row_major);

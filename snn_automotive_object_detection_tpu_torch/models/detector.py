@@ -1,11 +1,11 @@
-"""Detector assembly, eval path: backbone -> RPN -> RoI heads -> outputs.
+"""Detector assembly: backbone -> RPN -> RoI heads -> outputs or losses.
 
 Port of ``snn_automotive_object_detection_tpu/models/detector.py``
-(``detector_apply`` with training=False; reference generalized_rcnn.py and
-faster_rcnn.py at inference): normalise, frozen ResNet-50-FPN (5 levels),
-spiking RPN over all levels, RoIAlign and the spiking box head over levels
-0-3, open-set postprocess; detections, pre-NMS proposals and ``all_boxes``
-are rescaled to the original image sizes.
+(reference generalized_rcnn.py and faster_rcnn.py): normalise, frozen
+ResNet-50-FPN (5 levels), spiking RPN over all levels, RoIAlign and the
+spiking box head over levels 0-3. At inference the open-set postprocess
+follows; detections, pre-NMS proposals and ``all_boxes`` are rescaled to
+the original image sizes. In training the four losses come back instead.
 
 On a CUDA device the four spiking-core stages run as hand-written kernels
 (K1 RPN head, K2 RoIAlign, K3 encoder+fc6, K4 box tail); on the CPU they
@@ -17,12 +17,18 @@ with bf16 the raw image goes through the fused stem (K6, normalisation
 folded in) and the levels through the fused FPN (K5), kernels on a CUDA
 device and plain versions on the CPU; with float32 the image is normalised
 and takes the unfused chain on either device.
+
+In training the route changes with what needs a gradient (see
+:func:`make_head_applies` and ``_detector_apply``): the fused stem serves
+while the stem is frozen, the FPN runs unfused, the RPN head is K1 with K7
+as its backward while the backbone is frozen, RoIAlign is the gather
+version and the box head the scan under autograd.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -50,53 +56,115 @@ def _anchors(shapes, image_size, spec, device):
         return torch.cat(levels, dim=0), tuple(a.shape[0] for a in levels)
 
 
-@torch.inference_mode()
+def make_head_applies(config, params, collect_rates: bool, training: bool = False):
+    """The RPN head's and the box head's apply functions for this call.
+
+    The device, the dtype, ``training`` and the trainable backbone stages
+    pick the route; there is no flag. Outside training both heads run on
+    their kernels (plain versions on the CPU). In training the box head is
+    the scan under autograd, and the RPN head is the forward kernel with
+    the backward kernel as its gradient when the compute dtype is bf16, the
+    backbone is frozen (that gradient is for the weights only) and no rates
+    are collected; otherwise it is the scan too.
+    """
+    cd = config.compute_dtype
+    kernel_rpn_train = (cd == torch.bfloat16 and not collect_rates
+                        and config.backbone_trainable_stages == 0)
+
+    def rpn_head_apply(features):
+        if not training:
+            return heads.rpn_head_snn_apply(params["rpn_head"], features,
+                                            config.t_rpn, collect_rates, cd)
+        if kernel_rpn_train:
+            return heads.rpn_head_snn_train_apply(params["rpn_head"], features,
+                                                  config.t_rpn, cd)
+        return heads.rpn_head_snn_scan_apply(params["rpn_head"], features,
+                                             config.t_rpn, collect_rates, cd)
+
+    def box_head_apply(flat):
+        apply = heads.fastrcnn_snn_scan_apply if training else heads.fastrcnn_snn_apply
+        return apply(params["box_head"], flat, config.t_det, collect_rates, cd)
+
+    return rpn_head_apply, box_head_apply
+
+
 def detector_apply(params: Dict, batch: Dict[str, torch.Tensor], config,
-                   collect_rates: bool = False) -> Dict[str, torch.Tensor]:
+                   training: bool = False,
+                   generator: Optional[torch.Generator] = None,
+                   collect_rates: bool = False, draws: Optional[Dict] = None):
     """Run the detector on one bucketed batch.
 
     batch: images [N, Hb, Wb, 3] float in [0, 1]; image_sizes [N, 2] valid
-    (h, w) after resize; original_sizes [N, 2] (h, w) before resize.
+    (h, w) after resize; original_sizes [N, 2] (h, w) before resize; in
+    training also targets {"boxes" [N, G, 4] in resized coordinates,
+    "labels" [N, G], "valid" [N, G]}. The samplers draw from ``generator``
+    (on the batch's device), or take the uniform draws given as ``draws`` =
+    {"rpn": (rp, rn), "roi": (rp, rn, r_pack)}.
 
-    Returns boxes/scores/labels/valid [N, D + P, ...] (D FG detections,
-    then P BG slots), proposals [N, S, 4] and objectness [N, S] (pre-NMS),
-    all_scores [N, P, C], all_boxes [N, P, C, 4], and with collect_rates
-    rpn_rates {"encoder", "shared": [L, N]} and det_rates {"encoder",
-    "fc6", "fc7": [N * P]}.
+    Returns (detections, losses). Outside training, under inference mode:
+    boxes/scores/labels/valid [N, D + P, ...] (D FG detections, then P BG
+    slots), proposals [N, S, 4] and objectness [N, S] (pre-NMS), all_scores
+    [N, P, C], all_boxes [N, P, C, 4], with collect_rates rpn_rates
+    {"encoder", "shared": [L, N]} and det_rates {"encoder", "fc6", "fc7":
+    [N * P]}; losses is empty. In training: detections holds the rates
+    only (when collected) and losses the four of loss_objectness,
+    loss_rpn_box_reg, loss_classifier and loss_box_reg.
     """
+    if training:
+        return _detector_apply(params, batch, config, True, generator,
+                               collect_rates, draws or {})
+    with torch.inference_mode():
+        return _detector_apply(params, batch, config, False, None,
+                               collect_rates, {})
+
+
+def _detector_apply(params, batch, config, training, generator, collect_rates,
+                    draws):
     images = batch["images"]
     cd = config.compute_dtype
     _, hb, wb, _ = images.shape
-    if cd == torch.bfloat16:
+    # Top trainable backbone stages; 0 outside training. The fused stem has
+    # no gradient, which is fine while the stem is frozen; the fused FPN is
+    # for inference.
+    tbl = config.backbone_trainable_stages if training else 0
+    if cd == torch.bfloat16 and tbl < 5:
         if images.dtype == torch.uint8:
             images = images.float() / 255.0
         p1 = stem_apply(params["backbone"]["stem"], images, config.image_mean,
                         config.image_std)
-        feats = resnet50_fpn_apply_from_p1(params["backbone"], p1)
+        feats = resnet50_fpn_apply_from_p1(params["backbone"], p1, tbl,
+                                           fused_fpn=not training)
     else:
         x = normalize_images(images, config.image_mean, config.image_std)
-        feats = resnet50_fpn_apply(params["backbone"], x, cd)
+        feats = resnet50_fpn_apply(params["backbone"], x, cd, tbl, not training)
+    # With no trainable stage the whole backbone, FPN included, is frozen.
+    if not (training and tbl > 0):
+        feats = [f.detach() for f in feats]
 
     shapes = tuple((f.shape[1], f.shape[2]) for f in feats)
     anchors, anchor_counts = _anchors(shapes, (hb, wb), config.anchor_spec,
                                       images.device)
-
-    def rpn_head_apply(features):
-        return heads.rpn_head_snn_apply(params["rpn_head"], features,
-                                        config.t_rpn, collect_rates, cd)
-
-    def box_head_apply(flat):
-        return heads.fastrcnn_snn_apply(params["box_head"], flat, config.t_det,
-                                        collect_rates, cd)
+    rpn_head_apply, box_head_apply = make_head_applies(config, params,
+                                                       collect_rates, training)
 
     img_sizes = batch["image_sizes"]
-    orig_sizes = batch["original_sizes"]
-    proposals = rpn_mod.rpn_forward(
-        rpn_head_apply, feats, anchors, anchor_counts, img_sizes, config.rpn)
-    det = roi_mod.roi_heads_forward(
+    proposals, rpn_losses = rpn_mod.rpn_forward(
+        rpn_head_apply, feats, anchors, anchor_counts, img_sizes, config.rpn,
+        training, batch.get("targets"), generator, draws.get("rpn"))
+    det, roi_losses = roi_mod.roi_heads_forward(
         box_head_apply, feats[:-1], proposals["boxes"], proposals["valid"],
-        img_sizes, (hb, wb), config.roi)
+        img_sizes, (hb, wb), config.roi, training, batch.get("targets"),
+        generator, draws.get("roi"))
+    losses = {**rpn_losses, **roi_losses}
 
+    if training:
+        out = {}
+        if collect_rates:
+            out["rpn_rates"] = proposals["rates"]
+            out["det_rates"] = det["rates"]
+        return out, losses
+
+    orig_sizes = batch["original_sizes"]
     out = {
         "boxes": rescale_boxes(det["boxes"], img_sizes, orig_sizes),
         "scores": det["scores"],
@@ -111,4 +179,4 @@ def detector_apply(params: Dict, batch: Dict[str, torch.Tensor], config,
     if collect_rates:
         out["rpn_rates"] = proposals["rates"]
         out["det_rates"] = det["rates"]
-    return out
+    return out, losses

@@ -46,10 +46,19 @@ class DetectorConfig:
     compute_dtype: Any = torch.bfloat16
     fpn_channels: int = FPN_CHANNELS
     representation_size: int = 1024
+    # Let gradients reach the backbone in training: all of it, or the top N
+    # ResNet stages (1: layer4 ... 4: layer1, 5: the stem too). The default
+    # keeps the backbone frozen, as the reference does.
+    train_backbone: bool = False
+    trainable_backbone_layers: int = 0
 
     @property
     def bucket(self) -> Tuple[int, int]:
         return (self.min_size, self.max_size)
+
+    @property
+    def backbone_trainable_stages(self) -> int:
+        return 5 if self.train_backbone else self.trainable_backbone_layers
 
     @property
     def anchor_spec(self) -> AnchorSpec:

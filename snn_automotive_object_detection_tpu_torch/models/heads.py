@@ -1,7 +1,8 @@
-"""Spiking RPN head and spiking box head, on the CUDA kernels.
+"""Spiking RPN head and spiking box head: on the CUDA kernels, and as
+differentiable step-by-step scans.
 
 Port of the SNN heads of ``snn_automotive_object_detection_tpu/models/
-heads.py`` as the reference runs them at inference with its kernels on:
+heads.py``. At inference, as the reference runs them with its kernels on:
 
   * RPN head (reference rpn.py:33-121): per FPN level, T_rpn steps of
     encoder -> 3x3 conv -> LIF -> fused 1x1 cls+bbox readout -> LI; the
@@ -12,6 +13,18 @@ heads.py`` as the reference runs them at inference with its kernels on:
     bbox LI readouts. Runs as kernels K3 (encoder+fc6, ``snn/cuda_fc6.py``)
     and K4 (tail, ``snn/cuda_tail.py``), with the fc6 currents rounded to
     the compute dtype in between.
+
+For training:
+
+  * :func:`rpn_head_snn_train_apply` is the kernel-backed RPN head made
+    differentiable for its weights: K1 forward, K7 backward
+    (``snn/cuda_rpn.RpnLevelTrain``), for bf16 with a frozen backbone.
+  * :func:`rpn_head_snn_scan_apply` and :func:`fastrcnn_snn_scan_apply` are
+    the reference's scans written as Python loops of PyTorch ops under
+    autograd, with the SuperSpike surrogate in every spike. Training uses
+    them for the box head, for float32, for trainable backbone stages and
+    for rate collection, on either device; they are no kernel's plain
+    version.
 
 Neuron states are float32; matmul operands are in the compute dtype.
 Rates follow the reference convention: mean spikes per neuron per step,
@@ -24,9 +37,22 @@ from typing import Dict, List
 
 import torch
 
+from snn_automotive_object_detection_tpu_torch.models.resnet_fpn import conv_nhwc
+from snn_automotive_object_detection_tpu_torch.snn import functional as snnf
 from snn_automotive_object_detection_tpu_torch.snn.cuda_fc6 import encoder_fc6
-from snn_automotive_object_detection_tpu_torch.snn.cuda_rpn import rpn_level
+from snn_automotive_object_detection_tpu_torch.snn.cuda_rpn import (
+    RpnLevelTrain,
+    rpn_level,
+)
 from snn_automotive_object_detection_tpu_torch.snn.cuda_tail import box_tail
+
+
+def _fused_readout(params: Dict):
+    """(w_out [C, 5A], A): the cls and bbox 1x1 convs side by side."""
+    w_cls = params["conv_cls"]["w"]
+    c = params["shared_conv"]["w"].shape[2]
+    a = w_cls.shape[-1]
+    return torch.cat([w_cls, params["conv_bbox"]["w"]], dim=-1).reshape(c, 5 * a), a
 
 
 def rpn_head_snn_apply(params: Dict, features: List[torch.Tensor],
@@ -35,15 +61,11 @@ def rpn_head_snn_apply(params: Dict, features: List[torch.Tensor],
     """features: list of [N, H_l, W_l, C]. Returns (objectness list
     [N, H_l, W_l, A] f32, bbox list [N, H_l, W_l, 4A] f32, rates): rates is
     None or {"encoder", "shared"}: [L, N]."""
-    w_cls = params["conv_cls"]["w"]
-    w_bbox = params["conv_bbox"]["w"]
-    a = w_cls.shape[-1]
-    c = params["shared_conv"]["w"].shape[2]
-    w_out = torch.cat([w_cls, w_bbox], dim=-1).reshape(c, 5 * a)
+    w_out, a = _fused_readout(params)
     logits, bbox_reg, enc_rates, shared_rates = [], [], [], []
     for feat in features:
         x = feat.to(compute_dtype).contiguous()
-        _, h, w, _ = x.shape
+        _, h, w, c = x.shape
         out, enc, lif = rpn_level(x, params["shared_conv"]["w"], w_out,
                                   num_steps)
         logits.append(out[..., :a])
@@ -56,6 +78,120 @@ def rpn_head_snn_apply(params: Dict, features: List[torch.Tensor],
         rates = {"encoder": torch.stack(enc_rates).float(),
                  "shared": torch.stack(shared_rates).float()}
     return logits, bbox_reg, rates
+
+
+def rpn_head_snn_train_apply(params: Dict, features: List[torch.Tensor],
+                             num_steps: int, compute_dtype=torch.bfloat16):
+    """:func:`rpn_head_snn_apply` made differentiable for the three weights:
+    per level the forward kernel with the backward kernel as its gradient
+    (on the CPU, their plain versions). The features get no gradient; rates
+    are not collected. Returns (objectness list, bbox list, None)."""
+    w_out, a = _fused_readout(params)
+    logits, bbox_reg = [], []
+    for feat in features:
+        x = feat.detach().to(compute_dtype).contiguous()
+        out, _, _ = RpnLevelTrain.apply(x, params["shared_conv"]["w"], w_out,
+                                        num_steps)
+        logits.append(out[..., :a])
+        bbox_reg.append(out[..., a:])
+    return logits, bbox_reg, None
+
+
+def _linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x, w.to(x.dtype))
+
+
+def rpn_head_snn_scan_apply(params: Dict, features: List[torch.Tensor],
+                            num_steps: int, collect_rates: bool = False,
+                            compute_dtype=torch.bfloat16,
+                            fast_encoder: bool = False,
+                            state_dtype=torch.float32):
+    """The spiking RPN head step by step under autograd: encoder -> 3x3
+    conv -> LIF -> fused 1x1 readout -> LI; the last LI membranes are the
+    logits. Conv operands are in ``compute_dtype``, neuron states in
+    ``state_dtype``; ``fast_encoder`` takes the closed-form encoder periods
+    in place of the carried membrane. Same returns as
+    :func:`rpn_head_snn_apply`."""
+    w_shared = params["shared_conv"]["w"]
+    w_out, a = _fused_readout(params)
+    w_out = w_out.reshape(1, 1, *w_out.shape)
+    cd, sd = compute_dtype, state_dtype
+    logits, bbox_reg, enc_rates, shared_rates = [], [], [], []
+    for feat in features:
+        x = feat.to(cd)
+        n, h, w, c = x.shape
+        periods = snnf.encoder_periods(x) if fast_encoder else None
+        v_enc = torch.zeros(x.shape, dtype=sd, device=x.device)
+        lif = snnf.zeros_lif_state(x.shape, sd, x.device)
+        li_out = snnf.zeros_li_state((n, h, w, 5 * a), sd, x.device)
+        cnt_enc = torch.zeros(n, device=x.device)
+        cnt_shared = torch.zeros(n, device=x.device)
+        for t in range(num_steps):
+            if fast_encoder:
+                z = snnf.encoder_spikes_at(periods, t, cd)
+            else:
+                z, v_enc = snnf.lif_current_encoder(x.to(sd), v_enc)
+            s, lif = snnf.lif_feed_forward_step(
+                conv_nhwc(z.to(cd), w_shared).to(sd), lif)
+            _, li_out = snnf.li_feed_forward_step(
+                conv_nhwc(s.to(cd), w_out).to(sd), li_out)
+            if collect_rates:
+                cnt_enc = cnt_enc + z.detach().float().sum(dim=(1, 2, 3))
+                cnt_shared = cnt_shared + s.detach().float().sum(dim=(1, 2, 3))
+        mem = li_out.v.float()
+        logits.append(mem[..., :a])
+        bbox_reg.append(mem[..., a:])
+        enc_rates.append(cnt_enc / (num_steps * h * w * c))
+        shared_rates.append(cnt_shared / (num_steps * h * w * c))
+    rates = None
+    if collect_rates:
+        rates = {"encoder": torch.stack(enc_rates), "shared": torch.stack(shared_rates)}
+    return logits, bbox_reg, rates
+
+
+def fastrcnn_snn_scan_apply(params: Dict, x: torch.Tensor, num_steps: int,
+                            collect_rates: bool = False,
+                            compute_dtype=torch.bfloat16,
+                            fast_encoder: bool = False,
+                            state_dtype=torch.float32):
+    """The spiking box head step by step under autograd: encoder -> fc6 ->
+    LIF -> fc7 -> LIF -> cls and bbox LI readouts; the last LI membranes are
+    the logits and deltas. Same dtypes and returns as
+    :func:`rpn_head_snn_scan_apply` and :func:`fastrcnn_snn_apply`."""
+    cd, sd = compute_dtype, state_dtype
+    x = x.to(cd)
+    r, d_in = x.shape
+    w6, w7 = params["fc6"]["w"], params["fc7"]["w"]
+    wc, wb = params["cls_score"]["w"], params["bbox_pred"]["w"]
+    rep = w6.shape[1]
+    dev = x.device
+    periods = snnf.encoder_periods(x) if fast_encoder else None
+    v_enc = torch.zeros(x.shape, dtype=sd, device=dev)
+    l6 = snnf.zeros_lif_state((r, rep), sd, dev)
+    l7 = snnf.zeros_lif_state((r, rep), sd, dev)
+    li_c = snnf.zeros_li_state((r, wc.shape[1]), sd, dev)
+    li_b = snnf.zeros_li_state((r, wb.shape[1]), sd, dev)
+    c_enc = torch.zeros(r, device=dev)
+    c6 = torch.zeros(r, device=dev)
+    c7 = torch.zeros(r, device=dev)
+    for t in range(num_steps):
+        if fast_encoder:
+            z = snnf.encoder_spikes_at(periods, t, cd)
+        else:
+            z, v_enc = snnf.lif_current_encoder(x.to(sd), v_enc)
+        s6, l6 = snnf.lif_feed_forward_step(_linear(z.to(cd), w6).to(sd), l6)
+        s7, l7 = snnf.lif_feed_forward_step(_linear(s6.to(cd), w7).to(sd), l7)
+        _, li_c = snnf.li_feed_forward_step(_linear(s7.to(cd), wc).to(sd), li_c)
+        _, li_b = snnf.li_feed_forward_step(_linear(s7.to(cd), wb).to(sd), li_b)
+        if collect_rates:
+            c_enc = c_enc + z.detach().float().sum(dim=1)
+            c6 = c6 + s6.detach().float().sum(dim=1)
+            c7 = c7 + s7.detach().float().sum(dim=1)
+    rates = None
+    if collect_rates:
+        rates = {"encoder": c_enc / (num_steps * d_in),
+                 "fc6": c6 / (num_steps * rep), "fc7": c7 / (num_steps * rep)}
+    return li_c.v.float(), li_b.v.float(), rates
 
 
 def fastrcnn_snn_apply(params: Dict, x: torch.Tensor, num_steps: int,

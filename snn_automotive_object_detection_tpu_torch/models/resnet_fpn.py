@@ -88,24 +88,43 @@ def fpn_unfused(fpn: Dict[str, Any], cs: List[torch.Tensor]) -> List[torch.Tenso
     return [o.contiguous() for o in outs]
 
 
-def resnet50_fpn_apply_from_p1(params: Dict[str, Any],
-                               y: torch.Tensor) -> List[torch.Tensor]:
+def resnet50_fpn_apply_from_p1(params: Dict[str, Any], y: torch.Tensor,
+                               trainable_layers: int = 0,
+                               fused_fpn: bool = True) -> List[torch.Tensor]:
     """Layers 1-4 and the FPN from the stem's output ``y`` [N, H/4, W/4, 64].
     Returns the five NHWC levels [P2, P3, P4, P5, P6 (pool)], 256 channels,
-    strides 4..64, in y's dtype. A bf16 ``y`` takes the fused FPN."""
+    strides 4..64, in y's dtype. A bf16 ``y`` takes the fused FPN, which is
+    for inference, unless ``fused_fpn`` is False.
+
+    ``trainable_layers``: gradients reach the top N ResNet stages (1:
+    layer4 ... 4: layer1, 5: the stem too). The map is detached where the
+    first trainable stage begins, and so is each frozen stage's tap into
+    the FPN, so the backward never walks a frozen stage. With 0 nothing is
+    detached here: the caller detaches the levels. Frozen BatchNorm stays
+    frozen either way."""
+    if trainable_layers >= 5:
+        first_trainable = 0
+    elif trainable_layers <= 0:
+        first_trainable = 4
+    else:
+        first_trainable = 4 - trainable_layers
     cs = []
     for stage in range(4):
+        if 1 <= trainable_layers <= 4 and stage == first_trainable:
+            y = y.detach()
         for b, bp in enumerate(params[f"layer{stage + 1}"]):
             y = _bottleneck(y, bp, 2 if (b == 0 and stage > 0) else 1)
-        cs.append(y)
-    if y.dtype == torch.bfloat16:
+        cs.append(y.detach() if stage < first_trainable else y)
+    if fused_fpn and y.dtype == torch.bfloat16:
         return fpn_apply([c.contiguous() for c in cs], params["fpn"])
     return fpn_unfused(params["fpn"], cs)
 
 
 def resnet50_fpn_apply(params: Dict[str, Any], x: torch.Tensor,
-                       compute_dtype=torch.bfloat16) -> List[torch.Tensor]:
+                       compute_dtype=torch.bfloat16, trainable_layers: int = 0,
+                       fused_fpn: bool = True) -> List[torch.Tensor]:
     """x: [N, H, W, 3] normalised float. The unfused stem, then
     :func:`resnet50_fpn_apply_from_p1`."""
     return resnet50_fpn_apply_from_p1(
-        params, stem_apply_unfused(params["stem"], x.to(compute_dtype)))
+        params, stem_apply_unfused(params["stem"], x.to(compute_dtype)),
+        trainable_layers, fused_fpn)

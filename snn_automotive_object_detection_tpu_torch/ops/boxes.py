@@ -58,6 +58,28 @@ def small_box_mask(boxes: torch.Tensor, min_size: float) -> torch.Tensor:
     return (ws >= min_size) & (hs >= min_size)
 
 
+def encode_boxes(reference_boxes: torch.Tensor, proposals: torch.Tensor,
+                 weights=(1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:
+    """Encode ground-truth boxes [..., 4] relative to anchors or proposals
+    [..., 4] as (tx, ty, tw, th) (torchvision ``BoxCoder.encode_single``)."""
+    wx, wy, ww, wh = weights
+    ex_w = proposals[..., 2] - proposals[..., 0]
+    ex_h = proposals[..., 3] - proposals[..., 1]
+    ex_cx = proposals[..., 0] + 0.5 * ex_w
+    ex_cy = proposals[..., 1] + 0.5 * ex_h
+
+    gt_w = reference_boxes[..., 2] - reference_boxes[..., 0]
+    gt_h = reference_boxes[..., 3] - reference_boxes[..., 1]
+    gt_cx = reference_boxes[..., 0] + 0.5 * gt_w
+    gt_cy = reference_boxes[..., 1] + 0.5 * gt_h
+
+    tx = wx * (gt_cx - ex_cx) / ex_w
+    ty = wy * (gt_cy - ex_cy) / ex_h
+    tw = ww * torch.log(gt_w / ex_w)
+    th = wh * torch.log(gt_h / ex_h)
+    return torch.stack([tx, ty, tw, th], dim=-1)
+
+
 def decode_boxes(deltas: torch.Tensor, boxes: torch.Tensor,
                  weights=(1.0, 1.0, 1.0, 1.0)) -> torch.Tensor:
     """Apply regression deltas [..., K*4] to boxes [..., 4]

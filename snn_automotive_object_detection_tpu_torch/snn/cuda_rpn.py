@@ -1,15 +1,21 @@
-"""Spiking RPN head through the hand-written CUDA kernel (K1).
+"""Spiking RPN head through the hand-written CUDA kernels: the forward (K1)
+and its backward for the weights (K7).
 
-Replaces ``snn/pallas_rpn.py`` (``rpn_head_snn_pallas_apply`` and its
-per-level ``_run_level``). The kernel is ``csrc/rpn_head.cu``;
-:func:`rpn_level_plain` beside it is its plain PyTorch version and follows
-the TPU kernel's formulation: threshold-count encoder periods, the conv
-current rounded to the plane dtype, f32 LIF states, an LI-weighted spike
-sum with :func:`snnf.li_coefficients` and one fused readout after the
-loop, rounded to the plane dtype.
+Replaces ``snn/pallas_rpn.py``: ``rpn_head_snn_pallas_apply`` with its
+per-level ``_run_level`` (K1, ``csrc/rpn_head.cu``), and
+``rpn_head_snn_pallas_train_apply`` with ``_run_level_bwd`` as the custom
+VJP of the level (K7, ``csrc/rpn_head_bwd.cu``). :func:`rpn_level_plain`
+and :func:`rpn_level_bwd_plain` beside them are their plain PyTorch
+versions and follow the TPU kernels' formulation: threshold-count encoder
+periods, the conv current rounded to the plane dtype, f32 LIF states, an
+LI-weighted spike sum with :func:`snnf.li_coefficients` and one fused
+readout after the loop, rounded to the plane dtype; backwards, the replay
+with stored decayed membranes, the reverse SuperSpike sweep written out
+(no autograd) and the two weight-gradient products.
 
-A CPU tensor takes the plain version (bf16 or f32 planes); a CUDA tensor
-launches the kernel, which takes bf16 planes only, or raises.
+A CPU tensor takes the plain versions (bf16 or f32 planes); a CUDA tensor
+launches the kernels, which take bf16 planes only, or raises.
+:class:`RpnLevelTrain` ties the two into one differentiable level.
 """
 
 from __future__ import annotations
@@ -23,6 +29,11 @@ from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
 from snn_automotive_object_detection_tpu_torch.utils.constants import device_constant
 
 NAME = "rpn_head"
+BWD_NAME = "rpn_head_bwd"
+# Split counts of the weight-gradient kernel: 36 tiles of dw9 times 11
+# splits are three blocks for each of 132 SMs.
+DW9_SPLITS = 11
+DWOUT_SPLITS = 64
 MAX_T = 32
 MAX_OUT = 64
 
@@ -33,6 +44,12 @@ def _constants(num_steps: int, device) -> torch.Tensor:
     return device_constant(tuple(snnf.encoder_thresholds(num_steps).tolist())
                            + tuple(snnf.li_coefficients(num_steps).tolist()),
                            torch.float32, device)
+
+
+def _taps(w_shared: torch.Tensor) -> torch.Tensor:
+    """[3, 3, C, C] HWIO -> [9, C, C] bf16, dy-major, as the kernels take it."""
+    c = w_shared.shape[2]
+    return w_shared.reshape(9, c, c).to(torch.bfloat16).contiguous()
 
 
 def rpn_level_plain(feat: torch.Tensor, w_shared: torch.Tensor,
@@ -105,9 +122,167 @@ def rpn_level(feat: torch.Tensor, w_shared: torch.Tensor, w_out: torch.Tensor,
     """One level through the kernel (CUDA) or the plain version (CPU).
     Same returns as :func:`rpn_level_plain`."""
     if cb.dispatch_device(feat, NAME):
-        c = w_shared.shape[2]
-        w9 = w_shared.reshape(9, c, c).to(torch.bfloat16).contiguous()
-        return _launch(feat, w9, w_out.to(torch.bfloat16).contiguous(),
+        return _launch(feat, _taps(w_shared), w_out.to(torch.bfloat16).contiguous(),
                        num_steps, spike_sum)
     return rpn_level_plain(feat, w_shared, w_out, num_steps, spike_sum)
 
+
+
+def rpn_level_bwd_plain(feat: torch.Tensor, w_shared: torch.Tensor,
+                        w_out: torch.Tensor, g: torch.Tensor, num_steps: int,
+                        spike_sum: bool = False):
+    """Backward of one level for its weights, plain PyTorch, written out
+    step by step (no autograd).
+
+    feat [N, H, W, C] in the plane dtype (bf16 or f32); w_shared
+    [3, 3, C, C]; w_out [C, n_out]; g [N, H, W, n_out] f32, the cotangent
+    of the readout. Returns (dw_shared [3, 3, C, C] f32, dw_out [C, n_out]
+    f32), and with ``spike_sum`` also the replay's LI-weighted spike sum
+    [N, H, W, C] f32, which must equal the forward's.
+    """
+    cb.note_plain(BWD_NAME, feat)
+    cd = feat.dtype
+    n, h, w, c = feat.shape
+    p = snnf.LIF_PARAMS
+    tau_mem, tau_syn = snnf.DT * p.tau_mem_inv, snnf.DT * p.tau_syn_inv
+    consts = _constants(num_steps, feat.device)
+    thr, li = consts[:num_steps], consts[num_steps:]
+    periods = snnf.threshold_periods(feat.float(), thr)
+    weight = w_shared.to(cd).permute(3, 2, 0, 1).contiguous()
+
+    # Replay of the forward, keeping each step's decayed membrane.
+    state = snnf.zeros_lif_state((n, h, w, c), device=feat.device)
+    ssum = torch.zeros((n, h, w, c), dtype=torch.float32, device=feat.device)
+    vds = []
+    for t in range(num_steps):
+        z = snnf.encoder_spikes_at(periods, t, cd)
+        cur = F.conv2d(z.permute(0, 3, 1, 2), weight, padding=1)
+        cur = cur.permute(0, 2, 3, 1).float()
+        vds.append(state.v + tau_mem * ((p.v_leak - state.v) + state.i))
+        s, state = snnf.lif_feed_forward_step(cur, state)
+        ssum = ssum + li[t] * s
+
+    # Reverse sweep: only gw sees the cotangent rounded to the plane dtype.
+    g = g.float()
+    # gw = bf16(g) @ wout^T summed over the readout channels in order, each
+    # product and each add rounded to f32, as the kernel sums it.
+    g_cd, wo_cd = g.to(cd).float(), w_out.to(cd).float()
+    gw = torch.zeros_like(ssum)
+    for j in range(w_out.shape[1]):
+        gw = gw + g_cd[..., j:j + 1] * wo_cd[:, j]
+    lv = torch.zeros_like(ssum)
+    lam = torch.zeros_like(ssum)
+    # The products of dw9 are exact (0/1 spikes times plane-dtype values);
+    # summed in f64, so that this version's own sums over up to a million
+    # pixels and steps carry no f32 rounding of their own.
+    dw9 = torch.zeros((9, c, c), dtype=torch.float64, device=feat.device)
+    for t in reversed(range(num_steps)):
+        z = snnf.encoder_spikes_at(periods, t, cd).double()
+        zp = F.pad(z, (0, 0, 1, 1, 1, 1))
+        dc = lam.to(cd).double().reshape(-1, c)      # lam before this step's update
+        for k in range(9):
+            dy, dx = divmod(k, 3)
+            dw9[k] += torch.matmul(
+                zp[:, dy:dy + h, dx:dx + w].reshape(-1, c).t(), dc)
+        vd = vds[t]
+        u = vd - p.v_th
+        sp = 1.0 / (p.alpha * u.abs() + 1.0) ** 2    # SuperSpike
+        ds = li[t] * gw - vd * lv
+        dvd = (1.0 - (u > 0).float()) * lv + ds * sp
+        lv = (1.0 - tau_mem) * dvd
+        lam = tau_mem * dvd + (1.0 - tau_syn) * lam
+    dw_out = dwout_plain(ssum, g)
+    dw_shared = dw9.float().reshape(3, 3, c, c)
+    return (dw_shared, dw_out, ssum) if spike_sum else (dw_shared, dw_out)
+
+
+def dwout_plain(ssum: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The readout's weight gradient ssum^T @ g, [C, n_out] f32, from the
+    LI-weighted spike sums [N, H, W, C] and the f32 cotangent. It is linear
+    in the spike sums, so a check can hold K7's ``dw_out`` against this
+    product of K7's own replayed sums where the forward kernel and its
+    plain version differ in a spike."""
+    c = ssum.shape[-1]
+    return torch.matmul(ssum.reshape(-1, c).t(), g.float().reshape(-1, g.shape[-1]))
+
+
+def _splits(n_chunks: int, target: int) -> int:
+    """At most ``target`` splits of ``n_chunks`` chunks, none of them empty."""
+    per = -(-n_chunks // target)
+    return -(-n_chunks // per)
+
+
+def _launch_bwd(feat: torch.Tensor, w9: torch.Tensor, w_out: torch.Tensor,
+                g: torch.Tensor, num_steps: int, spike_sum: bool = False):
+    """K7 on one level. Returns (dw9 [9, C, C] f32, dw_out [C, n_out] f32)
+    and with ``spike_sum`` the replay's spike sum."""
+    n, h, w, c = feat.shape
+    n_out = w_out.shape[1]
+    cb.require(feat, "feat", torch.bfloat16)
+    if c != 256:
+        raise ValueError(f"rpn_head_bwd kernel takes 256 channels, got {c}")
+    cb.require(w9, "w9", torch.bfloat16, (9, c, c))
+    cb.require(w_out, "w_out", torch.bfloat16, (c, n_out))
+    cb.require(g, "g", torch.float32, (n, h, w, n_out))
+    if not 1 <= num_steps <= MAX_T or n_out > MAX_OUT:
+        raise ValueError(f"rpn_head_bwd kernel takes T <= {MAX_T} and at most "
+                         f"{MAX_OUT} readout channels")
+    dev = feat.device
+    consts = _constants(num_steps, dev)
+    n_chunks = n * h * (-(-w // 32))
+    s9, s_out = _splits(n_chunks, DW9_SPLITS), _splits(n_chunks, DWOUT_SPLITS)
+    f32 = torch.float32
+    vd = torch.empty(n_chunks * num_steps * 16 * 512, dtype=f32, device=dev)
+    per = torch.empty((n, h, w, c), dtype=torch.uint8, device=dev)
+    dc = torch.empty((n, h, w, num_steps, c), dtype=torch.bfloat16, device=dev)
+    ssum = torch.empty((n, h, w, c), dtype=f32, device=dev)
+    part9 = torch.empty((s9 if s9 > 1 else 0, 9, c, c), dtype=f32, device=dev)
+    part_out = torch.empty((s_out, c, n_out), dtype=f32, device=dev)
+    counters = torch.zeros(37, dtype=torch.int32, device=dev)
+    dw9 = torch.empty((9, c, c), dtype=f32, device=dev)
+    dw_out = torch.empty((c, n_out), dtype=f32, device=dev)
+    fn = cb.load(BWD_NAME).rpn_level_bwd_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    code = fn(feat.data_ptr(), w9.data_ptr(), w_out.data_ptr(), consts.data_ptr(),
+              g.data_ptr(), vd.data_ptr(), per.data_ptr(), dc.data_ptr(),
+              ssum.data_ptr(), part9.data_ptr(), part_out.data_ptr(),
+              counters.data_ptr(), dw9.data_ptr(), dw_out.data_ptr(), n, h, w,
+              num_steps, n_out, s9, s_out, cb.stream_ptr(dev))
+    cb.check(code, BWD_NAME)
+    cb.LAUNCHES[BWD_NAME] += 1
+    return (dw9, dw_out, ssum) if spike_sum else (dw9, dw_out)
+
+
+def rpn_level_bwd(feat: torch.Tensor, w_shared: torch.Tensor, w_out: torch.Tensor,
+                  g: torch.Tensor, num_steps: int, spike_sum: bool = False):
+    """Weight gradients of one level through the kernel (CUDA) or the plain
+    version (CPU). Same returns as :func:`rpn_level_bwd_plain`."""
+    if cb.dispatch_device(feat, BWD_NAME):
+        got = _launch_bwd(feat, _taps(w_shared), w_out.to(torch.bfloat16).contiguous(),
+                          g.float().contiguous(), num_steps, spike_sum)
+        return (got[0].reshape(w_shared.shape),) + got[1:]
+    return rpn_level_bwd_plain(feat, w_shared, w_out, g, num_steps, spike_sum)
+
+
+class RpnLevelTrain(torch.autograd.Function):
+    """One differentiable level: forward is :func:`rpn_level` (K1 on a CUDA
+    tensor), backward :func:`rpn_level_bwd` (K7). Only ``feat``,
+    ``w_shared`` and ``w_out`` are kept for the backward, which replays the
+    forward. The features get no gradient: the backbone is frozen wherever
+    this route is taken."""
+
+    @staticmethod
+    def forward(ctx, feat, w_shared, w_out, num_steps):
+        out, enc, lif = rpn_level(feat, w_shared, w_out, num_steps)
+        ctx.save_for_backward(feat, w_shared, w_out)
+        ctx.num_steps = num_steps
+        ctx.mark_non_differentiable(enc, lif)
+        return out, enc, lif
+
+    @staticmethod
+    def backward(ctx, g_out, _g_enc, _g_lif):
+        feat, w_shared, w_out = ctx.saved_tensors
+        dw_shared, dw_out = rpn_level_bwd(feat, w_shared, w_out, g_out,
+                                          ctx.num_steps)
+        return None, dw_shared.to(w_shared.dtype), dw_out.to(w_out.dtype), None

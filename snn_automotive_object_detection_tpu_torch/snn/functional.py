@@ -8,8 +8,9 @@ tau_syn_inv=200, v_leak=0, v_reset=0. Update ordering is kept exactly:
             -> THEN add the input current to i (one-step input latency).
   LI step:  jump i with input FIRST -> integrate v with jumped i -> decay i.
 
-Only the forward pass is ported here (inference slice); the SuperSpike
-surrogate gradient comes with the training slice.
+Spikes are :func:`heaviside_super`: the forward is the step function, the
+backward the SuperSpike surrogate, so the steps below are differentiable
+under autograd and their forward values are those of a plain ``x > 0``.
 """
 
 from __future__ import annotations
@@ -64,13 +65,32 @@ def heaviside(x: torch.Tensor) -> torch.Tensor:
     return (x > 0).to(x.dtype)
 
 
+class _HeavisideSuper(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, alpha):
+        ctx.save_for_backward(x)
+        ctx.alpha = alpha
+        return heaviside(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g / (ctx.alpha * x.abs() + 1.0) ** 2, None
+
+
+def heaviside_super(x: torch.Tensor, alpha: float) -> torch.Tensor:
+    """Spike nonlinearity (norse ``threshold(x, "super", alpha)``): forward
+    1.0 where x > 0 else 0.0, backward g / (alpha * |x| + 1)^2."""
+    return _HeavisideSuper.apply(x, alpha)
+
+
 def lif_current_encoder(input_current, voltage, p: LIFParams = ENCODER_PARAMS,
                         dt: float = DT):
     """Constant-current LIF encoder step (norse ``lif_current_encoder``).
     Returns (z, v)."""
     dv = dt * p.tau_mem_inv * ((p.v_leak - voltage) + input_current)
     voltage = voltage + dv
-    z = heaviside(voltage - p.v_th)
+    z = heaviside_super(voltage - p.v_th, p.alpha)
     voltage = voltage - z * (voltage - p.v_reset)
     return z, voltage
 
@@ -83,7 +103,7 @@ def lif_feed_forward_step(input_current, state: LIFState,
     v_decayed = state.v + dv
     di = -dt * p.tau_syn_inv * state.i
     i_decayed = state.i + di
-    z = heaviside(v_decayed - p.v_th)
+    z = heaviside_super(v_decayed - p.v_th, p.alpha)
     v_new = (1.0 - z) * v_decayed + z * p.v_reset
     i_new = i_decayed + input_current
     return z, LIFState(v=v_new, i=i_new)

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library, loaded with ``ctypes``. The
 build happens at first use (or all at once, in parallel, through
 :func:`build_all`) into ``_build/`` beside this package's sources, which
-``.gitignore`` lists. A library is rebuilt when its source is newer.
+``.gitignore`` lists. A library is rebuilt when its source, or a header
+(``csrc/*.cuh``) that sources share, is newer.
 
 ``--fmad=false`` keeps every float multiply and add separately rounded, so
 the neuron-state arithmetic matches the plain PyTorch versions (and the
@@ -31,7 +32,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
 KERNELS = ("rpn_head", "roi_align", "encoder_fc6", "box_tail", "fpn_level",
-           "stem")
+           "stem", "rpn_head_bwd")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -66,7 +67,8 @@ def _paths(name: str):
 
 def _stale(name: str) -> bool:
     src, lib, _ = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    newest = max(f.stat().st_mtime for f in (src, *CSRC_DIR.glob("*.cuh")))
+    return not lib.exists() or lib.stat().st_mtime < newest
 
 
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:

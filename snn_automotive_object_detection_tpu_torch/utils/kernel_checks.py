@@ -15,6 +15,7 @@ import torch
 BF16_REL = 2.0 ** -7
 ATOL = 1e-4
 MAX_DIFFERING = 0.01   # share of elements that may differ at all, see differing()
+GRAD_REL = 5e-4        # see grad_excess()
 
 
 def excess(got: torch.Tensor, want: torch.Tensor, atol=ATOL,
@@ -56,3 +57,31 @@ def differing(got: torch.Tensor, want: torch.Tensor) -> int:
     place in the chain flips it in far more."""
     return int((got != want).sum())
 
+
+
+def grad_excess(got: torch.Tensor, want: torch.Tensor, rel: float = GRAD_REL) -> float:
+    """max |got - want| / (rel * max |want|) for K7's weight gradients; the
+    bound holds when this is at most 1, and anything not finite is
+    infinitely far outside it.
+
+    Kernel and plain version replay the same spikes and run the reverse
+    sweep operation for operation, and the kernel's dw9 is within 3e-6 of
+    the largest element of an f64 sum over its own bf16 ``dc`` planes. What
+    differs are those planes: at flagship shapes up to 3 of 590,000 elements
+    per step round to the neighbouring bf16 value (most likely from the
+    replayed conv currents: sums taken in another order round a current to
+    the neighbouring bf16 value now and then, which moves a stored membrane,
+    too little to flip a spike, and with it the surrogate's slope). One such
+    element moves every dw9 element it
+    is a term of by its bf16 ulp, 2^-8 of the term, and dw9's largest
+    element, a sum that mostly cancels, is only 25 to 100 of the largest
+    terms: 3e-5 to 1.4e-4 of the largest element, measured. So the bound is
+    a share of the gradient's largest element, 5e-4. A wrong step of the
+    reverse sweep or a wrong tap moves the gradient by a third of its size
+    or more (``chip_mutants.py``)."""
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        return float("inf")
+    top = float(want.abs().max())
+    if top == 0.0:
+        return 0.0 if float(got.abs().max()) == 0.0 else float("inf")
+    return float((got - want).abs().max()) / (rel * top)

@@ -4,12 +4,14 @@ The port keeps the JAX package's parameter layouts (HWIO convs, [in, out]
 linears, RoI features flattened as (7, 7, C) so fc6 rows carry over
 unpermuted), so conversion is a leaf-for-leaf copy of the same nested
 dicts and lists. Convert a JAX tree with ``jax.tree.map(np.asarray, tree)``
-first; this module itself imports no JAX.
+first; this module itself imports no JAX. :func:`to_numpy_tree` goes the
+other way (parameters after an update, or their gradients), so that both
+can be held against the JAX package's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -40,3 +42,20 @@ def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, Any]:
     for k, v in items:
         out.update(flatten_tree(v, f"{prefix}/{k}" if prefix else str(k)))
     return out
+
+
+def tree_leaves(tree: Any) -> List[torch.Tensor]:
+    """The leaves of a nested dict/list tree, in :func:`flatten_tree`'s order."""
+    return list(flatten_tree(tree).values())
+
+
+def to_numpy_tree(tree: Any, grads: bool = False) -> Any:
+    """Same nesting, each tensor leaf a float numpy array on the host; with
+    ``grads`` the leaves' ``.grad`` (zeros where a leaf has none)."""
+    if isinstance(tree, dict):
+        return {k: to_numpy_tree(v, grads) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_numpy_tree(v, grads) for v in tree)
+    if grads:
+        tree = torch.zeros_like(tree) if tree.grad is None else tree.grad
+    return tree.detach().float().cpu().numpy()

@@ -143,7 +143,7 @@ def test_bf16_detector_takes_the_fused_route_on_cpu(params):
         mp.setattr(t_detector, "resnet50_fpn_apply",
                    lambda *a: pytest.fail("bf16 took the unfused chain"))
         cb.reset_counts()
-        out = t_detector.detector_apply(tparams, batch, cfg, collect_rates=True)
+        out, _ = t_detector.detector_apply(tparams, batch, cfg, collect_rates=True)
     assert calls == {"stem": 1, "fpn_level": 4}
     assert not any(cb.LAUNCHES.values()) and not any(cb.PLAIN_CUDA_CALLS.values())
     p, d, c = 20, 10, 3

@@ -1,4 +1,4 @@
-"""The six hand-written CUDA kernels against their plain PyTorch versions,
+"""The seven hand-written CUDA kernels against their plain PyTorch versions,
 on the card, at small and ragged shapes (the flagship shapes are
 chip_smoke.py's): pixel rows that end inside a 32-pixel segment, RoI rows
 that end inside a row tile, boxes on and past the image border.
@@ -29,6 +29,14 @@ Tolerances, on identical bf16 inputs:
     at most 1% of the elements may differ at all (a rounding made at
     another place would flip far more). P is held against the plain 3x3 on
     the kernel's own merged map, so that both sides get the same inputs.
+  * K7 (the RPN head's backward): both weight gradients within 5e-4 of the
+    gradient's largest element (``kernel_checks.grad_excess``: the same
+    spikes and the same reverse sweep on both sides, the plain version
+    summing in f64 and the kernel on the tensor cores), the replay's spike
+    sum equal to K1's neuron by neuron, and the same bits on a second run.
+    Where K1 and its plain version differ in a LIF spike (allowed as above),
+    ``dw_out``, which is linear in the spike sums, is held against the plain
+    product of the replay's own sums.
 """
 
 import pytest
@@ -186,11 +194,81 @@ def test_stem_kernel_matches_plain(dev, n, h, w):
     assert kc.differing(got, want) <= kc.MAX_DIFFERING * want.numel()
 
 
+# Odd heights and widths, one image, T = 1 and T = 12, a level smaller than
+# a 32-pixel tile, a row that ends inside a tile, more chunks than splits.
+@pytest.mark.parametrize("n,h,w,t", [(1, 5, 7, 1), (1, 13, 37, 5), (2, 3, 45, 8),
+                                     (1, 9, 70, 12), (2, 24, 48, 8)])
+def test_rpn_head_bwd_kernel_matches_plain(dev, n, h, w, t):
+    g = torch.Generator(device=dev).manual_seed(n * h * w + t)
+    feat = (torch.rand((n, h, w, 256), generator=g, device=dev) * 2).to(BF)
+    w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.02
+    w_out = torch.randn((256, 15), generator=g, device=dev) * 0.05
+    cot = torch.randn((n, h, w, 15), generator=g, device=dev)
+    before = cb.LAUNCHES[k1.BWD_NAME]
+    dw, dwo, ssum = k1.rpn_level_bwd(feat, w_shared, w_out, cot, t, spike_sum=True)
+    again = k1.rpn_level_bwd(feat, w_shared, w_out, cot, t)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES[k1.BWD_NAME] == before + 2
+    p_dw, p_dwo, p_ssum = k1.rpn_level_bwd_plain(feat, w_shared, w_out, cot, t, spike_sum=True)
+    fwd_ssum = k1.rpn_level(feat, w_shared, w_out, t, spike_sum=True)[3]
+    assert dw.shape == (3, 3, 256, 256) and dwo.shape == (256, 15)
+    assert torch.equal(ssum, fwd_ssum) and (t == 1 or float(ssum.max()) > 0)
+    flips = int((ssum != p_ssum).sum())
+    assert flips <= 1e-3 * int((p_ssum != 0).sum())
+    if flips:   # dwout is linear in the spike sums: hold it to the replay's own
+        p_dwo = k1.dwout_plain(ssum, cot)
+    assert kc.grad_excess(dw, p_dw) <= 1 and kc.grad_excess(dwo, p_dwo) <= 1
+    # With one step no LIF neuron has spiked yet: both gradients are zero.
+    assert t == 1 or (float(p_dwo.abs().max()) > 0 and float(p_dw.abs().max()) > 0)
+    assert torch.equal(dw, again[0]) and torch.equal(dwo, again[1])
+
+
+def test_rpn_level_train_backward_is_the_kernel(dev):
+    """``RpnLevelTrain`` under autograd: K1's values forward, K7's gradients
+    backward (the three weights' gradients against the plain version, the
+    fused readout's split into ``conv_cls`` and ``conv_bbox``), none for the
+    features, no plain version on the card."""
+    from snn_automotive_object_detection_tpu_torch.models import heads
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    feats = [(torch.rand((2, h, w, 256), generator=g, device=dev) * 2).requires_grad_()
+             for h, w in ((9, 33), (4, 17))]
+    params = {"shared_conv": {"w": torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.02},
+              "conv_cls": {"w": torch.randn((1, 1, 256, 3), generator=g, device=dev) * 0.05},
+              "conv_bbox": {"w": torch.randn((1, 1, 256, 12), generator=g, device=dev) * 0.05}}
+    for v in params.values():
+        v["w"].requires_grad_()
+    cots = [torch.randn((2, f.shape[1], f.shape[2], 15), generator=g, device=dev) for f in feats]
+    cb.reset_counts()
+    obj, box, _ = heads.rpn_head_snn_train_apply(params, feats, 8)
+    sum((torch.cat([o, b], -1) * c).sum() for o, b, c in zip(obj, box, cots)).backward()
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES[k1.NAME] == 2 and cb.LAUNCHES[k1.BWD_NAME] == 2
+    assert all(v == 0 for v in cb.PLAIN_CUDA_CALLS.values())
+    assert all(f.grad is None for f in feats)
+    w_out, _ = heads._fused_readout(params)
+    want_dw, want_dwo = 0.0, 0.0
+    for f, o, b, c in zip(feats, obj, box, cots):
+        plain = k1.rpn_level_plain(f.detach().to(BF), params["shared_conv"]["w"].detach(),
+                                   w_out.detach(), 8)[0]
+        assert kc.excess(torch.cat([o, b], -1).detach(), plain) <= 1
+        dw, dwo = k1.rpn_level_bwd_plain(f.detach().to(BF), params["shared_conv"]["w"].detach(),
+                                         w_out.detach(), c, 8)
+        want_dw, want_dwo = want_dw + dw, want_dwo + dwo
+    assert kc.grad_excess(params["shared_conv"]["w"].grad, want_dw) <= 1
+    assert kc.grad_excess(params["conv_cls"]["w"].grad.reshape(256, 3), want_dwo[:, :3]) <= 1
+    assert kc.grad_excess(params["conv_bbox"]["w"].grad.reshape(256, 12), want_dwo[:, 3:]) <= 1
+
+
 def test_kernels_refuse_other_dtypes(dev):
     feat = torch.zeros((1, 2, 2, 256), device=dev)
     with pytest.raises(TypeError):
         k1.rpn_level(feat, torch.zeros((3, 3, 256, 256), device=dev),
                      torch.zeros((256, 15), device=dev), 4)
+    with pytest.raises(TypeError):
+        k1.rpn_level_bwd(feat, torch.zeros((3, 3, 256, 256), device=dev),
+                         torch.zeros((256, 15), device=dev),
+                         torch.zeros((1, 2, 2, 15), device=dev), 4)
     with pytest.raises(TypeError):
         k3.encoder_fc6(torch.zeros((4, 64), device=dev), torch.zeros((64, 64), device=dev), 4)
     with pytest.raises(TypeError):

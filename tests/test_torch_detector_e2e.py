@@ -113,7 +113,7 @@ def _run_both():
     tparams = from_numpy_tree(params, device="cpu")
     tbatch = {"images": torch.from_numpy(images), "image_sizes": torch.from_numpy(sizes),
               "original_sizes": torch.from_numpy(orig)}
-    tdet = detector_apply(tparams, tbatch, tcfg, collect_rates=True)
+    tdet, _ = detector_apply(tparams, tbatch, tcfg, collect_rates=True)
 
     # The same port run on the JAX backbone's features.
     jfeats = j_resnet.resnet50_fpn_apply(
@@ -122,7 +122,7 @@ def _run_both():
     tfeats = [torch.from_numpy(np.array(f)) for f in jfeats]
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(t_detector, "resnet50_fpn_apply", lambda *args: tfeats)
-        tdet_shared = detector_apply(tparams, tbatch, tcfg, collect_rates=True)
+        tdet_shared, _ = detector_apply(tparams, tbatch, tcfg, collect_rates=True)
     return jdet, _to_numpy(tdet), _to_numpy(tdet_shared)
 
 
