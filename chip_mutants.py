@@ -50,7 +50,24 @@ MUTANTS = [
     ("K7: the first split's partial left out of the fixed-order sum",
      "rpn_head_bwd.cu", "for (int sp = 0; sp < S; ++sp) {", "for (int sp = 1; sp < S; ++sp) {",
      "check_rpn_bwd", "rpn_head_bwd or rpn_level_train"),
+    ("K8: the second image's spikes taken from the first image's halo",
+     "rpn_head_x2.cu", "const int col0 = img * G::kHw;", "const int col0 = 0;",
+     "check_rpn_x2", "rpn_head_x2"),
+    ("K8: a tap-weight stage read one trip of the ring late (shared with K1 and K7)",
+     "rpn_head_common.cuh", "sm.ring + (st % kStages) * (kStageRows * kLdw) + cg * 32;",
+     "sm.ring + ((st + kStages - 1) % kStages) * (kStageRows * kLdw) + cg * 32;",
+     "check_rpn_x2", "rpn_head_x2"),
+    ("K9: the last step left out of the second phase",
+     "box_head_fused.cu", "    for (int t = 0; t < T; ++t) {", "    for (int t = 0; t < T - 1; ++t) {",
+     "check_box_head_fused", "box_head_fused"),
+    ("K9: the fc6 current rounded to bf16 before LIF6",
+     "box_head_fused.cu", "lif_step(v[j], cu[j], stage[lane + 32 * j]);",
+     "lif_step(v[j], cu[j], __bfloat162float(__float2bfloat16_rn(stage[lane + 32 * j])));",
+     "check_box_head_fused", "box_head_fused"),
 ]
+
+# The mutants to run can be named by the kernel their description begins
+# with (``python3 chip_mutants.py K8 K9``); none named means all.
 
 PHASE = """
 import torch, chip_smoke
@@ -67,7 +84,8 @@ def main() -> int:
         print("chip_mutants: no CUDA device", file=sys.stderr)
         return 1
     survived = 0
-    for name, src, old, new, phase, tests in MUTANTS:
+    chosen = [m for m in MUTANTS if not sys.argv[1:] or m[0].split(":")[0] in sys.argv[1:]]
+    for name, src, old, new, phase, tests in chosen:
         with tempfile.TemporaryDirectory() as tmp:
             tree = Path(tmp) / "tree"
             shutil.copytree(ROOT, tree, ignore=shutil.ignore_patterns(
@@ -93,7 +111,7 @@ def main() -> int:
         if "chip_smoke: FAILED" not in smoke.stderr or card.returncode != 1:
             survived += 1
             print("  SURVIVED a check")
-    print(f"chip_mutants: {len(MUTANTS) - survived} of {len(MUTANTS)} mutants fail both checks")
+    print(f"chip_mutants: {len(chosen) - survived} of {len(chosen)} mutants fail both checks")
     return 1 if survived else 0
 
 

@@ -9,7 +9,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
   1. device  - a CUDA device must be present; prints its name and power
                limit as nvidia-smi reports them.
-  2. build   - compiles the seven hand-written kernels from
+  2. build   - compiles the nine hand-written kernels from
                snn_automotive_object_detection_tpu_torch/csrc (one nvcc per
                source, all started together).
   3. kernels - at the flagship shapes (768x1536 bucket, batch 2, 1000
@@ -26,7 +26,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
                RPN head's backward kernel gets seeded cotangents: both
                weight gradients within 5e-4 of their largest element, the
                replay's spike sum equal to the forward kernel's neuron by
-               neuron, and the same bits on a second run.
+               neuron, and the same bits on a second run. The RPN head's
+               forward and backward also run at 75 readout channels on one
+               [2, 24, 48, 256] level. The paired RPN head is held to its
+               plain version and, bit for bit (readout and spike sums), to
+               the per-image kernel on the five levels and on a batch of
+               four, and both are timed in turns. The fused box head is held
+               to its plain version at R = 2000 with the flipped fc6 and fc7
+               spikes counted (rows with equal counts within 1e-3 (1 +
+               |want|), all rows within 0.25 (1 + |want|)), and timed beside
+               the two-kernel route on the same inputs.
   4. main    - the flagship detector (ResNet-50-FPN, spiking RPN and box
                heads, bf16 GEMMs, f32 neuron states, random weights from a
                seed) on synthetic 2 x 768 x 1536 batches through
@@ -37,15 +46,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
                torch.profiler: device time by kernel and the busy share.
   5. train   - the same configuration with a frozen backbone through
                make_train_step (AdamW) on a seeded 2 x 768 x 1536 batch with
-               seeded targets: one warm-up step, three timed ones. The four
+               seeded targets: one warm-up step, two timed ones. The four
                losses must be finite, the gradients of the RPN head and the
                box head finite and not all zero, every trainable leaf must
                have moved and no frozen one; per step the stem kernel
                launches once, the RPN head's forward and backward kernels
-               five times each and the four inference-only kernels never,
+               five times each and the other six kernels never,
                and no plain version runs on the GPU. Prints steps/s,
                images/s, peak memory and one profiled step by kernel with
                its count of stream synchronisations.
+
+  6. eval    - detector_apply(training=False, collect_rates=False), the
+               plain evaluation call, on the flagship and on
+               MobileNetV3-Large-FPN (9 classes, T_rpn=8, T_det=12) at 2 x
+               768 x 1536: with the pairing switch on the paired RPN kernel
+               runs on every level and the per-image kernel never, with it
+               off the other way round, and both give the same bits; the
+               MobileNet backbone launches neither the fused stem nor the
+               fused FPN. Prints images/s of each.
+  7. fused   - the fused box head's own entry point on 2000 RoI rows: one
+               launch for all 12 steps.
 
 The line before last is a JSON object listing the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -249,6 +269,9 @@ def check_kernels(dev, results):
     check_fpn(dev, g, results)
     check_stem(dev, g, results)
     check_rpn_bwd(dev, g, results)
+    check_wide_readout(dev, g, results)
+    check_rpn_x2(dev, g, results)
+    check_box_head_fused(dev, g, results)
 
 
 def check_fpn(dev, g, results):
@@ -385,6 +408,39 @@ def check_stem(dev, g, results):
             _bound(_nbytes(images, wk, bias, got), 2.0 * 147 * 64 * 2 * 384 * 768), lms)
 
 
+def _hold_rpn_bwd(a, a2, b, fw, cot):
+    """One level of K7 against its plain version: ``a`` and ``a2`` are two
+    runs of the kernel (the first with the replay's spike sum), ``b`` the
+    plain version's (dw_shared, dw_out, spike sum), ``fw`` K1's run with its
+    spike sum, ``cot`` the cotangent. Returns (max |diff|, share of the
+    bound) and fails outside it."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
+    from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
+
+    shape = f"[{', '.join(str(d) for d in cot.shape[:3])}, 256] x {cot.shape[3]}"
+    want9 = b[0].reshape(9, 256, 256)
+    replay = int((a[2] != fw[3]).sum())        # against K1's spike sum
+    flips = int((a[2] != b[2]).sum())          # forward kernel against plain version
+    # dwout is linear in the spike sums: where the two forwards differ in
+    # a spike it is held against the plain product of the replay's own.
+    want_out = b[1] if flips == 0 else k1.dwout_plain(a[2], cot)
+    ex9, exo = kc.grad_excess(a[0], want9), kc.grad_excess(a[1], want_out)
+    e9, eo = (a[0] - want9).abs().max().item(), (a[1] - want_out).abs().max().item()
+    same = bool(torch.equal(a[0], a2[0]) and torch.equal(a[1], a2[1]))
+    print(f"K7 rpn_head_bwd {shape}: max|dw9 diff| {e9:.3g} at max|dw9| "
+          f"{want9.abs().max().item():.4g} ({ex9:.3g} of the bound {kc.GRAD_REL} of "
+          f"the largest element); max|dwout diff| {eo:.3g} at max|dwout| "
+          f"{b[1].abs().max().item():.4g} ({exo:.3g} of the bound); neurons whose "
+          f"replayed spike sum differs from the forward kernel's {replay}, from the "
+          f"plain version's {flips}; same bits on a second run {same}")
+    if not (ex9 <= 1 and exo <= 1) or replay != 0 or not same \
+            or flips > 1e-3 * int((b[2] != 0).sum()) or not want9.abs().max().item() > 0:
+        _fail(f"K7 disagrees with its plain version on {shape}")
+    return max(e9, eo), max(ex9, exo)
+
+
 def check_rpn_bwd(dev, g, results):
     """K7: the RPN head's backward for its weights, all five levels at
     flagship shapes, T = 8, features at the K1 check's rate."""
@@ -412,26 +468,9 @@ def check_rpn_bwd(dev, g, results):
     got, again, want = kernel(True), kernel(), plain(True)
     fwd = [k1._launch(f, w9, wo, 8, True) for f in feats]
     err = worst = 0.0
-    for (h, w), a, a2, b, fw, c in zip(levels, got, again, want, fwd, cots):
-        want9 = b[0].reshape(9, 256, 256)
-        replay = int((a[2] != fw[3]).sum())        # against K1's spike sum
-        flips = int((a[2] != b[2]).sum())          # forward kernel against plain version
-        # dwout is linear in the spike sums: where the two forwards differ in
-        # a spike it is held against the plain product of the replay's own.
-        want_out = b[1] if flips == 0 else k1.dwout_plain(a[2], c)
-        ex9, exo = kc.grad_excess(a[0], want9), kc.grad_excess(a[1], want_out)
-        e9, eo = (a[0] - want9).abs().max().item(), (a[1] - want_out).abs().max().item()
-        same = bool(torch.equal(a[0], a2[0]) and torch.equal(a[1], a2[1]))
-        print(f"K7 rpn_head_bwd [2, {h}, {w}, 256]: max|dw9 diff| {e9:.3g} at max|dw9| "
-              f"{want9.abs().max().item():.4g} ({ex9:.3g} of the bound {kc.GRAD_REL} of "
-              f"the largest element); max|dwout diff| {eo:.3g} at max|dwout| "
-              f"{b[1].abs().max().item():.4g} ({exo:.3g} of the bound); neurons whose "
-              f"replayed spike sum differs from the forward kernel's {replay}, from the "
-              f"plain version's {flips}; same bits on a second run {same}")
-        if not (ex9 <= 1 and exo <= 1) or replay != 0 or not same \
-                or flips > 1e-3 * int((b[2] != 0).sum()) or not want9.abs().max().item() > 0:
-            _fail(f"K7 disagrees with its plain version on [2, {h}, {w}, 256]")
-        err, worst = max(err, e9, eo), max(worst, ex9, exo)
+    for a, a2, b, fw, c in zip(got, again, want, fwd, cots):
+        e, ex = _hold_rpn_bwd(a, a2, b, fw, c)
+        err, worst = max(err, e), max(worst, ex)
     print(f"K7 rpn_head_bwd: max |diff| {err:.3g}, {worst:.3g} of the bound")
     ms, pms = _median_ms(kernel, 10), _median_ms(plain, 3)
     # The replayed conv and the weight gradient each do 2 x 256 operations
@@ -447,10 +486,192 @@ def check_rpn_bwd(dev, g, results):
                    25.0 * 8 * 256 * sum(px)))
 
 
+def check_wide_readout(dev, g, results):
+    """K1 and K7 at 75 readout channels (15 anchors per location, the
+    MobileNet families' head) on one MobileNet-sized level."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
+    from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
+
+    bf = torch.bfloat16
+    feat = torch.rand((2, 24, 48, 256), generator=g, device=dev).mul(2.0).to(bf)
+    cot = torch.randn((2, 24, 48, 75), generator=g, device=dev)
+    w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.01
+    w_out = torch.randn((256, 75), generator=g, device=dev) * 0.01
+    w9, wo = k1._taps(w_shared), w_out.to(bf).contiguous()
+    got = k1._launch(feat, w9, wo, 8, True)
+    want = k1.rpn_level_plain(feat, w_shared, w_out, 8, True)
+    worst = kc.excess(got[0], want[0])
+    flips = int((got[3] != want[3]).sum())
+    print(f"K1 rpn_head, 75 readout channels [2, 24, 48, 256]: max|out diff| "
+          f"{(got[0] - want[0]).abs().max().item():.3g} at max|out| "
+          f"{want[0].abs().max().item():.4g}, {worst:.3g} of the bound; encoder spikes "
+          f"equal {bool(torch.equal(got[1], want[1]))}; neurons with a flipped spike {flips}")
+    if worst > 1 or not torch.equal(got[1], want[1]) or not kc.bf16_valued(got[0]) \
+            or flips > 1e-3 * int(want[2].sum()) or int(want[2].sum()) == 0:
+        _fail("K1 disagrees with its plain version at 75 readout channels")
+    a = k1._launch_bwd(feat, w9, wo, cot, 8, True)
+    a2 = k1._launch_bwd(feat, w9, wo, cot, 8)
+    b = k1.rpn_level_bwd_plain(feat, w_shared, w_out, cot, 8, True)
+    _hold_rpn_bwd(a, a2, b, got, cot)
+
+
+def check_rpn_x2(dev, g, results):
+    """K8: the paired RPN head on the five flagship levels (N = 2) and on
+    one level with two pairs, against its plain version and, bit for bit,
+    against K1; K8's and K1's times in turns."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
+    from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
+
+    bf = torch.bfloat16
+    levels = [(192, 384), (96, 192), (48, 96), (24, 48), (12, 24)]
+    feats = [torch.rand((2, h, w, 256), generator=g, device=dev).mul(2.0).to(bf)
+             for h, w in levels]
+    feats4 = torch.rand((4, 48, 96, 256), generator=g, device=dev).mul(2.0).to(bf)
+    w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.01
+    w_out = torch.randn((256, 15), generator=g, device=dev) * 0.01
+    w9, wo = k1._taps(w_shared), w_out.to(bf).contiguous()
+
+    err = 0.0
+    enc = 0
+    for f in feats + [feats4]:
+        shape = list(f.shape)
+        out, ssum = k1._launch_x2(f, w9, wo, 8, True)
+        one = k1._launch(f, w9, wo, 8, True)
+        p_out, p_ssum = k1.rpn_level_x2_plain(f, w_shared, w_out, 8, True)
+        same = bool(torch.equal(out, one[0]) and torch.equal(ssum, one[3]))
+        flips = int((ssum != p_ssum).sum())
+        if flips:   # the readout is linear in the spike sums: hold it to the kernel's own
+            p_out = torch.matmul(ssum, wo.float()).to(bf).float()
+        worst = kc.excess(out, p_out)
+        spiked = int((p_ssum != 0).sum())
+        e = (out - p_out).abs().max().item()
+        print(f"K8 rpn_head_x2 {shape}: readout and spike sums equal K1's bits {same}; "
+              f"max|out diff| to the plain version (where a spike flipped, to the plain "
+              f"readout of the kernel's own spike sums) {e:.3g} at max|out| "
+              f"{p_out.abs().max().item():.4g}, {worst:.3g} of the bound 2^-7|want| + "
+              f"{kc.ATOL}; neurons with a flipped spike {flips} of {spiked} that spiked")
+        if not same or worst > 1 or not kc.bf16_valued(out) or spiked == 0 \
+                or flips > 1e-3 * spiked:
+            _fail(f"K8 disagrees with K1 or with its plain version on {shape}")
+        if f is not feats4:
+            err = max(err, e)
+            enc += int(one[1].sum())
+
+    def paired():
+        return [k1._launch_x2(f, w9, wo, 8) for f in feats]
+
+    def single():
+        return [k1._launch(f, w9, wo, 8) for f in feats]
+
+    def plain():
+        return [k1.rpn_level_x2_plain(f, w_shared, w_out, 8) for f in feats]
+
+    # In turns, so that both see the same clocks: K1, K8, K8, K1.
+    t1 = [_median_ms(single, 10), 0.0]
+    t8 = [_median_ms(paired, 10), _median_ms(paired, 10)]
+    t1[1] = _median_ms(single, 10)
+    spread = max(abs(t1[0] - t1[1]), abs(t8[0] - t8[1]))
+    gain = min(t1) - max(t8)
+    print(f"K8 against K1, five flagship levels, T = 8: K1 {t1[0]:.3f} and {t1[1]:.3f} ms, "
+          f"K8 {t8[0]:.3f} and {t8[1]:.3f} ms; spread of the repeats {spread:.3f} ms; "
+          f"pairing is {'faster' if gain > spread else 'not faster'} by more than the "
+          f"spread (default {'on' if k1.PAIR_IMAGES else 'off'})")
+    for (h, w), f in zip(levels, feats):
+        l1 = _median_ms(lambda: k1._launch(f, w9, wo, 8), 10)
+        l8 = _median_ms(lambda: k1._launch_x2(f, w9, wo, 8), 10)
+        print(f"K8 against K1 on [2, {h}, {w}, 256]: K1 {l1:.3f} ms, K8 {l8:.3f} ms")
+    neurons = sum(2 * h * w * 256 * 8 for h, w in levels)
+    outs = paired()
+    _record(results, "rpn_head_x2", "snn/pallas_rpn.py:710", err, min(t8),
+            _median_ms(plain, 5),
+            _bound(_nbytes(*feats, w9, wo, *outs),
+                   2.0 * enc * 9 * 256 + sum(2.0 * 2 * h * w * 256 * 15 for h, w in levels),
+                   10.0 * neurons))
+
+
+def check_box_head_fused(dev, g, results):
+    """K9: the whole box head in one launch at R = 2000, K = 12544, H = 1024,
+    9 classes, T = 12, against its plain version, and its time beside the
+    two-kernel route's (K3 then K4) on the same inputs."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.models import heads
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_kernels as k9
+    from snn_automotive_object_detection_tpu_torch.snn import functional as snnf
+
+    r, d, rep, t = 2000, 12544, 1024, 12
+    bf = torch.bfloat16
+    x = torch.rand((r, d), generator=g, device=dev) * 2.5
+    w6 = (torch.rand((d, rep), generator=g, device=dev) * 2 - 1) / 112.0
+    w7 = (torch.rand((rep, rep), generator=g, device=dev) * 2 - 1) / 32.0
+    wc = (torch.rand((rep, 9), generator=g, device=dev) * 2 - 1) / 32.0
+    wb = (torch.rand((rep, 36), generator=g, device=dev) * 2 - 1) / 32.0
+    got = k9.fastrcnn_snn_cuda(x, w6, w7, wc, wb, t)
+    torch.cuda.synchronize()
+    want = k9.fastrcnn_snn_plain(x, w6, w7, wc, wb, t)
+    for a, shp in zip(got, ((r, 9), (r, 36), (r,), (r,))):
+        if tuple(a.shape) != shp or a.dtype != torch.float32 or not torch.isfinite(a).all():
+            _fail(f"K9 output of shape {tuple(a.shape)}, expected finite f32 {shp}")
+    # Per-row spike counts: a row's |difference| counts its flipped spikes.
+    d6 = (got[2] - want[2]).abs() * (t * rep)
+    d7 = (got[3] - want[3]).abs() * (t * rep)
+    n6, n7 = want[2].sum().item() * t * rep, want[3].sum().item() * t * rep
+    clean = (d6.round() == 0) & (d7.round() == 0)
+    tol_clean, tol_any = 1e-3, 0.25
+
+    def excess(a, b, rows, tol):
+        return ((a[rows] - b[rows]).abs() / (tol * (1.0 + b[rows].abs()))).max().item() \
+            if rows.any() else 0.0
+
+    ex_clean = max(excess(got[0], want[0], clean, tol_clean),
+                   excess(got[1], want[1], clean, tol_clean))
+    every = torch.ones_like(clean)
+    ex_any = max(excess(got[0], want[0], every, tol_any),
+                 excess(got[1], want[1], every, tol_any))
+    err = max((got[0] - want[0]).abs().max().item(), (got[1] - want[1]).abs().max().item())
+    print(f"K9 box_head_fused: rates fc6 {want[2].mean().item():.4f} fc7 "
+          f"{want[3].mean().item():.4f}; flipped spikes (per-row count differences) fc6 "
+          f"{d6.sum().item():.0f} of {n6:.0f}, fc7 {d7.sum().item():.0f} of {n7:.0f}; "
+          f"{int(clean.sum())} of {r} rows with equal counts, there max|diff| "
+          f"{ex_clean:.3g} of the bound {tol_clean} (1 + |want|); all rows max|diff| "
+          f"{err:.3g} at max|logit| {want[0].abs().max().item():.4g}, {ex_any:.3g} of "
+          f"the bound {tol_any} (1 + |want|)")
+    if n6 == 0 or n7 == 0 or d6.sum().item() > 1e-3 * n6 or d7.sum().item() > 1e-3 * n7 \
+            or ex_clean > 1 or ex_any > 1 or int(clean.sum()) < 0.99 * r:
+        _fail("K9 disagrees with its plain version")
+
+    periods = snnf.encoder_periods(x).contiguous()
+    w6b, w7b = w6.to(bf).contiguous(), w7.to(bf).contiguous()
+    wro = torch.cat([wc, wb], 1).to(bf).contiguous()
+    params = {"fc6": {"w": w6b}, "fc7": {"w": w7b}, "cls_score": {"w": wc},
+              "bbox_pred": {"w": wb}}
+    xb = x.to(bf)
+    ms = _median_ms(lambda: k9._launch(periods, w6b, w7b, wro, 9, t), 10)
+    whole = _median_ms(lambda: k9.fastrcnn_snn_cuda(x, w6b, w7b, wc, wb, t), 10)
+    two = _median_ms(lambda: heads.fastrcnn_snn_apply(params, xb, t), 10)
+    pms = _median_ms(lambda: k9.fastrcnn_snn_plain(x, w6, w7, wc, wb, t), 3)
+    print(f"K9 against K3 + K4 on the same inputs: K9 {ms:.3f} ms on the periods "
+          f"({whole:.3f} ms with the period map, a PyTorch pointwise pass over f32 x); "
+          f"K3 then K4 through fastrcnn_snn_apply {two:.3f} ms")
+    # The encoder spikes within T steps: floor(T / p) per element. fc6 adds
+    # a 1024-wide row per encoder spike, fc7 one per fc6 spike, the readout
+    # a 45-wide row per fc7 spike; about 10 f32 operations per neuron and step.
+    enc = (t // periods.int()).sum().item()
+    outs = k9._launch(periods, w6b, w7b, wro, 9, t)
+    _record(results, "box_head_fused", "snn/pallas_kernels.py:212", err, ms, pms,
+            _bound(_nbytes(periods, w6b, w7b, wro, *outs),
+                   2.0 * enc * rep + 2.0 * n6 * rep + 2.0 * n7 * 45,
+                   10.0 * t * r * (2 * rep + 45)))
+
+
 def _pre_nms_rows(cfg):
     h, w = cfg.bucket
-    return sum(min(cfg.rpn.pre_nms_top_n_test, (h // s) * (w // s) * 3)
-               for s in (4, 8, 16, 32, 64))
+    return sum(min(cfg.rpn.pre_nms_top_n_test, (h // s) * (w // s) * a)
+               for s, a in zip(cfg.fpn_strides, cfg.anchor_spec.num_anchors_per_location))
 
 
 def _check_outputs(out, n, p, d, c, s):
@@ -468,7 +689,7 @@ def _check_outputs(out, n, p, d, c, s):
     if (sc < 0).any() or (sc > 1).any() or (out["labels"] >= c).any():
         _fail("scores outside [0, 1] or labels outside the classes")
     for group in ("rpn_rates", "det_rates"):
-        for k, v in out[group].items():
+        for k, v in out.get(group, {}).items():
             if not torch.isfinite(v).all() or (v < 0).any() or (v > 1).any():
                 _fail(f"{group}/{k}: rates outside [0, 1]")
 
@@ -509,7 +730,7 @@ def _profile(run, what="batch"):
         print(f"profile host: {us / 1e3:10.3f} ms self x{count:<5d} {key[:80]}")
 
 
-def main_path(dev, iters=5):
+def main_path(dev, iters=3):
     import torch
 
     from snn_automotive_object_detection_tpu_torch.models.detector import detector_apply
@@ -542,7 +763,7 @@ def main_path(dev, iters=5):
           f"plain versions on the GPU {plain_calls}")
     want = {"rpn_head": 5 * iters, "roi_align": iters, "encoder_fc6": iters,
             "box_tail": iters, "fpn_level": 4 * iters, "stem": iters,
-            "rpn_head_bwd": 0}
+            "rpn_head_bwd": 0, "rpn_head_x2": 0, "box_head_fused": 0}
     if launches != want:
         _fail(f"the main path's launches are not {want}")
     if any(v != 0 for v in plain_calls.values()):
@@ -562,13 +783,143 @@ def main_path(dev, iters=5):
     return launches
 
 
+def eval_path(dev, backbone, iters=3):
+    """The plain evaluation call, ``detector_apply(training=False,
+    collect_rates=False)``, on one backbone at 2 x 768 x 1536, full width
+    and depth: first with the RPN head's pairing switch on (K8 on every
+    level), then off (K1), which must give the same detections bit for bit.
+    Returns the launches of the paired run."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.models.detector import detector_apply
+    from snn_automotive_object_detection_tpu_torch.models.factory import (
+        DetectorConfig, init_params)
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+
+    cfg = DetectorConfig(num_classes=9, t_rpn=8, t_det=12, backbone=backbone)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    resnet = backbone == "resnet50_fpn"
+    if not resnet:
+        # He-normal MobileNet maps stay below the encoder's threshold of 0.25
+        # (3% of the features pass it); a gain on the FPN's output convs puts
+        # them in its range, so that the heads' kernels see spikes.
+        for layer in params["backbone"]["fpn"]["layer"]:
+            layer["w"].mul_(6.0)
+    n, (h, w) = 2, cfg.bucket
+    g = torch.Generator(device=dev).manual_seed(1)
+    batches = [{"images": torch.rand((n, h, w, 3), generator=g, device=dev),
+                "image_sizes": torch.tensor([[h, w]] * n, device=dev),
+                "original_sizes": torch.tensor([[1024, 2048]] * n, device=dev)}
+               for _ in range(2)]
+    levels = len(cfg.fpn_strides)
+    default = cuda_rpn.PAIR_IMAGES
+    runs, rate = {}, {True: [], False: []}
+    try:
+        # In turns (on, off, off, on): whichever runs first also warms the
+        # allocator and the clocks up.
+        for paired in (True, False, False, True):
+            cuda_rpn.PAIR_IMAGES = paired
+            detector_apply(params, batches[0], cfg)      # warm-up
+            torch.cuda.synchronize()
+            cb.reset_counts()
+            t0 = time.perf_counter()
+            for i in range(iters):
+                out, _ = detector_apply(params, batches[i % 2], cfg)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches, plain_calls = dict(cb.LAUNCHES), dict(cb.PLAIN_CUDA_CALLS)
+            rate[paired].append(n * iters / dt)
+            print(f"{backbone}, rates off, pairing {'on' if paired else 'off'}: {iters} batches "
+                  f"of {n} x {h} x {w}: launches {launches}; {n * iters / dt:.3f} images/s "
+                  f"({dt / iters * 1000:.1f} ms per batch)")
+            want = {"rpn_head_x2": levels * iters if paired else 0,
+                    "rpn_head": 0 if paired else levels * iters,
+                    "roi_align": iters, "encoder_fc6": iters, "box_tail": iters,
+                    "fpn_level": 4 * iters if resnet else 0, "stem": iters if resnet else 0,
+                    "rpn_head_bwd": 0, "box_head_fused": 0}
+            if launches != want:
+                _fail(f"the launches of the rates-off path on {backbone} are not {want}")
+            if any(v != 0 for v in plain_calls.values()):
+                _fail("a plain version ran on the GPU in the rates-off path")
+            if "rpn_rates" in out or "det_rates" in out:
+                _fail("the rates-off path returned rates")
+            _check_outputs(out, n, cfg.rpn.post_nms_top_n_test, cfg.roi.detections_per_img,
+                           cfg.num_classes, _pre_nms_rows(cfg))
+            runs[paired] = (out, launches)
+        cuda_rpn.PAIR_IMAGES = True
+        _profile(lambda: detector_apply(params, batches[0], cfg), f"{backbone} rates-off batch")
+    finally:
+        cuda_rpn.PAIR_IMAGES = default
+    print(f"{backbone}, rates off: images/s with pairing on {rate[True][0]:.3f} and "
+          f"{rate[True][1]:.3f}, off {rate[False][0]:.3f} and {rate[False][1]:.3f}")
+    for k, v in runs[True][0].items():
+        if not torch.equal(v, runs[False][0][k]):
+            _fail(f"{backbone}: {k} differs between pairing on and off")
+    out = runs[True][0]
+    # Outside the counted runs: the same batch once more with rates on, for
+    # the spike rates the kernels worked at.
+    rated, _ = detector_apply(params, batches[(iters - 1) % 2], cfg, collect_rates=True)
+    rr = [round(x, 4) for x in rated["rpn_rates"]["shared"].mean(dim=1).tolist()]
+    dr = {k: round(v.mean().item(), 4) for k, v in rated["det_rates"].items()}
+    print(f"{backbone}, rates off: the same bits with pairing on and off; "
+          f"{int(out['valid'].sum())} valid output rows, "
+          f"{int((out['valid'] & (out['labels'] > 0)).sum())} FG detections, max objectness "
+          f"{out['objectness'].max().item():.4f} in the last batch; with rates on, RPN LIF "
+          f"rates per level {rr}, box-head rates {dr}")
+    if not torch.equal(rated["objectness"], out["objectness"]):
+        _fail(f"{backbone}: the objectness differs between rates on and off")
+    if max(rr) == 0 or dr["fc6"] == 0:
+        _fail(f"{backbone}: no spike in the RPN head or in fc6")
+    return runs[True][1]
+
+
+def fused_head_path(dev):
+    """The fused box head's own entry point, ``fastrcnn_snn_cuda``, on the
+    flagship box head's weights and 2 x 1000 RoI feature rows: one launch
+    for all 12 steps. Returns the launches."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.models.factory import (
+        DetectorConfig, init_params)
+    from snn_automotive_object_detection_tpu_torch.snn.cuda_kernels import fastrcnn_snn_cuda
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+
+    cfg = DetectorConfig(num_classes=9, t_rpn=8, t_det=12)
+    head = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)["box_head"]
+    x = torch.rand((2000, 12544), generator=torch.Generator(device=dev).manual_seed(3),
+                   device=dev) * 2.5
+    weights = [head[k]["w"] for k in ("fc6", "fc7", "cls_score", "bbox_pred")]
+    fastrcnn_snn_cuda(x, *weights, cfg.t_det)                       # warm-up
+    torch.cuda.synchronize()
+    cb.reset_counts()
+    t0 = time.perf_counter()
+    cls, reg, r6, r7 = fastrcnn_snn_cuda(x, *weights, cfg.t_det)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, plain_calls = dict(cb.LAUNCHES), dict(cb.PLAIN_CUDA_CALLS)
+    print(f"fused box head: 2000 RoIs, T = 12: launches {launches}; {dt * 1000:.1f} ms; "
+          f"rates fc6 {r6.mean().item():.4f} fc7 {r7.mean().item():.4f}; max |logit| "
+          f"{cls.abs().max().item():.4g}")
+    if launches != {**{k: 0 for k in launches}, "box_head_fused": 1}:
+        _fail("the fused box head is not one launch of its kernel")
+    if any(v != 0 for v in plain_calls.values()):
+        _fail("a plain version ran on the GPU in the fused box head")
+    for a, shp in zip((cls, reg, r6, r7), ((2000, 9), (2000, 36), (2000,), (2000,))):
+        if tuple(a.shape) != shp or not torch.isfinite(a).all():
+            _fail(f"fused box head: output {tuple(a.shape)} is not finite {shp}")
+    if not (0 < r6.mean().item() < 1 and 0 <= r7.min().item() and r7.max().item() <= 1):
+        _fail("fused box head: rates outside [0, 1] or no fc6 spike")
+    return launches
+
+
 def _tree_sums(leaves):
     import torch
 
     return torch.stack([leaf.detach().double().sum() for leaf in leaves])
 
 
-def train_path(dev, steps=3):
+def train_path(dev, steps=2):
     """The flagship training step, frozen backbone, through make_train_step."""
     import torch
 
@@ -618,7 +969,8 @@ def train_path(dev, steps=3):
     print(f"training: {steps} steps of {n} x {h} x {w}: launches {launches}, plain "
           f"versions on the GPU {plain_calls}")
     want = {"stem": steps, "rpn_head": 5 * steps, "rpn_head_bwd": 5 * steps,
-            "roi_align": 0, "encoder_fc6": 0, "box_tail": 0, "fpn_level": 0}
+            "roi_align": 0, "encoder_fc6": 0, "box_tail": 0, "fpn_level": 0,
+            "rpn_head_x2": 0, "box_head_fused": 0}
     if launches != want:
         _fail(f"the training path's launches are not {want}")
     if any(v != 0 for v in plain_calls.values()):
@@ -688,7 +1040,10 @@ def main() -> int:
 
     results = []
     check_kernels(dev, results)
-    by_path = {"inference": main_path(dev), "training": train_path(dev)}
+    by_path = {"inference": main_path(dev), "training": train_path(dev),
+               "evaluation": eval_path(dev, "resnet50_fpn"),
+               "mobilenet": eval_path(dev, "mobilenet_v3_large_fpn"),
+               "fused_box_head": fused_head_path(dev)}
     for r in results:
         r["launches_by_path"] = {k: v[r["name"]] for k, v in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

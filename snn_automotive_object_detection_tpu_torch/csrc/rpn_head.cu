@@ -31,8 +31,9 @@
 // registers as accumulator-shaped fragments (the element mapping is shared
 // by fragments of one type; a fragment loaded from an index matrix
 // recovers each element's pixel for the edge mask). After the loop the
-// spike sum goes through shared memory into the 15-channel readout, so the
-// level needs one launch and no second pass. Spike counts are exact 64-bit
+// spike sum goes through shared memory into the readout (15 channels at
+// three anchors per location, up to 128), so the level needs one launch
+// and no second pass. Spike counts are exact 64-bit
 // integers.
 //
 // The shared-memory layout, the encoder's period map and spike halo and the
@@ -88,22 +89,15 @@ rpn_level_kernel(const __nv_bfloat16* __restrict__ feat,   // [N, H, W, C]
   for (int t = 0; t < T; ++t) {
     prefetch_weights(sm, w9, tid);
     enc_cnt += build_spikes(sm, t, x0, W, tid);
-    conv_step(acc, sm, w9, tid, ph, cg);
+    conv_step(acc, sm, w9, tid, ph * 16, cg);
 
     // LIF (f32 state; the conv current is rounded to bf16 first) and the
     // LI-weighted spike sum.
     const float lit = sm.li[t];
     for (int f = 0; f < 2; ++f) {
       for (int e = 0; e < acc[f].num_elements; ++e) {
-        const float cur = __bfloat162float(__float2bfloat16_rn(acc[f].x[e]));
-        const float vv = v[f].x[e];
-        const float iv = cu[f].x[e];
-        const float vd = vv + 0.1f * (iv - vv);
-        const float id = iv - 0.2f * iv;
-        const bool s = (vd - 0.1f) > 0.0f;
-        v[f].x[e] = s ? 0.0f : vd;
-        cu[f].x[e] = id + cur;
-        ss[f].x[e] = ss[f].x[e] + (s ? lit : 0.0f);
+        float vd;
+        const bool s = lif_element(acc[f].x[e], lit, v[f].x[e], cu[f].x[e], ss[f].x[e], vd);
         const int r = ((int)pos.x[e]) >> 4;
         if (s && x0 + ph * 16 + r < W) ++lif_cnt;
       }

@@ -109,21 +109,14 @@ rpn_level_bwd_sweep_kernel(const __nv_bfloat16* __restrict__ feat,   // [N, H, W
   for (int t = 0; t < T; ++t) {
     prefetch_weights(sm, w9, tid);
     build_spikes(sm, t, x0, W, tid);
-    conv_step(acc, sm, w9, tid, ph, cg);
+    conv_step(acc, sm, w9, tid, ph * 16, cg);
 
     const float lit = sm.li[t];
     float* vd_t = vd_blk + (int64_t)t * (16 * kThreads);
     for (int f = 0; f < 2; ++f) {
       for (int e = 0; e < 8; ++e) {
-        const float cur = __bfloat162float(__float2bfloat16_rn(acc[f].x[e]));
-        const float vv = v[f].x[e];
-        const float iv = cu[f].x[e];
-        const float vd = vv + 0.1f * (iv - vv);
-        const float id = iv - 0.2f * iv;
-        const bool s = (vd - 0.1f) > 0.0f;
-        v[f].x[e] = s ? 0.0f : vd;
-        cu[f].x[e] = id + cur;
-        ss[f].x[e] = ss[f].x[e] + (s ? lit : 0.0f);
+        float vd;
+        lif_element(acc[f].x[e], lit, v[f].x[e], cu[f].x[e], ss[f].x[e], vd);
         vd_t[(f * 8 + e) * kThreads] = vd;
       }
     }
@@ -223,6 +216,7 @@ constexpr int kGSmemBytes = 4 * kGStage * 2;
 static_assert(kGSmemBytes <= 232448, "shared memory of one block");
 static_assert(kTP * kMaxOut * 4 <= kGSmemBytes, "g tile of the dwout blocks");
 static_assert(kGThreads == kC, "a dwout block has one thread per channel");
+constexpr int kOutChunk = 64;        // readout columns a dwout thread sums at a time
 
 using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
 
@@ -264,28 +258,33 @@ rpn_level_bwd_wgrad_kernel(const uint8_t* __restrict__ per,          // [N, H, W
     const int c0 = so * per_split;
     const int c1 = min(n_chunks, c0 + per_split);
     float* gs = reinterpret_cast<float*>(smem);         // [kTP][n_out]
-    float acc[kMaxOut];
+    // Readout columns in chunks of kOutChunk, so that a thread's sums stay
+    // in registers; a further chunk walks the block's pixels again.
+    for (int j0 = 0; j0 < n_out; j0 += kOutChunk) {
+      const int nj = min(kOutChunk, n_out - j0);
+      float acc[kOutChunk];
 #pragma unroll
-    for (int j = 0; j < kMaxOut; ++j) acc[j] = 0.0f;
-    for (int c = c0; c < c1; ++c) {
-      const int x0 = (c % xcs) * kTP;
-      const int64_t px0 = (int64_t)(c / xcs) * W + x0;  // c / xcs = n * H + y
-      const int npx = min(kTP, W - x0);
-      __syncthreads();
-      for (int o = tid; o < npx * n_out; o += kGThreads) gs[o] = g[px0 * n_out + o];
-      __syncthreads();
-      for (int px = 0; px < npx; ++px) {
-        const float sv = ssum[(px0 + px) * kC + tid];
+      for (int j = 0; j < kOutChunk; ++j) acc[j] = 0.0f;
+      for (int c = c0; c < c1; ++c) {
+        const int x0 = (c % xcs) * kTP;
+        const int64_t px0 = (int64_t)(c / xcs) * W + x0;  // c / xcs = n * H + y
+        const int npx = min(kTP, W - x0);
+        __syncthreads();
+        for (int o = tid; o < npx * n_out; o += kGThreads) gs[o] = g[px0 * n_out + o];
+        __syncthreads();
+        for (int px = 0; px < npx; ++px) {
+          const float sv = ssum[(px0 + px) * kC + tid];
 #pragma unroll
-        for (int j = 0; j < kMaxOut; ++j) {
-          if (j < n_out) acc[j] = acc[j] + sv * gs[px * n_out + j];
+          for (int j = 0; j < kOutChunk; ++j) {
+            if (j < nj) acc[j] = acc[j] + sv * gs[px * n_out + j0 + j];
+          }
         }
       }
-    }
-    float* mine = part_out + ((int64_t)so * kC + tid) * n_out;
+      float* mine = part_out + ((int64_t)so * kC + tid) * n_out + j0;
 #pragma unroll
-    for (int j = 0; j < kMaxOut; ++j) {
-      if (j < n_out) mine[j] = acc[j];
+      for (int j = 0; j < kOutChunk; ++j) {
+        if (j < nj) mine[j] = acc[j];
+      }
     }
     if (!arrives_last(counters + kDw9Tiles, S_out)) return;
     for (int j = 0; j < n_out; ++j) {

@@ -1,10 +1,15 @@
 // Device code shared by the spiking RPN head's forward kernel
-// (rpn_head.cu) and its backward kernel (rpn_head_bwd.cu), which replays
-// the forward: the shared-memory layout of a block, the encoder's period
-// map and per-step spike halo, and the 3x3 conv on the tensor cores with
-// the tap weights streaming through a cp.async ring. Both kernels call the
-// same functions in the same order, so the replay's conv sums, and with
-// them its spike trains, are bit-equal to the forward's.
+// (rpn_head.cu), its paired-image variant (rpn_head_x2.cu) and its backward
+// kernel (rpn_head_bwd.cu), which replays the forward: the shared-memory
+// layout of a block, the encoder's period map and per-step spike halo, the
+// 3x3 conv on the tensor cores with the tap weights streaming through a
+// cp.async ring, and the LIF update of one neuron. All kernels call the
+// same functions in the same order, so the pair's and the replay's conv
+// sums, and with them their spike trains, are bit-equal to the forward's.
+//
+// A block covers kTP pixels of one row: all of one image (Tile<1>), or
+// kTP / 2 pixels of each image of a pair at the same place (Tile<2>), whose
+// two halos lie side by side in the spike buffer.
 
 #pragma once
 
@@ -18,37 +23,48 @@ namespace rpn {
 using namespace nvcuda;
 
 constexpr int kC = 256;            // channels in and out of the 3x3 conv
-constexpr int kTP = 32;            // pixels per block (one row segment)
-constexpr int kHalo = kTP + 2;     // halo width
+constexpr int kTP = 32;            // pixels per block (one row segment per image)
 constexpr int kLdz = 272;          // spike row stride: 544 B keeps WMMA pointers 32 B aligned
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxT = 32;
-constexpr int kMaxOut = 64;
+constexpr int kMaxOut = 128;       // readout channels (25 anchors)
 
 constexpr int kStageRows = 64;     // tap-weight rows (input channels) per stage
 constexpr int kStages = 3;         // ring depth: stage s + 2 loads while s computes
 constexpr int kLdw = kC + 8;       // stage row stride: 528 B keeps fragment pointers 32 B aligned
 constexpr int kStagesPerStep = 9 * kC / kStageRows;
 
-constexpr int kPerBytes = 3 * kHalo * kC;                       // uint8 periods
-constexpr int kZBytes = 3 * kHalo * kLdz * 2;                   // bf16 spikes
-constexpr int kIdxOff = kPerBytes + kZBytes;
-constexpr int kConstOff = kIdxOff + 256 * 4;
-constexpr int kMaskOff = kConstOff + 2 * kMaxT * 4;
-constexpr int kWOff = (kMaskOff + kMaxT * 8 + 127) / 128 * 128;
 constexpr int kStageBytes = kStageRows * kLdw * 2;
 constexpr int kRingBytes = kStages * kStageBytes;
-constexpr int kSmemBytes = kWOff + kRingBytes;
-
 constexpr int kVec = 8;                                  // channels per item
-constexpr int kItems = 3 * kHalo * kC / kVec;            // items of the halo
 
-static_assert(kPerBytes % 128 == 0, "spike halo must stay aligned");
-static_assert(kIdxOff % 32 == 0 && kStageBytes % 32 == 0, "fragment pointers need 32 B");
-static_assert(kTP * kC * 4 <= kZBytes, "spike-sum staging reuses the spike halo");
+// Geometry and shared-memory layout of a block that covers kImgs images.
+template <int kImgs>
+struct Tile {
+  static constexpr int kPx = kTP / kImgs;                // pixels per image
+  static constexpr int kHw = kPx + 2;                    // halo width per image
+  static constexpr int kCols = kImgs * kHw;              // halo columns of the block
+  static constexpr int kPerBytes = 3 * kCols * kC;       // uint8 periods
+  static constexpr int kZBytes = 3 * kCols * kLdz * 2;   // bf16 spikes
+  static constexpr int kIdxOff = kPerBytes + kZBytes;
+  static constexpr int kConstOff = kIdxOff + 256 * 4;
+  static constexpr int kMaskOff = kConstOff + 2 * kMaxT * 4;
+  static constexpr int kWOff = (kMaskOff + kMaxT * 8 + 127) / 128 * 128;
+  static constexpr int kSmemBytes = kWOff + kRingBytes;
+  static constexpr int kItems = 3 * kCols * kC / kVec;   // items of the halo
+
+  static_assert(kPerBytes % 128 == 0, "spike halo must stay aligned");
+  static_assert(kIdxOff % 32 == 0 && kStageBytes % 32 == 0, "fragment pointers need 32 B");
+  static_assert(kTP * kC * 4 <= kZBytes, "spike-sum staging reuses the spike halo");
+  static_assert(kSmemBytes <= 232448, "shared memory of one block");
+};
+
+constexpr int kHalo = Tile<1>::kHw;
+constexpr int kZBytes = Tile<1>::kZBytes;
+constexpr int kSmemBytes = Tile<1>::kSmemBytes;
+
 static_assert(kStageRows * kC / 8 % kThreads == 0, "whole 16-byte copies per thread");
-static_assert(kSmemBytes <= 232448, "shared memory of one block");
 
 using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
@@ -56,8 +72,8 @@ using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::ro
 
 // One block's shared memory.
 struct Smem {
-  uint8_t* per;                    // [3][kHalo][kC] encoder periods
-  __nv_bfloat16* z;                // [3][kHalo][kLdz] this step's encoder spikes
+  uint8_t* per;                    // [3][kCols][kC] encoder periods
+  __nv_bfloat16* z;                // [3][kCols][kLdz] this step's encoder spikes
   float* idx;                      // [256] 0..255, recovers a fragment element's place
   float* thr;                      // [T] encoder thresholds
   float* li;                       // [T] LI readout coefficients
@@ -65,15 +81,17 @@ struct Smem {
   __nv_bfloat16* ring;             // [kStages][kStageRows][kLdw] tap weights
 };
 
+template <int kImgs = 1>
 __device__ __forceinline__ Smem carve(unsigned char* smem) {
+  using G = Tile<kImgs>;
   Smem s;
   s.per = smem;
-  s.z = reinterpret_cast<__nv_bfloat16*>(smem + kPerBytes);
-  s.idx = reinterpret_cast<float*>(smem + kIdxOff);
-  s.thr = reinterpret_cast<float*>(smem + kConstOff);
+  s.z = reinterpret_cast<__nv_bfloat16*>(smem + G::kPerBytes);
+  s.idx = reinterpret_cast<float*>(smem + G::kIdxOff);
+  s.thr = reinterpret_cast<float*>(smem + G::kConstOff);
   s.li = s.thr + kMaxT;
-  s.spk_mask = reinterpret_cast<unsigned long long*>(smem + kMaskOff);
-  s.ring = reinterpret_cast<__nv_bfloat16*>(smem + kWOff);
+  s.spk_mask = reinterpret_cast<unsigned long long*>(smem + G::kMaskOff);
+  s.ring = reinterpret_cast<__nv_bfloat16*>(smem + G::kWOff);
   return s;
 }
 
@@ -129,23 +147,27 @@ __device__ __forceinline__ void load_constants(const Smem& sm, const float* cons
   }
 }
 
-// Period map of the 3 x 34 halo around row y, pixels x0 .. x0 + 31 of
-// image n, 8 channels per item: p = 1 + sum_m [x * thr[m] <= 0.25]. Outside
-// the image the conv's zero padding never spikes: period T + 1.
+// Period map of the halo around row y, pixels x0 .. x0 + kPx - 1 of
+// images n .. n + kImgs - 1 (3 x 34 for one image), 8 channels per item:
+// p = 1 + sum_m [x * thr[m] <= 0.25]. Outside the image the conv's zero
+// padding never spikes: period T + 1.
+template <int kImgs = 1>
 __device__ __forceinline__ void build_period_map(const Smem& sm, const __nv_bfloat16* feat,
                                                  int n, int y, int x0, int H, int W, int T,
                                                  int tid) {
-  for (int q = tid; q < kItems; q += kThreads) {
+  using G = Tile<kImgs>;
+  for (int q = tid; q < G::kItems; q += kThreads) {
     const int e0 = q * kVec;
-    const int row = e0 / (kHalo * kC);
-    const int hp = (e0 / kC) % kHalo;
+    const int row = e0 / (G::kCols * kC);
+    const int col = (e0 / kC) % G::kCols;
+    const int hp = col % G::kHw;
     const int ch = e0 % kC;
     const int gy = y + row - 1;
     const int gx = x0 + hp - 1;
     uint8_t p8[kVec];
     if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
       const uint4 raw = *reinterpret_cast<const uint4*>(
-          feat + (((int64_t)n * H + gy) * W + gx) * kC + ch);
+          feat + (((int64_t)(n + col / G::kHw) * H + gy) * W + gx) * kC + ch);
       const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&raw);
       for (int j = 0; j < kVec; ++j) {
         const float xf = __bfloat162float(xv[j]);
@@ -162,15 +184,18 @@ __device__ __forceinline__ void build_period_map(const Smem& sm, const __nv_bflo
 
 // Encoder spikes of the halo at step t, from the period map. Returns this
 // thread's count of spikes among the block's own pixels inside the image.
+template <int kImgs = 1>
 __device__ __forceinline__ int build_spikes(const Smem& sm, int t, int x0, int W, int tid) {
+  using G = Tile<kImgs>;
   const __nv_bfloat16 one = __float2bfloat16(1.0f);
   const __nv_bfloat16 zero = __float2bfloat16(0.0f);
   const unsigned long long m_t = sm.spk_mask[t];
   int count = 0;
-  for (int q = tid; q < kItems; q += kThreads) {
+  for (int q = tid; q < G::kItems; q += kThreads) {
     const int e0 = q * kVec;
-    const int row = e0 / (kHalo * kC);
-    const int hp = (e0 / kC) % kHalo;
+    const int row = e0 / (G::kCols * kC);
+    const int col = (e0 / kC) % G::kCols;
+    const int hp = col % G::kHw;
     const int ch = e0 % kC;
     const uint2 praw = *reinterpret_cast<const uint2*>(sm.per + e0);
     const uint8_t* p8 = reinterpret_cast<const uint8_t*>(&praw);
@@ -181,9 +206,9 @@ __device__ __forceinline__ int build_spikes(const Smem& sm, int t, int x0, int W
       zv[j] = s ? one : zero;
       nz += s ? 1 : 0;
     }
-    *reinterpret_cast<uint4*>(sm.z + (row * kHalo + hp) * kLdz + ch) =
+    *reinterpret_cast<uint4*>(sm.z + (row * G::kCols + col) * kLdz + ch) =
         *reinterpret_cast<const uint4*>(zv);
-    if (row == 1 && hp >= 1 && hp <= kTP && x0 + hp - 1 < W) count += nz;
+    if (row == 1 && hp >= 1 && hp <= G::kPx && x0 + hp - 1 < W) count += nz;
   }
   return count;
 }
@@ -199,10 +224,13 @@ __device__ __forceinline__ void prefetch_weights(const Smem& sm, const __nv_bflo
 }
 
 // 3x3 conv of the spike halo on the tensor cores, the tap weights
-// streaming through the ring: warp (ph, cg) gets pixels ph*16 .. +15 and
-// channels cg*32 .. +31 as two accumulator fragments.
+// streaming through the ring: warp (ph, cg) gets the 16 pixels whose halo
+// begins at column col0 of the spike buffer (ph*16 of the one image, or
+// all of image ph of a pair) and channels cg*32 .. +31 as two accumulator
+// fragments. One trip of the ring serves every warp of the block.
+template <int kImgs = 1>
 __device__ __forceinline__ void conv_step(Acc (&acc)[2], const Smem& sm,
-                                          const __nv_bfloat16* w9, int tid, int ph, int cg) {
+                                          const __nv_bfloat16* w9, int tid, int col0, int cg) {
   wmma::fill_fragment(acc[0], 0.0f);
   wmma::fill_fragment(acc[1], 0.0f);
   for (int st = 0; st < kStagesPerStep; ++st) {
@@ -215,7 +243,7 @@ __device__ __forceinline__ void conv_step(Acc (&acc)[2], const Smem& sm,
     const int dx = k % 3 - 1;
     const int kc0 = (st % (kC / kStageRows)) * (kStageRows / 16);
     const __nv_bfloat16* a_base =
-        sm.z + ((1 + dy) * kHalo + ph * 16 + 1 + dx) * kLdz + kc0 * 16;
+        sm.z + ((1 + dy) * Tile<kImgs>::kCols + col0 + 1 + dx) * kLdz + kc0 * 16;
     const __nv_bfloat16* b_base = sm.ring + (st % kStages) * (kStageRows * kLdw) + cg * 32;
 #pragma unroll
     for (int kk = 0; kk < kStageRows / 16; ++kk) {
@@ -228,6 +256,20 @@ __device__ __forceinline__ void conv_step(Acc (&acc)[2], const Smem& sm,
       wmma::mma_sync(acc[1], a, b1, acc[1]);
     }
   }
+}
+
+// One neuron's LIF step on its conv sum, rounded to bf16 first, and its
+// LI-weighted spike sum; vd is the decayed membrane the spike was taken on.
+__device__ __forceinline__ bool lif_element(float conv, float lit, float& v, float& cu,
+                                            float& ss, float& vd) {
+  const float cur = __bfloat162float(__float2bfloat16_rn(conv));
+  vd = v + 0.1f * (cu - v);
+  const float id = cu - 0.2f * cu;
+  const bool s = (vd - 0.1f) > 0.0f;
+  v = s ? 0.0f : vd;
+  cu = id + cur;
+  ss = ss + (s ? lit : 0.0f);
+  return s;
 }
 
 }  // namespace rpn

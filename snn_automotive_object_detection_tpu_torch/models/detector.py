@@ -2,21 +2,25 @@
 
 Port of ``snn_automotive_object_detection_tpu/models/detector.py``
 (reference generalized_rcnn.py and faster_rcnn.py): normalise, frozen
-ResNet-50-FPN (5 levels), spiking RPN over all levels, RoIAlign and the
-spiking box head over levels 0-3. At inference the open-set postprocess
+backbone (ResNet-50-FPN, 5 levels, or MobileNetV3-Large-FPN, 3 levels),
+spiking RPN over all levels, RoIAlign and the spiking box head over all
+levels but the pool level. At inference the open-set postprocess
 follows; detections, pre-NMS proposals and ``all_boxes`` are rescaled to
 the original image sizes. In training the four losses come back instead.
 
 On a CUDA device the four spiking-core stages run as hand-written kernels
-(K1 RPN head, K2 RoIAlign, K3 encoder+fc6, K4 box tail); on the CPU they
-run as the kernels' plain PyTorch versions.
+(K1 RPN head, or K8 pair by pair when no rates are collected and
+``snn/cuda_rpn.PAIR_IMAGES`` is on; K2 RoIAlign, K3 encoder+fc6, K4 box
+tail); on the CPU they run as the kernels' plain PyTorch versions.
 
 The compute dtype picks the backbone's route, by the reference's rule (its
 bf16 runs take the fused kernels, its float32 runs keep the unfused chain):
 with bf16 the raw image goes through the fused stem (K6, normalisation
 folded in) and the levels through the fused FPN (K5), kernels on a CUDA
 device and plain versions on the CPU; with float32 the image is normalised
-and takes the unfused chain on either device.
+and takes the unfused chain on either device. The fused stem and FPN are
+ResNet's: a MobileNet backbone is normalised and runs unfused in either
+dtype, as in the reference.
 
 In training the route changes with what needs a gradient (see
 :func:`make_head_applies` and ``_detector_apply``): the fused stem serves
@@ -35,6 +39,9 @@ import torch
 from snn_automotive_object_detection_tpu_torch.models import heads
 from snn_automotive_object_detection_tpu_torch.models import roi_heads as roi_mod
 from snn_automotive_object_detection_tpu_torch.models import rpn as rpn_mod
+from snn_automotive_object_detection_tpu_torch.models.mobilenet_fpn import (
+    mobilenet_v3_fpn_apply,
+)
 from snn_automotive_object_detection_tpu_torch.models.resnet_fpn import (
     resnet50_fpn_apply,
     resnet50_fpn_apply_from_p1,
@@ -127,7 +134,10 @@ def _detector_apply(params, batch, config, training, generator, collect_rates,
     # no gradient, which is fine while the stem is frozen; the fused FPN is
     # for inference.
     tbl = config.backbone_trainable_stages if training else 0
-    if cd == torch.bfloat16 and tbl < 5:
+    if config.backbone != "resnet50_fpn":
+        x = normalize_images(images, config.image_mean, config.image_std)
+        feats = mobilenet_v3_fpn_apply(params["backbone"], x, cd)
+    elif cd == torch.bfloat16 and tbl < 5:
         if images.dtype == torch.uint8:
             images = images.float() / 255.0
         p1 = stem_apply(params["backbone"]["stem"], images, config.image_mean,

@@ -6,8 +6,8 @@ heads.py``. At inference, as the reference runs them with its kernels on:
 
   * RPN head (reference rpn.py:33-121): per FPN level, T_rpn steps of
     encoder -> 3x3 conv -> LIF -> fused 1x1 cls+bbox readout -> LI; the
-    final LI membranes are the logits. Runs as kernel K1
-    (``snn/cuda_rpn.py``).
+    final LI membranes are the logits. Runs as kernel K1, or pair by pair
+    as kernel K8 (``snn/cuda_rpn.py``).
   * Box head (reference faster_rcnn.py:414-516): flattened 7x7x256 RoI
     features, T_det steps of encoder -> fc6 -> LIF -> fc7 -> LIF -> cls and
     bbox LI readouts. Runs as kernels K3 (encoder+fc6, ``snn/cuda_fc6.py``)
@@ -40,10 +40,8 @@ import torch
 from snn_automotive_object_detection_tpu_torch.models.resnet_fpn import conv_nhwc
 from snn_automotive_object_detection_tpu_torch.snn import functional as snnf
 from snn_automotive_object_detection_tpu_torch.snn.cuda_fc6 import encoder_fc6
-from snn_automotive_object_detection_tpu_torch.snn.cuda_rpn import (
-    RpnLevelTrain,
-    rpn_level,
-)
+from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn
+from snn_automotive_object_detection_tpu_torch.snn.cuda_rpn import RpnLevelTrain
 from snn_automotive_object_detection_tpu_torch.snn.cuda_tail import box_tail
 
 
@@ -60,19 +58,28 @@ def rpn_head_snn_apply(params: Dict, features: List[torch.Tensor],
                        compute_dtype=torch.bfloat16):
     """features: list of [N, H_l, W_l, C]. Returns (objectness list
     [N, H_l, W_l, A] f32, bbox list [N, H_l, W_l, 4A] f32, rates): rates is
-    None or {"encoder", "shared"}: [L, N]."""
+    None or {"encoder", "shared"}: [L, N].
+
+    A level takes the paired kernel (K8), which keeps no spike counts, when
+    ``cuda_rpn.PAIR_IMAGES`` is on, no rates are collected and the level can
+    pair (an even batch); else the per-image kernel (K1). Both give the
+    same bits."""
     w_out, a = _fused_readout(params)
+    w_shared = params["shared_conv"]["w"]
     logits, bbox_reg, enc_rates, shared_rates = [], [], [], []
     for feat in features:
         x = feat.to(compute_dtype).contiguous()
         _, h, w, c = x.shape
-        out, enc, lif = rpn_level(x, params["shared_conv"]["w"], w_out,
-                                  num_steps)
+        if (cuda_rpn.PAIR_IMAGES and not collect_rates
+                and cuda_rpn.x2_feasible(x.shape)):
+            out = cuda_rpn.rpn_level_x2(x, w_shared, w_out, num_steps)
+        else:
+            out, enc, lif = cuda_rpn.rpn_level(x, w_shared, w_out, num_steps)
+            denom = float(num_steps * h * w * c)
+            enc_rates.append(enc.double() / denom)
+            shared_rates.append(lif.double() / denom)
         logits.append(out[..., :a])
         bbox_reg.append(out[..., a:])
-        denom = float(num_steps * h * w * c)
-        enc_rates.append(enc.double() / denom)
-        shared_rates.append(lif.double() / denom)
     rates = None
     if collect_rates:
         rates = {"encoder": torch.stack(enc_rates).float(),

@@ -1,15 +1,18 @@
-"""Spiking RPN head through the hand-written CUDA kernels: the forward (K1)
-and its backward for the weights (K7).
+"""Spiking RPN head through the hand-written CUDA kernels: the forward (K1),
+the forward for a pair of images (K8) and the backward for the weights
+(K7).
 
 Replaces ``snn/pallas_rpn.py``: ``rpn_head_snn_pallas_apply`` with its
-per-level ``_run_level`` (K1, ``csrc/rpn_head.cu``), and
+per-level ``_run_level`` (K1, ``csrc/rpn_head.cu``) and its paired
+``_run_level_x2`` (K8, ``csrc/rpn_head_x2.cu``), and
 ``rpn_head_snn_pallas_train_apply`` with ``_run_level_bwd`` as the custom
-VJP of the level (K7, ``csrc/rpn_head_bwd.cu``). :func:`rpn_level_plain`
-and :func:`rpn_level_bwd_plain` beside them are their plain PyTorch
-versions and follow the TPU kernels' formulation: threshold-count encoder
-periods, the conv current rounded to the plane dtype, f32 LIF states, an
-LI-weighted spike sum with :func:`snnf.li_coefficients` and one fused
-readout after the loop, rounded to the plane dtype; backwards, the replay
+VJP of the level (K7, ``csrc/rpn_head_bwd.cu``). :func:`rpn_level_plain`,
+:func:`rpn_level_x2_plain` and :func:`rpn_level_bwd_plain` beside them are
+their plain PyTorch versions and follow the TPU kernels' formulation:
+threshold-count encoder periods, the conv current rounded to the plane
+dtype, f32 LIF states, an LI-weighted spike sum with
+:func:`snnf.li_coefficients` and one fused readout after the loop, rounded
+to the plane dtype; backwards, the replay
 with stored decayed membranes, the reverse SuperSpike sweep written out
 (no autograd) and the two weight-gradient products.
 
@@ -30,12 +33,19 @@ from snn_automotive_object_detection_tpu_torch.utils.constants import device_con
 
 NAME = "rpn_head"
 BWD_NAME = "rpn_head_bwd"
+X2_NAME = "rpn_head_x2"
+# Whether the head outside training takes the paired kernel for the levels
+# that can pair (see :func:`x2_feasible`) when no rates are collected.
+# Pairing changes no output bit. On: on an H100 the five flagship levels
+# take 20.5 ms paired against 21.1-21.5 ms one by one, more than the spread
+# of the repeats (PERF.md; ``chip_smoke.py`` prints both in every run).
+PAIR_IMAGES = True
 # Split counts of the weight-gradient kernel: 36 tiles of dw9 times 11
 # splits are three blocks for each of 132 SMs.
 DW9_SPLITS = 11
 DWOUT_SPLITS = 64
 MAX_T = 32
-MAX_OUT = 64
+MAX_OUT = 128
 
 
 def _constants(num_steps: int, device) -> torch.Tensor:
@@ -52,18 +62,10 @@ def _taps(w_shared: torch.Tensor) -> torch.Tensor:
     return w_shared.reshape(9, c, c).to(torch.bfloat16).contiguous()
 
 
-def rpn_level_plain(feat: torch.Tensor, w_shared: torch.Tensor,
-                    w_out: torch.Tensor, num_steps: int, spike_sum: bool = False):
-    """One FPN level, plain PyTorch.
-
-    feat [N, H, W, C] in the plane dtype (bf16 or f32); w_shared
-    [3, 3, C, C] HWIO; w_out [C, n_out]. Returns (readout [N, H, W, n_out]
-    float32 holding plane-dtype values, encoder counts [N] int64, LIF spike
-    counts [N] int64), and with ``spike_sum`` also the LI-weighted spike sum
-    [N, H, W, C] f32 of every neuron, for checks that count flipped spikes
-    neuron by neuron.
-    """
-    cb.note_plain(NAME, feat)
+def _level_steps(feat: torch.Tensor, w_shared: torch.Tensor,
+                 w_out: torch.Tensor, num_steps: int):
+    """The T steps of one level on a batch of images: (readout, encoder
+    counts, LIF spike counts, LI-weighted spike sums)."""
     cd = feat.dtype
     n, h, w, c = feat.shape
     consts = _constants(num_steps, feat.device)
@@ -83,21 +85,68 @@ def rpn_level_plain(feat: torch.Tensor, w_shared: torch.Tensor,
         enc += z.sum(dim=(1, 2, 3), dtype=torch.int64)
         lif += s.sum(dim=(1, 2, 3), dtype=torch.int64)
     out = torch.matmul(ssum, w_out.to(cd).float()).to(cd).float()
-    return (out, enc, lif, ssum) if spike_sum else (out, enc, lif)
+    return out, enc, lif, ssum
+
+
+def rpn_level_plain(feat: torch.Tensor, w_shared: torch.Tensor,
+                    w_out: torch.Tensor, num_steps: int, spike_sum: bool = False):
+    """One FPN level, plain PyTorch.
+
+    feat [N, H, W, C] in the plane dtype (bf16 or f32); w_shared
+    [3, 3, C, C] HWIO; w_out [C, n_out]. Returns (readout [N, H, W, n_out]
+    float32 holding plane-dtype values, encoder counts [N] int64, LIF spike
+    counts [N] int64), and with ``spike_sum`` also the LI-weighted spike sum
+    [N, H, W, C] f32 of every neuron, for checks that count flipped spikes
+    neuron by neuron.
+    """
+    cb.note_plain(NAME, feat)
+    got = _level_steps(feat, w_shared, w_out, num_steps)
+    return got if spike_sum else got[:3]
+
+
+def x2_feasible(feat_shape) -> bool:
+    """Whether a level [N, H, W, C] can take the paired kernel: an even
+    batch of 256-channel planes whose pairs fit the grid. The kernel's
+    shared memory (190 KB) does not depend on the level."""
+    n, _, _, c = feat_shape
+    return n > 0 and n % 2 == 0 and n // 2 <= 65535 and c == 256
+
+
+def rpn_level_x2_plain(feat: torch.Tensor, w_shared: torch.Tensor,
+                       w_out: torch.Tensor, num_steps: int,
+                       spike_sum: bool = False):
+    """One FPN level pair by pair, plain PyTorch: images 2p and 2p + 1 go
+    through the steps together. feat [N, H, W, C] with N even. Returns the
+    readout [N, H, W, n_out] f32, with ``spike_sum`` (readout, spike sums
+    [N, H, W, C] f32); no spike counts. Per image the values are
+    :func:`rpn_level_plain`'s."""
+    cb.note_plain(X2_NAME, feat)
+    if feat.shape[0] % 2:
+        raise ValueError(f"the paired level takes an even batch, got {feat.shape[0]}")
+    pairs = [_level_steps(feat[p:p + 2], w_shared, w_out, num_steps)
+             for p in range(0, feat.shape[0], 2)]
+    out = torch.cat([p[0] for p in pairs])
+    return (out, torch.cat([p[3] for p in pairs])) if spike_sum else out
+
+
+def _check_level(name, feat, w9, w_out, num_steps):
+    n, h, w, c = feat.shape
+    n_out = w_out.shape[1]
+    cb.require(feat, "feat", torch.bfloat16)
+    if c != 256:
+        raise ValueError(f"{name} kernel takes 256 channels, got {c}")
+    cb.require(w9, "w9", torch.bfloat16, (9, c, c))
+    cb.require(w_out, "w_out", torch.bfloat16, (c, n_out))
+    if not 1 <= num_steps <= MAX_T or not 1 <= n_out <= MAX_OUT:
+        raise ValueError(f"{name} kernel takes T <= {MAX_T} and at most "
+                         f"{MAX_OUT} readout channels")
 
 
 def _launch(feat: torch.Tensor, w9: torch.Tensor, w_out: torch.Tensor,
             num_steps: int, spike_sum: bool = False):
     n, h, w, c = feat.shape
     n_out = w_out.shape[1]
-    cb.require(feat, "feat", torch.bfloat16)
-    if c != 256:
-        raise ValueError(f"rpn_head kernel takes 256 channels, got {c}")
-    cb.require(w9, "w9", torch.bfloat16, (9, c, c))
-    cb.require(w_out, "w_out", torch.bfloat16, (c, n_out))
-    if not 1 <= num_steps <= MAX_T or n_out > MAX_OUT:
-        raise ValueError(f"rpn_head kernel takes T <= {MAX_T} and at most "
-                         f"{MAX_OUT} readout channels")
+    _check_level(NAME, feat, w9, w_out, num_steps)
     consts = _constants(num_steps, feat.device)
     out = torch.empty((n, h, w, n_out), dtype=torch.float32, device=feat.device)
     counts = torch.zeros((n, 2), dtype=torch.int64, device=feat.device)
@@ -117,6 +166,29 @@ def _launch(feat: torch.Tensor, w9: torch.Tensor, w_out: torch.Tensor,
     return out, counts[:, 0], counts[:, 1]
 
 
+def _launch_x2(feat: torch.Tensor, w9: torch.Tensor, w_out: torch.Tensor,
+               num_steps: int, spike_sum: bool = False):
+    """K8 on one level. Same returns as :func:`rpn_level_x2_plain`."""
+    n, h, w, c = feat.shape
+    n_out = w_out.shape[1]
+    _check_level(X2_NAME, feat, w9, w_out, num_steps)
+    if not x2_feasible(feat.shape):
+        raise ValueError(f"{X2_NAME} kernel takes an even batch, got {n}")
+    consts = _constants(num_steps, feat.device)
+    out = torch.empty((n, h, w, n_out), dtype=torch.float32, device=feat.device)
+    ssum = (torch.empty((n, h, w, c), dtype=torch.float32, device=feat.device)
+            if spike_sum else None)
+    fn = cb.load(X2_NAME).rpn_level_x2_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    code = fn(feat.data_ptr(), w9.data_ptr(), w_out.data_ptr(), consts.data_ptr(),
+              out.data_ptr(), None if ssum is None else ssum.data_ptr(), n, h, w,
+              num_steps, n_out, cb.stream_ptr(feat.device))
+    cb.check(code, X2_NAME)
+    cb.LAUNCHES[X2_NAME] += 1
+    return (out, ssum) if spike_sum else out
+
+
 def rpn_level(feat: torch.Tensor, w_shared: torch.Tensor, w_out: torch.Tensor,
               num_steps: int, spike_sum: bool = False):
     """One level through the kernel (CUDA) or the plain version (CPU).
@@ -126,6 +198,15 @@ def rpn_level(feat: torch.Tensor, w_shared: torch.Tensor, w_out: torch.Tensor,
                        num_steps, spike_sum)
     return rpn_level_plain(feat, w_shared, w_out, num_steps, spike_sum)
 
+
+def rpn_level_x2(feat: torch.Tensor, w_shared: torch.Tensor, w_out: torch.Tensor,
+                 num_steps: int, spike_sum: bool = False):
+    """One level pair by pair through the paired kernel (CUDA) or its plain
+    version (CPU). Same returns as :func:`rpn_level_x2_plain`."""
+    if cb.dispatch_device(feat, X2_NAME):
+        return _launch_x2(feat, _taps(w_shared), w_out.to(torch.bfloat16).contiguous(),
+                          num_steps, spike_sum)
+    return rpn_level_x2_plain(feat, w_shared, w_out, num_steps, spike_sum)
 
 
 def rpn_level_bwd_plain(feat: torch.Tensor, w_shared: torch.Tensor,
@@ -218,15 +299,8 @@ def _launch_bwd(feat: torch.Tensor, w9: torch.Tensor, w_out: torch.Tensor,
     and with ``spike_sum`` the replay's spike sum."""
     n, h, w, c = feat.shape
     n_out = w_out.shape[1]
-    cb.require(feat, "feat", torch.bfloat16)
-    if c != 256:
-        raise ValueError(f"rpn_head_bwd kernel takes 256 channels, got {c}")
-    cb.require(w9, "w9", torch.bfloat16, (9, c, c))
-    cb.require(w_out, "w_out", torch.bfloat16, (c, n_out))
+    _check_level(BWD_NAME, feat, w9, w_out, num_steps)
     cb.require(g, "g", torch.float32, (n, h, w, n_out))
-    if not 1 <= num_steps <= MAX_T or n_out > MAX_OUT:
-        raise ValueError(f"rpn_head_bwd kernel takes T <= {MAX_T} and at most "
-                         f"{MAX_OUT} readout channels")
     dev = feat.device
     consts = _constants(num_steps, dev)
     n_chunks = n * h * (-(-w // 32))

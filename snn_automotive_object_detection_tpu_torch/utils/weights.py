@@ -2,8 +2,9 @@
 
 The port keeps the JAX package's parameter layouts (HWIO convs, [in, out]
 linears, RoI features flattened as (7, 7, C) so fc6 rows carry over
-unpermuted), so conversion is a leaf-for-leaf copy of the same nested
-dicts and lists. Convert a JAX tree with ``jax.tree.map(np.asarray, tree)``
+unpermuted, depthwise convs as [k, k, 1, C]), so conversion is a
+leaf-for-leaf copy of the same nested dicts and lists, whatever keys a
+block has (a MobileNet block's optional ``expand`` and ``se``). Convert a JAX tree with ``jax.tree.map(np.asarray, tree)``
 first; this module itself imports no JAX. :func:`to_numpy_tree` goes the
 other way (parameters after an update, or their gradients), so that both
 can be held against the JAX package's.

@@ -1,4 +1,4 @@
-"""The seven hand-written CUDA kernels against their plain PyTorch versions,
+"""The nine hand-written CUDA kernels against their plain PyTorch versions,
 on the card, at small and ragged shapes (the flagship shapes are
 chip_smoke.py's): pixel rows that end inside a 32-pixel segment, RoI rows
 that end inside a row tile, boxes on and past the image border.
@@ -37,6 +37,15 @@ Tolerances, on identical bf16 inputs:
     Where K1 and its plain version differ in a LIF spike (allowed as above),
     ``dw_out``, which is linear in the spike sums, is held against the plain
     product of the replay's own sums.
+  * K8 (the paired RPN head): readout and spike sums equal to K1's bit for
+    bit (the same device code in the same order), and held to its plain
+    version as K1 is; where a LIF spike flipped, the readout, linear in the
+    spike sums, is held against the plain product of the kernel's own sums.
+  * K9 (the fused box head): per-row |differences| of the fc6 and fc7 spike
+    counts at most 0.1% of the spikes plus one; rows with equal counts
+    within 1e-3 (1 + |want|) in every logit and delta (f32 sums of spikes
+    times bf16 weights in another order), all rows within 0.25 (1 + |want|)
+    (a flipped spike moves a logit by a weight times an LI coefficient).
 """
 
 import pytest
@@ -46,6 +55,7 @@ from snn_automotive_object_detection_tpu_torch.ops import cuda_fpn as k5
 from snn_automotive_object_detection_tpu_torch.ops import cuda_roi_align as k2
 from snn_automotive_object_detection_tpu_torch.ops import cuda_stem as k6
 from snn_automotive_object_detection_tpu_torch.snn import cuda_fc6 as k3
+from snn_automotive_object_detection_tpu_torch.snn import cuda_kernels as k9
 from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
 from snn_automotive_object_detection_tpu_torch.snn import cuda_tail as k4
 from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
@@ -260,6 +270,98 @@ def test_rpn_level_train_backward_is_the_kernel(dev):
     assert kc.grad_excess(params["conv_bbox"]["w"].grad.reshape(256, 12), want_dwo[:, 3:]) <= 1
 
 
+# 75 and 128 readout channels (15 and 25 anchors per location), on rows that
+# end inside a 32-pixel tile.
+@pytest.mark.parametrize("n_out", [75, 128])
+def test_rpn_head_kernels_wide_readout(dev, n_out):
+    g = torch.Generator(device=dev).manual_seed(n_out)
+    n, h, w, t = 2, 5, 45, 8
+    feat = (torch.rand((n, h, w, 256), generator=g, device=dev) * 2).to(BF)
+    w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.02
+    w_out = torch.randn((256, n_out), generator=g, device=dev) * 0.05
+    cot = torch.randn((n, h, w, n_out), generator=g, device=dev)
+    out, enc, lif, ssum = k1.rpn_level(feat, w_shared, w_out, t, spike_sum=True)
+    p_out, p_enc, p_lif, p_ssum = k1.rpn_level_plain(feat, w_shared, w_out, t, spike_sum=True)
+    assert out.shape == (n, h, w, n_out) and torch.equal(enc, p_enc) and int(p_lif.sum()) > 0
+    flips = int((ssum != p_ssum).sum())
+    assert flips <= 1e-3 * int(p_lif.sum())
+    if flips:
+        p_out = torch.matmul(ssum, w_out.to(BF).float()).to(BF).float()
+    assert kc.bf16_valued(out) and kc.excess(out, p_out) <= 1
+    dw, dwo, r_ssum = k1.rpn_level_bwd(feat, w_shared, w_out, cot, t, spike_sum=True)
+    again = k1.rpn_level_bwd(feat, w_shared, w_out, cot, t)
+    p_dw, p_dwo, _ = k1.rpn_level_bwd_plain(feat, w_shared, w_out, cot, t, spike_sum=True)
+    assert dwo.shape == (256, n_out) and torch.equal(r_ssum, ssum)
+    if flips:
+        p_dwo = k1.dwout_plain(ssum, cot)
+    assert float(p_dwo.abs().max()) > 0 and float(p_dw.abs().max()) > 0
+    assert kc.grad_excess(dw, p_dw) <= 1 and kc.grad_excess(dwo, p_dwo) <= 1
+    assert torch.equal(dw, again[0]) and torch.equal(dwo, again[1])
+
+
+# Odd heights and widths, widths that end inside a 16-pixel tile, one and
+# two pairs, T = 4 and T = 12, 15 and 75 readout channels.
+@pytest.mark.parametrize("n,h,w,t,n_out", [(2, 3, 45, 8, 15), (4, 5, 17, 4, 15),
+                                           (2, 1, 7, 12, 75), (4, 9, 33, 12, 15)])
+def test_rpn_head_x2_kernel_matches_rpn_head_and_plain(dev, n, h, w, t, n_out):
+    g = torch.Generator(device=dev).manual_seed(n * h * w + t)
+    feat = (torch.rand((n, h, w, 256), generator=g, device=dev) * 2).to(BF)
+    w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.02
+    w_out = torch.randn((256, n_out), generator=g, device=dev) * 0.05
+    before = cb.LAUNCHES[k1.X2_NAME], cb.LAUNCHES[k1.NAME]
+    out, ssum = k1.rpn_level_x2(feat, w_shared, w_out, t, spike_sum=True)
+    torch.cuda.synchronize()
+    assert (cb.LAUNCHES[k1.X2_NAME], cb.LAUNCHES[k1.NAME]) == (before[0] + 1, before[1])
+    one = k1.rpn_level(feat, w_shared, w_out, t, spike_sum=True)
+    assert out.shape == (n, h, w, n_out)
+    assert torch.equal(out, one[0]) and torch.equal(ssum, one[3])
+    assert torch.equal(k1.rpn_level_x2(feat, w_shared, w_out, t), out)
+    p_out, p_ssum = k1.rpn_level_x2_plain(feat, w_shared, w_out, t, spike_sum=True)
+    spiked = int((p_ssum != 0).sum())
+    flips = int((ssum != p_ssum).sum())
+    assert spiked > 0 and flips <= 1e-3 * spiked
+    if flips:
+        p_out = torch.matmul(ssum, w_out.to(BF).float()).to(BF).float()
+    assert kc.bf16_valued(out) and kc.excess(out, p_out) <= 1
+
+
+def test_rpn_head_x2_refuses_an_odd_batch(dev):
+    feat = torch.zeros((3, 2, 2, 256), device=dev, dtype=BF)
+    with pytest.raises(ValueError):
+        k1.rpn_level_x2(feat, torch.zeros((3, 3, 256, 256), device=dev),
+                        torch.zeros((256, 15), device=dev), 4)
+
+
+# Rows that end inside the 32-row and the 8-row tile, fewer rows than a tile,
+# more tiles than the card holds blocks, T = 4 and T = 12.
+@pytest.mark.parametrize("r,d,t", [(203, 512, 12), (7, 96, 4), (32, 1024, 12), (4500, 64, 4)])
+def test_box_head_fused_kernel_matches_plain(dev, r, d, t):
+    g = torch.Generator(device=dev).manual_seed(r + d + t)
+    x = torch.rand((r, d), generator=g, device=dev) * 2.5
+    w6 = (torch.rand((d, 1024), generator=g, device=dev) * 2 - 1) * (5.0 / d ** 0.5)
+    w7 = (torch.rand((1024, 1024), generator=g, device=dev) * 2 - 1) / 32.0
+    wc = (torch.rand((1024, 9), generator=g, device=dev) * 2 - 1) / 32.0
+    wb = (torch.rand((1024, 36), generator=g, device=dev) * 2 - 1) / 32.0
+    before = cb.LAUNCHES[k9.NAME]
+    got = k9.fastrcnn_snn_cuda(x, w6, w7, wc, wb, t)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES[k9.NAME] == before + 1
+    want = k9.fastrcnn_snn_plain(x, w6, w7, wc, wb, t)
+    for a, b, shp in zip(got, want, ((r, 9), (r, 36), (r,), (r,))):
+        assert a.shape == b.shape == shp and a.dtype == torch.float32
+    d6 = (got[2] - want[2]).abs() * (t * 1024)
+    d7 = (got[3] - want[3]).abs() * (t * 1024)
+    n6, n7 = float(want[2].sum()) * t * 1024, float(want[3].sum()) * t * 1024
+    assert n6 > 0 and n7 > 0
+    assert float(d6.sum()) <= 1e-3 * n6 + 1 and float(d7.sum()) <= 1e-3 * n7 + 1
+    clean = (d6.round() == 0) & (d7.round() == 0)
+    assert int(clean.sum()) >= 0.98 * r - 1
+    for a, b in zip(got[:2], want[:2]):
+        assert bool(((a - b).abs() <= 0.25 * (1 + b.abs())).all())
+        assert bool(((a - b).abs()[clean] <= 1e-3 * (1 + b.abs()[clean])).all())
+    assert float(want[0].abs().max()) > 0
+
+
 def test_kernels_refuse_other_dtypes(dev):
     feat = torch.zeros((1, 2, 2, 256), device=dev)
     with pytest.raises(TypeError):
@@ -270,7 +372,17 @@ def test_kernels_refuse_other_dtypes(dev):
                          torch.zeros((256, 15), device=dev),
                          torch.zeros((1, 2, 2, 15), device=dev), 4)
     with pytest.raises(TypeError):
+        k1.rpn_level_x2(torch.zeros((2, 2, 2, 256), device=dev),
+                        torch.zeros((3, 3, 256, 256), device=dev),
+                        torch.zeros((256, 15), device=dev), 4)
+    with pytest.raises(TypeError):
         k3.encoder_fc6(torch.zeros((4, 64), device=dev), torch.zeros((64, 64), device=dev), 4)
+    with pytest.raises(TypeError):
+        k9.fastrcnn_snn_cuda(torch.zeros((4, 64), device=dev, dtype=torch.int32),
+                             torch.zeros((64, 1024), device=dev),
+                             torch.zeros((1024, 1024), device=dev),
+                             torch.zeros((1024, 9), device=dev),
+                             torch.zeros((1024, 36), device=dev), 4)
     with pytest.raises(TypeError):
         k5.fpn_level(torch.zeros((1, 4, 4, 256), device=dev), None,
                      torch.zeros((1, 1, 256, 256), device=dev), torch.zeros(256, device=dev),

@@ -75,7 +75,7 @@ def test_default_device_is_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         from_numpy_tree({"w": np.zeros(3, np.float32)})
     with pytest.raises(ValueError, match="generator lives on cpu"):
-        factory._draw_device(g, torch.device("cuda", 0))
+        factory.draw_device(g, torch.device("cuda", 0))
     tree = flatten_tree(init_params(cfg, g, device="cpu"))
     assert all(t.device.type == "cpu" for t in tree.values())
     assert from_numpy_tree([np.ones(2, np.float32)], device="cpu")[0].device.type == "cpu"
