@@ -35,9 +35,29 @@ MUTANTS = [
      "check_stem", "stem_kernel"),
     ("K5: P rounded once (the conv sum not rounded before the bias add), even channels",
      "fpn_level.cu",
-     "o.x = __float2bfloat16_rn(bf16_round(acc[i][nt][2 * h]) + __bfloat162float(bout[ch]));",
-     "o.x = __float2bfloat16_rn(acc[i][nt][2 * h] + __bfloat162float(bout[ch]));",
+     "o.x = __float2bfloat16_rn(bf16_round(acc[4 * j + 2 * h]) + __bfloat162float(bout[ch]));",
+     "o.x = __float2bfloat16_rn(acc[4 * j + 2 * h] + __bfloat162float(bout[ch]));",
      "check_fpn", "fpn_level"),
+    ("K5: the merged map's border mask dropped (halo pixels outside the image kept)",
+     "fpn_level.cu", "const bool inside = y >= 0 && y < H && xx >= 0 && xx < W;",
+     "const bool inside = true;", "check_fpn", "fpn_level"),
+    ("K5: a conv weight stage read from the ring slot before its own",
+     "fpn_level.cu",
+     "const uint64_t db = desc_sw128(ring + slot * kSlotBytes + ch0 * kConvK * 2);",
+     "const uint64_t db = desc_sw128(ring + ((slot + kStages - 1) % kStages) * kSlotBytes"
+     " + ch0 * kConvK * 2);", "check_fpn", "fpn_level"),
+    ("K1: the last chunk's steps left out of the recurrence",
+     "rpn_head.cu", "const int steps = min(kChunk, T - chunk * kChunk);",
+     "const int steps = chunk + 1 < n_chunks ? min(kChunk, T - chunk * kChunk) : 0;",
+     "check_rpn_head", "test_rpn_head_kernel_matches_plain"),
+    ("K1: the last step of every chunk left out of the recurrence",
+     "rpn_head.cu", "for (int sl = 0; sl < steps; ++sl) {",
+     "for (int sl = 0; sl < steps - 1; ++sl) {",
+     "check_rpn_head", "test_rpn_head_kernel_matches_plain"),
+    ("K1: a weight stage read from the ring slot before its own",
+     "rpn_head.cu", "const uint64_t db = desc_sw128(ring + slot * kSlotBytes);",
+     "const uint64_t db = desc_sw128(ring + ((slot + kStages - 1) % kStages) * kSlotBytes);",
+     "check_rpn_head", "test_rpn_head_kernel_matches_plain"),
     ("K7: the last reverse step (t = 0) left out",
      "rpn_head_bwd.cu", "for (int t = T - 1; t >= 0; --t) {", "for (int t = T - 1; t >= 1; --t) {",
      "check_rpn_bwd", "rpn_head_bwd or rpn_level_train"),
@@ -53,7 +73,8 @@ MUTANTS = [
     ("K8: the second image's spikes taken from the first image's halo",
      "rpn_head_x2.cu", "const int col0 = img * G::kHw;", "const int col0 = 0;",
      "check_rpn_x2", "rpn_head_x2"),
-    ("K8: a tap-weight stage read one trip of the ring late (shared with K1 and K7)",
+    ("K8: a tap-weight stage read one trip of the ring late (shared with the training "
+     "forward and K7)",
      "rpn_head_common.cuh", "sm.ring + (st % kStages) * (kStageRows * kLdw) + cg * 32;",
      "sm.ring + ((st + kStages - 1) % kStages) * (kStageRows * kLdw) + cg * 32;",
      "check_rpn_x2", "rpn_head_x2"),

@@ -9,9 +9,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
   1. device  - a CUDA device must be present; prints its name and power
                limit as nvidia-smi reports them.
-  2. build   - compiles the nine hand-written kernels from
-               snn_automotive_object_detection_tpu_torch/csrc (one nvcc per
-               source, all started together).
+  2. build   - compiles the ten hand-written kernels (the nine TPU
+               kernels' counterparts and the RPN head's training forward)
+               from snn_automotive_object_detection_tpu_torch/csrc (one
+               nvcc per source, all started together).
   3. kernels - at the flagship shapes (768x1536 bucket, batch 2, 1000
                proposals per image, T_rpn=8, T_det=12), runs each kernel and
                its plain PyTorch version on the same seeded inputs, checks
@@ -22,16 +23,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
                (compulsory bytes over 3.35 TB/s against operations over the
                dense bf16 tensor-core and the f32 peak, counting the spikes
                these inputs produce), and for the stem and the FPN the time
-               of the unfused cuDNN chain in bf16 on the same inputs. The
+               of the unfused cuDNN chain in bf16 on the same inputs (for
+               the FPN level by level too). The RPN head of the evaluation
+               route (K1) and of the training route (the training forward)
+               are held to the plain version with flipped LIF spikes
+               counted neuron by neuron, timed in turns, level by level
+               and with the dense TFLOP/s K1 reaches. The
                RPN head's backward kernel gets seeded cotangents: both
                weight gradients within 5e-4 of their largest element, the
-               replay's spike sum equal to the forward kernel's neuron by
+               replay's spike sum equal to the training forward's neuron by
                neuron, and the same bits on a second run. The RPN head's
                forward and backward also run at 75 readout channels on one
                [2, 24, 48, 256] level. The paired RPN head is held to its
                plain version and, bit for bit (readout and spike sums), to
-               the per-image kernel on the five levels and on a batch of
-               four, and both are timed in turns. The fused box head is held
+               the training forward on the five levels and on a batch of
+               four, and timed in turns with K1. The fused box head is held
                to its plain version at R = 2000 with the flipped fc6 and fc7
                spikes counted (rows with equal counts within 1e-3 (1 +
                |want|), all rows within 0.25 (1 + |want|)), and timed beside
@@ -51,7 +57,7 @@ Phases, in order; any failure exits non-zero and prints no result line:
                box head finite and not all zero, every trainable leaf must
                have moved and no frozen one; per step the stem kernel
                launches once, the RPN head's forward and backward kernels
-               five times each and the other six kernels never,
+               five times each and the other eight kernels never,
                and no plain version runs on the GPU. Prints steps/s,
                images/s, peak memory and one profiled step by kernel with
                its count of stream synchronisations.
@@ -61,11 +67,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
                MobileNetV3-Large-FPN (9 classes, T_rpn=8, T_det=12) at 2 x
                768 x 1536: with the pairing switch on the paired RPN kernel
                runs on every level and the per-image kernel never, with it
-               off the other way round, and both give the same bits; the
+               off the other way round, and at most 1% of any output's
+               elements differ (the two sum the conv in other orders); the
                MobileNet backbone launches neither the fused stem nor the
                fused FPN. Prints images/s of each.
   7. fused   - the fused box head's own entry point on 2000 RoI rows: one
                launch for all 12 steps.
+  8. float32 - detector_apply(training=False) with float32 on one
+               flagship batch: the reference's scans and the gather
+               RoIAlign, no kernel launched, outputs finite and well
+               formed.
 
 The line before last is a JSON object listing the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -134,64 +145,117 @@ def _record(results, name, replaces, err, ms, pms, bound, library_ms=None):
           f"({ms / bound['bound_ms']:.1f}x)")
 
 
+def _hold_rpn_eval(got, want, wo, what):
+    """K1's (readout, encoder counts, LIF counts, spike sums) on levels
+    against the plain version's. K1 sums the conv in another order than the
+    plain version and the training forward, so a current may round to the
+    neighbouring bf16 value and flip a LIF spike: such neurons are counted
+    through the spike sums (at most 0.1% of the neurons that spiked), and
+    on a level with one the readout, linear in the spike sums, is held
+    against the plain product of the kernel's own sums. Returns (max |out
+    diff|, encoder spikes, flipped neurons, neurons that spiked)."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
+
+    err = worst = 0.0
+    enc = flips = spiked = 0
+    equal_enc = True
+    for a, b in zip(got, want):
+        f = int((a[3] != b[3]).sum())
+        ref = b[0] if f == 0 else torch.matmul(a[3], wo.float()).to(torch.bfloat16).float()
+        err = max(err, (a[0] - ref).abs().max().item())
+        worst = max(worst, kc.excess(a[0], ref))
+        equal_enc = equal_enc and torch.equal(a[1], b[1])
+        enc += int(b[1].sum())
+        flips += f
+        spiked += int((b[3] != 0).sum())
+    top = max(b[0].abs().max().item() for b in want)
+    ok_bf16 = all(kc.bf16_valued(a[0]) for a in got)
+    print(f"K1 rpn_head {what}: max|out diff| {err:.3g} at max|out| {top:.4g} (where a "
+          f"spike flipped, against the plain readout of the kernel's own spike sums), "
+          f"{worst:.3g} of the bound 2^-7|want| + {kc.ATOL}; bf16-valued {ok_bf16}; encoder "
+          f"counts equal {equal_enc}; neurons with a flipped LIF spike {flips} of {spiked} "
+          f"that spiked ({flips / max(spiked, 1):.2e})")
+    if not equal_enc or worst > 1 or not ok_bf16 or spiked == 0 or flips > 1e-3 * spiked:
+        _fail(f"K1 disagrees with its plain version {what}")
+    return err, enc, flips, spiked
+
+
+def check_rpn_head(dev, g, results):
+    """K1, the evaluation route's RPN head, on the five flagship levels
+    (T = 8, 15 readout channels) against its plain version, and the
+    training route's forward on the same inputs; both timed."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
+
+    bf = torch.bfloat16
+    levels = [(192, 384), (96, 192), (48, 96), (24, 48), (12, 24)]
+    # Features spread over the encoder's range so every period 1..T and
+    # "never" occurs.
+    feats = [torch.rand((2, h, w, 256), generator=g, device=dev).mul(2.0).to(bf)
+             for h, w in levels]
+    w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.01
+    w_out = torch.randn((256, 15), generator=g, device=dev) * 0.01
+    w9t, w9, wo = k1._taps_t(w_shared), k1._taps(w_shared), w_out.to(bf).contiguous()
+
+    def k1_kernel(spike_sum=False):
+        return [k1._launch(f, w9t, wo, 8, spike_sum) for f in feats]
+
+    def train_kernel(spike_sum=False):
+        return [k1._launch_train(f, w9, wo, 8, spike_sum) for f in feats]
+
+    def k1_plain(spike_sum=False):
+        return [k1.rpn_level_plain(f, w_shared, w_out, 8, spike_sum) for f in feats]
+
+    got, want, trained = k1_kernel(True), k1_plain(True), train_kernel(True)
+    err, enc, flips, spiked = _hold_rpn_eval(got, want, wo, "on the five flagship levels")
+    neurons = sum(2 * h * w * 256 * 8 for h, w in levels)
+    lif = sum(int(b[2].sum()) for b in want)
+    against_train = sum(int((a[3] != b[3]).sum()) for a, b in zip(got, trained))
+    print(f"K1 rpn_head: rates encoder {enc / neurons:.4f} LIF {lif / neurons:.4f}; "
+          f"neurons whose spike train differs from the training forward's {against_train}")
+    t_err, _, t_flips, _ = _hold_rpn_eval(trained, want, wo, "(training forward)")
+    # In turns, so that both see the same clocks.
+    ms = [_median_ms(k1_kernel, 10), 0.0]
+    tms = [_median_ms(train_kernel, 10), _median_ms(train_kernel, 10)]
+    ms[1] = _median_ms(k1_kernel, 10)
+    for (h, w), f in zip(levels, feats):
+        l1 = _median_ms(lambda: k1._launch(f, w9t, wo, 8), 10)
+        lt = _median_ms(lambda: k1._launch_train(f, w9, wo, 8), 10)
+        print(f"K1 rpn_head [2, {h}, {w}, 256]: {l1:.3f} ms; training forward {lt:.3f} ms")
+    pms = _median_ms(k1_plain, 5)
+    dense = sum(2.0 * 2 * h * w * 2304 * 256 * 8 for h, w in levels)
+    print(f"K1 rpn_head: five levels {ms[0]:.3f} and {ms[1]:.3f} ms, training forward "
+          f"{tms[0]:.3f} and {tms[1]:.3f} ms; dense 3x3 products {dense / 1e12:.3f} TFLOP, "
+          f"{dense / min(ms) / 1e9:.1f} TFLOP/s dense by K1, "
+          f"{dense / min(tms) / 1e9:.1f} by the training forward")
+    # A sparse conv does 2 x 256 operations for each of the (at most) 9
+    # outputs an encoder spike reaches; the readout is dense, the LIF update
+    # about 10 f32 operations per neuron and step.
+    for name, ms_k, e, out in (("rpn_head", min(ms), err, got),
+                               ("rpn_head_train", min(tms), t_err, trained)):
+        _record(results, name, "snn/pallas_rpn.py:449", e, ms_k, pms,
+                _bound(_nbytes(*feats, w9, wo, *[a[0] for a in out], *[a[1] for a in out],
+                               *[a[2] for a in out]),
+                       2.0 * enc * 9 * 256 + sum(2.0 * 2 * h * w * 256 * 15 for h, w in levels),
+                       10.0 * neurons))
+
+
 def check_kernels(dev, results):
     import torch
 
     from snn_automotive_object_detection_tpu_torch.ops import cuda_roi_align as k2
     from snn_automotive_object_detection_tpu_torch.ops.roi_align import level_geometry
     from snn_automotive_object_detection_tpu_torch.snn import cuda_fc6 as k3
-    from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
     from snn_automotive_object_detection_tpu_torch.snn import cuda_tail as k4
     from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
 
     g = torch.Generator(device=dev).manual_seed(1234)
     bf = torch.bfloat16
     levels = [(192, 384), (96, 192), (48, 96), (24, 48), (12, 24)]
-
-    # K1: spiking RPN head, all five levels (features spread over the
-    # encoder's range so every period 1..T and "never" occurs).
-    feats = [torch.rand((2, h, w, 256), generator=g, device=dev).mul(2.0).to(bf)
-             for h, w in levels]
-    w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.01
-    w_out = torch.randn((256, 15), generator=g, device=dev) * 0.01
-    w9 = w_shared.reshape(9, 256, 256).to(bf).contiguous()
-    wo = w_out.to(bf).contiguous()
-
-    def k1_kernel(spike_sum=False):
-        return [k1._launch(f, w9, wo, 8, spike_sum) for f in feats]
-
-    def k1_plain(spike_sum=False):
-        return [k1.rpn_level_plain(f, w_shared, w_out, 8, spike_sum) for f in feats]
-
-    got, want = k1_kernel(True), k1_plain(True)
-    out_k = torch.cat([a[0].flatten() for a in got])
-    out_p = torch.cat([b[0].flatten() for b in want])
-    err = (out_k - out_p).abs().max().item()
-    worst = kc.excess(out_k, out_p)
-    enc_k = sum(a[1].sum().item() for a in got)
-    enc_p = sum(b[1].sum().item() for b in want)
-    lif_p = sum(b[2].sum().item() for b in want)
-    # A neuron whose spike train differs has another LI-weighted spike sum.
-    flips = sum((a[3] != b[3]).sum().item() for a, b in zip(got, want))
-    neurons = sum(2 * h * w * 256 * 8 for h, w in levels)
-    print(f"K1 rpn_head: max|out diff| {err:.3g} at max|out| "
-          f"{out_p.abs().max().item():.4g}, {worst:.3g} of the bound "
-          f"2^-7|want| + {kc.ATOL}; bf16-valued {kc.bf16_valued(out_k)}; "
-          f"encoder spikes {enc_k} vs {enc_p}; LIF spikes {lif_p}, neurons with "
-          f"a flipped spike {flips}; rates encoder {enc_p / neurons:.4f} "
-          f"LIF {lif_p / neurons:.4f}")
-    if enc_k != enc_p or worst > 1 or not kc.bf16_valued(out_k) or \
-            lif_p == 0 or flips > 1e-3 * lif_p:
-        _fail("K1 disagrees with its plain version")
-    ms, pms = _median_ms(k1_kernel, 10), _median_ms(k1_plain, 5)
-    # A sparse conv does 2 x 256 operations for each of the (at most) 9
-    # outputs an encoder spike reaches; the readout is dense, the LIF update
-    # about 10 f32 operations per neuron and step.
-    _record(results, "rpn_head", "snn/pallas_rpn.py:449", err, ms, pms,
-            _bound(_nbytes(*feats, w9, wo, *[a[0] for a in got], *[a[1] for a in got],
-                           *[a[2] for a in got]),
-                   2.0 * enc_p * 9 * 256 + sum(2.0 * 2 * h * w * 256 * 15 for h, w in levels),
-                   10.0 * neurons))
+    check_rpn_head(dev, g, results)
 
     # K2: RoIAlign of 2 x 1000 boxes over P2..P5.
     pooled_feats = [torch.randn((2, h, w, 256), generator=g, device=dev).to(bf)
@@ -293,16 +357,24 @@ def check_fpn(dev, g, results):
            "layer": [{"w": torch.randn((3, 3, 256, 256), generator=g, device=dev) / 48.0,
                       "b": torch.randn(256, generator=g, device=dev) * 0.1}
                      for _ in shapes]}
-    ops = [dict(wlat=fpn["inner"][i]["w"].reshape(c, 256).to(bf).contiguous(),
-                blat=fpn["inner"][i]["b"].to(bf).contiguous(),
-                w9=fpn["layer"][i]["w"].reshape(9, 256, 256).to(bf).contiguous(),
-                bout=fpn["layer"][i]["b"].to(bf).contiguous())
-           for i, (_, _, c) in enumerate(shapes)]
+    ops = [dict(zip(("wlat", "blat", "w9", "bout"),
+                    k5.kernel_weights(fpn["inner"][i]["w"], fpn["inner"][i]["b"],
+                                      fpn["layer"][i]["w"], fpn["layer"][i]["b"])))
+           for i in range(len(shapes))]
 
     def launch(i, merged_next, store_merged):
         o = ops[i]
         return k5._launch(cs[i], merged_next, o["wlat"], o["blat"], o["w9"], o["bout"],
                           store_merged)
+
+    def library_level(i, merged_next):
+        """The level as the unfused cuDNN chain in bf16: lateral 1x1 + bias,
+        upsample and add, 3x3 + bias."""
+        inner, layer = fpn["inner"][i], fpn["layer"][i]
+        merged = resnet_fpn.conv_nhwc(cs[i], inner["w"]) + inner["b"].to(bf)
+        if merged_next is not None:
+            merged = merged + resnet_fpn._upsample_nearest_2x(merged_next, merged.shape[1:3])
+        return resnet_fpn.conv_nhwc(merged, layer["w"]) + layer["b"].to(bf), merged
 
     err = worst = top = 0.0
     m_next = None
@@ -327,7 +399,10 @@ def check_fpn(dev, g, results):
         e = max((got_m.float() - want_m.float()).abs().max().item(),
                 (got_p.float() - want_p.float()).abs().max().item())
         lvl_ms = _median_ms(lambda: launch(i, m_next, i > 0), 10)
-        print(f"K5 fpn_level C{i + 2} [2, {h}, {w}, {shapes[i][2]}]: {lvl_ms:.3f} ms; merged "
+        lib_ms = _median_ms(lambda: library_level(i, m_next), 10)
+        print(f"K5 fpn_level C{i + 2} [2, {h}, {w}, {shapes[i][2]}], {k5.tile_rows(cs[i])} x 16 "
+              f"pixels per block: {lvl_ms:.3f} ms, "
+              f"unfused cuDNN chain {lib_ms:.3f} ms; merged "
               f"{ex_m:.3g} of its bound, {dm} of {want_m.numel()} differ, max |merged| "
               f"{want_m.float().abs().max().item():.4g}; P {ex_p:.3g} of its bound, "
               f"{dp} differ, max |P| {want_p.float().abs().max().item():.4g}; max |diff| "
@@ -421,7 +496,7 @@ def _hold_rpn_bwd(a, a2, b, fw, cot):
 
     shape = f"[{', '.join(str(d) for d in cot.shape[:3])}, 256] x {cot.shape[3]}"
     want9 = b[0].reshape(9, 256, 256)
-    replay = int((a[2] != fw[3]).sum())        # against K1's spike sum
+    replay = int((a[2] != fw[3]).sum())        # against the training forward's spike sum
     flips = int((a[2] != b[2]).sum())          # forward kernel against plain version
     # dwout is linear in the spike sums: where the two forwards differ in
     # a spike it is held against the plain product of the replay's own.
@@ -466,7 +541,7 @@ def check_rpn_bwd(dev, g, results):
                 for f, c in zip(feats, cots)]
 
     got, again, want = kernel(True), kernel(), plain(True)
-    fwd = [k1._launch(f, w9, wo, 8, True) for f in feats]
+    fwd = [k1._launch_train(f, w9, wo, 8, True) for f in feats]
     err = worst = 0.0
     for a, a2, b, fw, c in zip(got, again, want, fwd, cots):
         e, ex = _hold_rpn_bwd(a, a2, b, fw, c)
@@ -487,12 +562,12 @@ def check_rpn_bwd(dev, g, results):
 
 
 def check_wide_readout(dev, g, results):
-    """K1 and K7 at 75 readout channels (15 anchors per location, the
-    MobileNet families' head) on one MobileNet-sized level."""
+    """K1, the training forward and K7 at 75 readout channels (15 anchors
+    per location, the MobileNet families' head) on one MobileNet-sized
+    level."""
     import torch
 
     from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
-    from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
 
     bf = torch.bfloat16
     feat = torch.rand((2, 24, 48, 256), generator=g, device=dev).mul(2.0).to(bf)
@@ -500,27 +575,22 @@ def check_wide_readout(dev, g, results):
     w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.01
     w_out = torch.randn((256, 75), generator=g, device=dev) * 0.01
     w9, wo = k1._taps(w_shared), w_out.to(bf).contiguous()
-    got = k1._launch(feat, w9, wo, 8, True)
     want = k1.rpn_level_plain(feat, w_shared, w_out, 8, True)
-    worst = kc.excess(got[0], want[0])
-    flips = int((got[3] != want[3]).sum())
-    print(f"K1 rpn_head, 75 readout channels [2, 24, 48, 256]: max|out diff| "
-          f"{(got[0] - want[0]).abs().max().item():.3g} at max|out| "
-          f"{want[0].abs().max().item():.4g}, {worst:.3g} of the bound; encoder spikes "
-          f"equal {bool(torch.equal(got[1], want[1]))}; neurons with a flipped spike {flips}")
-    if worst > 1 or not torch.equal(got[1], want[1]) or not kc.bf16_valued(got[0]) \
-            or flips > 1e-3 * int(want[2].sum()) or int(want[2].sum()) == 0:
-        _fail("K1 disagrees with its plain version at 75 readout channels")
+    _hold_rpn_eval([k1._launch(feat, k1._taps_t(w_shared), wo, 8, True)], [want], wo,
+                   "at 75 readout channels [2, 24, 48, 256]")
+    trained = k1._launch_train(feat, w9, wo, 8, True)
+    _hold_rpn_eval([trained], [want], wo, "(training forward) at 75 readout channels")
     a = k1._launch_bwd(feat, w9, wo, cot, 8, True)
     a2 = k1._launch_bwd(feat, w9, wo, cot, 8)
     b = k1.rpn_level_bwd_plain(feat, w_shared, w_out, cot, 8, True)
-    _hold_rpn_bwd(a, a2, b, got, cot)
+    _hold_rpn_bwd(a, a2, b, trained, cot)
 
 
 def check_rpn_x2(dev, g, results):
     """K8: the paired RPN head on the five flagship levels (N = 2) and on
     one level with two pairs, against its plain version and, bit for bit,
-    against K1; K8's and K1's times in turns."""
+    against the training forward (the same device code); K8's and K1's
+    times in turns, the measurement that sets ``cuda_rpn.PAIR_IMAGES``."""
     import torch
 
     from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
@@ -533,14 +603,14 @@ def check_rpn_x2(dev, g, results):
     feats4 = torch.rand((4, 48, 96, 256), generator=g, device=dev).mul(2.0).to(bf)
     w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.01
     w_out = torch.randn((256, 15), generator=g, device=dev) * 0.01
-    w9, wo = k1._taps(w_shared), w_out.to(bf).contiguous()
+    w9, w9t, wo = k1._taps(w_shared), k1._taps_t(w_shared), w_out.to(bf).contiguous()
 
     err = 0.0
     enc = 0
     for f in feats + [feats4]:
         shape = list(f.shape)
         out, ssum = k1._launch_x2(f, w9, wo, 8, True)
-        one = k1._launch(f, w9, wo, 8, True)
+        one = k1._launch_train(f, w9, wo, 8, True)
         p_out, p_ssum = k1.rpn_level_x2_plain(f, w_shared, w_out, 8, True)
         same = bool(torch.equal(out, one[0]) and torch.equal(ssum, one[3]))
         flips = int((ssum != p_ssum).sum())
@@ -549,14 +619,15 @@ def check_rpn_x2(dev, g, results):
         worst = kc.excess(out, p_out)
         spiked = int((p_ssum != 0).sum())
         e = (out - p_out).abs().max().item()
-        print(f"K8 rpn_head_x2 {shape}: readout and spike sums equal K1's bits {same}; "
+        print(f"K8 rpn_head_x2 {shape}: readout and spike sums equal the training forward's "
+              f"bits {same}; "
               f"max|out diff| to the plain version (where a spike flipped, to the plain "
               f"readout of the kernel's own spike sums) {e:.3g} at max|out| "
               f"{p_out.abs().max().item():.4g}, {worst:.3g} of the bound 2^-7|want| + "
               f"{kc.ATOL}; neurons with a flipped spike {flips} of {spiked} that spiked")
         if not same or worst > 1 or not kc.bf16_valued(out) or spiked == 0 \
                 or flips > 1e-3 * spiked:
-            _fail(f"K8 disagrees with K1 or with its plain version on {shape}")
+            _fail(f"K8 disagrees with the training forward or with its plain version on {shape}")
         if f is not feats4:
             err = max(err, e)
             enc += int(one[1].sum())
@@ -565,7 +636,7 @@ def check_rpn_x2(dev, g, results):
         return [k1._launch_x2(f, w9, wo, 8) for f in feats]
 
     def single():
-        return [k1._launch(f, w9, wo, 8) for f in feats]
+        return [k1._launch(f, w9t, wo, 8) for f in feats]
 
     def plain():
         return [k1.rpn_level_x2_plain(f, w_shared, w_out, 8) for f in feats]
@@ -580,8 +651,9 @@ def check_rpn_x2(dev, g, results):
           f"K8 {t8[0]:.3f} and {t8[1]:.3f} ms; spread of the repeats {spread:.3f} ms; "
           f"pairing is {'faster' if gain > spread else 'not faster'} by more than the "
           f"spread (default {'on' if k1.PAIR_IMAGES else 'off'})")
+
     for (h, w), f in zip(levels, feats):
-        l1 = _median_ms(lambda: k1._launch(f, w9, wo, 8), 10)
+        l1 = _median_ms(lambda: k1._launch(f, w9t, wo, 8), 10)
         l8 = _median_ms(lambda: k1._launch_x2(f, w9, wo, 8), 10)
         print(f"K8 against K1 on [2, {h}, {w}, 256]: K1 {l1:.3f} ms, K8 {l8:.3f} ms")
     neurons = sum(2 * h * w * 256 * 8 for h, w in levels)
@@ -763,7 +835,7 @@ def main_path(dev, iters=3):
           f"plain versions on the GPU {plain_calls}")
     want = {"rpn_head": 5 * iters, "roi_align": iters, "encoder_fc6": iters,
             "box_tail": iters, "fpn_level": 4 * iters, "stem": iters,
-            "rpn_head_bwd": 0, "rpn_head_x2": 0, "box_head_fused": 0}
+            "rpn_head_bwd": 0, "rpn_head_x2": 0, "box_head_fused": 0, "rpn_head_train": 0}
     if launches != want:
         _fail(f"the main path's launches are not {want}")
     if any(v != 0 for v in plain_calls.values()):
@@ -786,9 +858,13 @@ def main_path(dev, iters=3):
 def eval_path(dev, backbone, iters=3):
     """The plain evaluation call, ``detector_apply(training=False,
     collect_rates=False)``, on one backbone at 2 x 768 x 1536, full width
-    and depth: first with the RPN head's pairing switch on (K8 on every
-    level), then off (K1), which must give the same detections bit for bit.
-    Returns the launches of the paired run."""
+    and depth: in turns with the RPN head's pairing switch on (K8 on every
+    level) and off (K1). The two kernels sum the conv in other orders, so
+    a rare LIF spike may differ between them (``check_rpn_x2`` and
+    ``check_rpn_head`` hold each to the plain version neuron by neuron):
+    here at most 1% of the elements of any output may differ. Returns the
+    launches of its last counted run with the switch on and its last with
+    it off, summed: K8 serves this path only through the switch."""
     import torch
 
     from snn_automotive_object_detection_tpu_torch.models.detector import detector_apply
@@ -837,7 +913,7 @@ def eval_path(dev, backbone, iters=3):
                     "rpn_head": 0 if paired else levels * iters,
                     "roi_align": iters, "encoder_fc6": iters, "box_tail": iters,
                     "fpn_level": 4 * iters if resnet else 0, "stem": iters if resnet else 0,
-                    "rpn_head_bwd": 0, "box_head_fused": 0}
+                    "rpn_head_bwd": 0, "box_head_fused": 0, "rpn_head_train": 0}
             if launches != want:
                 _fail(f"the launches of the rates-off path on {backbone} are not {want}")
             if any(v != 0 for v in plain_calls.values()):
@@ -847,31 +923,70 @@ def eval_path(dev, backbone, iters=3):
             _check_outputs(out, n, cfg.rpn.post_nms_top_n_test, cfg.roi.detections_per_img,
                            cfg.num_classes, _pre_nms_rows(cfg))
             runs[paired] = (out, launches)
-        cuda_rpn.PAIR_IMAGES = True
+        cuda_rpn.PAIR_IMAGES = default
         _profile(lambda: detector_apply(params, batches[0], cfg), f"{backbone} rates-off batch")
     finally:
         cuda_rpn.PAIR_IMAGES = default
     print(f"{backbone}, rates off: images/s with pairing on {rate[True][0]:.3f} and "
           f"{rate[True][1]:.3f}, off {rate[False][0]:.3f} and {rate[False][1]:.3f}")
+    differ = {k: int((v != runs[False][0][k]).sum()) for k, v in runs[True][0].items()}
+    print(f"{backbone}, rates off: elements that differ between pairing on and off {differ}")
     for k, v in runs[True][0].items():
-        if not torch.equal(v, runs[False][0][k]):
+        if differ[k] > 0.01 * v.numel():
             _fail(f"{backbone}: {k} differs between pairing on and off")
-    out = runs[True][0]
+    out = runs[False][0]
     # Outside the counted runs: the same batch once more with rates on, for
     # the spike rates the kernels worked at.
     rated, _ = detector_apply(params, batches[(iters - 1) % 2], cfg, collect_rates=True)
     rr = [round(x, 4) for x in rated["rpn_rates"]["shared"].mean(dim=1).tolist()]
     dr = {k: round(v.mean().item(), 4) for k, v in rated["det_rates"].items()}
-    print(f"{backbone}, rates off: the same bits with pairing on and off; "
-          f"{int(out['valid'].sum())} valid output rows, "
+    print(f"{backbone}, rates off: {int(out['valid'].sum())} valid output rows, "
           f"{int((out['valid'] & (out['labels'] > 0)).sum())} FG detections, max objectness "
           f"{out['objectness'].max().item():.4f} in the last batch; with rates on, RPN LIF "
           f"rates per level {rr}, box-head rates {dr}")
     if not torch.equal(rated["objectness"], out["objectness"]):
-        _fail(f"{backbone}: the objectness differs between rates on and off")
+        _fail(f"{backbone}: K1's objectness differs between rates on and off")
     if max(rr) == 0 or dr["fc6"] == 0:
         _fail(f"{backbone}: no spike in the RPN head or in fc6")
-    return runs[True][1]
+    return {k: runs[True][1][k] + runs[False][1][k] for k in runs[True][1]}
+
+
+def float32_eval_path(dev):
+    """``detector_apply(training=False)`` with ``compute_dtype=torch.float32``
+    on one flagship batch: the reference's scans and the gather RoIAlign,
+    no kernel launched and no kernel's plain version run, outputs finite and
+    well formed. Returns the launches."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.models.detector import detector_apply
+    from snn_automotive_object_detection_tpu_torch.models.factory import (
+        DetectorConfig, init_params)
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+
+    cfg = DetectorConfig(num_classes=9, t_rpn=8, t_det=12, compute_dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    n, (h, w) = 2, cfg.bucket
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = {"images": torch.rand((n, h, w, 3), generator=g, device=dev),
+             "image_sizes": torch.tensor([[h, w]] * n, device=dev),
+             "original_sizes": torch.tensor([[1024, 2048]] * n, device=dev)}
+    cb.reset_counts()
+    t0 = time.perf_counter()
+    out, _ = detector_apply(params, batch, cfg, collect_rates=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, plain_calls = dict(cb.LAUNCHES), dict(cb.PLAIN_CUDA_CALLS)
+    rr = [round(x, 4) for x in out["rpn_rates"]["shared"].mean(dim=1).tolist()]
+    print(f"float32 evaluation: one batch of {n} x {h} x {w} in {dt * 1000:.1f} ms (first call); "
+          f"launches {launches}; plain versions on the GPU {plain_calls}; RPN LIF rates per "
+          f"level {rr}, fc6 rate {out['det_rates']['fc6'].mean().item():.4f}")
+    if any(v != 0 for v in launches.values()) or any(v != 0 for v in plain_calls.values()):
+        _fail("float32 evaluation launched a kernel or ran a kernel's plain version")
+    _check_outputs(out, n, cfg.rpn.post_nms_top_n_test, cfg.roi.detections_per_img,
+                   cfg.num_classes, _pre_nms_rows(cfg))
+    if out["boxes"].dtype != torch.float32 or out["objectness"].dtype != torch.float32:
+        _fail("float32 evaluation returned outputs of another dtype")
+    return launches
 
 
 def fused_head_path(dev):
@@ -968,8 +1083,8 @@ def train_path(dev, steps=2):
 
     print(f"training: {steps} steps of {n} x {h} x {w}: launches {launches}, plain "
           f"versions on the GPU {plain_calls}")
-    want = {"stem": steps, "rpn_head": 5 * steps, "rpn_head_bwd": 5 * steps,
-            "roi_align": 0, "encoder_fc6": 0, "box_tail": 0, "fpn_level": 0,
+    want = {"stem": steps, "rpn_head_train": 5 * steps, "rpn_head_bwd": 5 * steps,
+            "rpn_head": 0, "roi_align": 0, "encoder_fc6": 0, "box_tail": 0, "fpn_level": 0,
             "rpn_head_x2": 0, "box_head_fused": 0}
     if launches != want:
         _fail(f"the training path's launches are not {want}")
@@ -1043,7 +1158,8 @@ def main() -> int:
     by_path = {"inference": main_path(dev), "training": train_path(dev),
                "evaluation": eval_path(dev, "resnet50_fpn"),
                "mobilenet": eval_path(dev, "mobilenet_v3_large_fpn"),
-               "fused_box_head": fused_head_path(dev)}
+               "fused_box_head": fused_head_path(dev),
+               "float32_evaluation": float32_eval_path(dev)}
     for r in results:
         r["launches_by_path"] = {k: v[r["name"]] for k, v in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -11,237 +11,238 @@
 //
 // What bounds it on this card: operations. 36 GFLOP of lateral and 231
 // GFLOP of 3x3 products per image pair against about 290 MB of compulsory
-// traffic, so both products run on the tensor cores and the merged map of a
-// tile stays in shared memory between them.
+// traffic, so both products run on the tensor cores at Hopper's rate
+// (wgmma), and the merged map of a tile stays in shared memory between
+// them. Next come the weight bytes from L2: every tile needs all of w9
+// (1.2 MB) and wlat (Cin x 512 B), 1.5 GB for C2 alone; measured on an
+// H100 (PERF.md), streaming them takes more of the time than the products.
 //
-// Design: a block owns a tile of 8 x 16 output pixels and all 256 channels.
-// Phase 1 computes the merged map on the tile plus a one-pixel halo (10 x
-// 18 = 180 pixels: the lateral product is recomputed 1.41x) as a [180, Cin]
-// x [Cin, 256] product in two passes of 96 rows, so that the f32
-// accumulators stay in registers; x rows (gathered per halo pixel, clamped
-// at the image edge and masked afterwards) and wlat rows stream through a
-// ring of four 32-deep stages in shared memory, filled by cp.async three
-// stages ahead. The coarser merged map is prefetched into the halo buffer
-// by cp.async, and the epilogue rounds, adds bias and upsample, masks and
-// overwrites it in place. Phase 2 is the 3x3 conv as 9 taps x 256 deep
-// straight from the halo buffer (each ldmatrix row address is a pixel, so
-// a tap is a shifted base pointer) with the tap weights streaming through
-// the same ring. Products are mma.sync m16n8k16 bf16 with f32 accumulators,
-// fragments by ldmatrix. Both outputs leave through shared memory as
-// 16-byte stores. Every block streams all of w9 (1.2 MB) and wlat from L2.
+// Design: a block owns a tile of TH x 16 output pixels (TH = 8, or 4 on a
+// level whose 8-row tiles would leave most SMs idle: the wrapper picks it
+// from the level's shape) and all 256 channels. Three warpgroups: two
+// consumers and one producer whose single thread issues every load as a
+// TMA tile into a ring of four 32 KB stages with full and empty mbarriers;
+// the producer gives its registers to the consumers (setmaxnreg), which
+// hold up to 192 f32 accumulators each. Two blocks on consecutive tile
+// rows form a cluster and share the weight stages: each loads half of a
+// stage's output channels and multicasts it into both, so the L2 weight
+// reads halve (0.76 GB for C2), and a slot is refilled only when the
+// consumers of both blocks have released it.
+//   Phase 1, the lateral product on the tile plus a one-pixel halo
+//   ((TH + 2) x 18 pixels): per 32-deep stage a 4-D TMA box of x (the
+//   halo's pixels in order, zeros outside the image) and 32 rows of
+//   wlat^T, both with the 64-byte swizzle, as wgmma's A and B from shared
+//   memory; consumer warpgroup g takes output channels 128 g .. + 127 of
+//   every 64-pixel m-tile. The coarser merged map is prefetched into the
+//   halo buffer by cp.async meanwhile; the epilogue rounds, adds bias and
+//   upsample, masks the border and overwrites it in place.
+//   Phase 2, the 3x3 conv as 36 stages of 64 input channels of one tap
+//   (w9^T rows by TMA with the 128-byte swizzle). A comes from registers:
+//   ldmatrix from the halo buffer, whose rows are pixels, so a tap is a
+//   shifted base pointer; each consumer warp owns one 16-pixel tile row.
+//   With TH = 8 warpgroup g takes tile rows 4g .. 4g + 3 and all 256
+//   channels (m64n256k16), with TH = 4 all four rows and channels
+//   128 g .. + 127 (m64n128k16).
+// The halo buffer is unpadded, 512 B per pixel, with the 16-byte chunks of
+// a pixel XOR-swizzled by the pixel's low three bits, so that ldmatrix and
+// the epilogue's stores hit 32 distinct banks. P leaves through the ring
+// (after the last stage) as 16-byte stores. A consumer releases a stage
+// when its products have completed (wgmma.wait_group 0); the other
+// warpgroup's products fill the tensor cores meanwhile.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
+
+using namespace hopper;
 
 namespace {
 
-constexpr int kC = 256;                    // FPN channels
-constexpr int kTH = 8;                     // tile rows
-constexpr int kTW = 16;                    // tile columns: one m-tile per row
-constexpr int kHW = kTW + 2;               // halo width
-constexpr int kHalo = (kTH + 2) * kHW;     // halo pixels
-constexpr int kPassRows = 96;              // halo pixels per lateral pass: 6 m-tiles
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kKS = 32;                    // k depth of a stage
+using bf16 = __nv_bfloat16;
+
+constexpr int kC = 256;                   // FPN channels
+constexpr int kTW = 16;                   // tile columns: one 16-row m-fragment per tile row
+constexpr int kHW = kTW + 2;              // halo width
+constexpr int kLatK = 32;                 // lateral stage depth (64 B rows)
+constexpr int kConvK = 64;                // conv stage depth (128 B rows)
+constexpr int kConvStages = 9 * kC / kConvK;
 constexpr int kStages = 4;
-constexpr int kLdh = kC + 8;               // halo pixel stride: 132 words, conflict-free ldmatrix
-constexpr int kLdb = kC + 8;               // weight stage row stride
-constexpr int kLda = kKS + 8;              // x stage row stride: 20 words, conflict-free ldmatrix
+constexpr int kSlotBytes = 32768;
+constexpr int kThreads = 384;             // consumer warpgroups 0 and 1, producer 2
+constexpr int kLdo = kC + 8;              // P staging row stride (bf16)
+constexpr int kWlatBox = kC * kLatK * 2;
+constexpr int kCluster = 2;               // blocks (consecutive tile rows) sharing weight stages
 
-constexpr int kHaloBytes = kHalo * kLdh * 2;
-constexpr int kStageBBytes = kKS * kLdb * 2;
-constexpr int kStageABytes = kPassRows * kLda * 2;
-constexpr int kStageBytes = kStageBBytes + kStageABytes;
-constexpr int kSmemBytes = kHaloBytes + kStages * kStageBytes;
+template <int TH>
+struct Geo {
+  static constexpr int kHalo = (TH + 2) * kHW;               // 180 or 108 pixels
+  static constexpr int kLatMT = (kHalo + 63) / 64;           // 64-pixel m-tiles: 3 or 2
+  static constexpr int kPx = TH * kTW;
+  static constexpr int kHaloBytes = (kHalo * kC * 2 + 1023) / 1024 * 1024;
+  static constexpr int kABytes = kLatMT * 64 * kLatK * 2;    // x part of a lateral stage
+  static constexpr int kXBox = kHalo * kLatK * 2;            // bytes the x box brings
+  static constexpr int kConvN = TH == 8 ? 256 : 128;         // conv channels per warpgroup
+  static constexpr int kSmem = 1024 + kHaloBytes + kStages * kSlotBytes + 2 * kStages * 8;
+  static_assert(kABytes % 1024 == 0 && kABytes + kWlatBox <= kSlotBytes, "lateral stage");
+  static_assert(kPx * kLdo * 2 <= kStages * kSlotBytes, "P staging reuses the ring");
+  static_assert(kSmem <= 232448, "shared memory of one block");
+};
 
-static_assert(2 * kPassRows >= kHalo, "two passes cover the halo");
-static_assert(kHaloBytes % 16 == 0 && kStageBBytes % 16 == 0 && kStageBytes % 16 == 0,
-              "cp.async and ldmatrix need 16 B");
-static_assert(kKS * (kC / 8) % kThreads == 0, "whole 16-byte copies per thread");
-static_assert(kPassRows * (kKS / 8) <= kThreads, "one x copy per thread");
-static_assert(kTH * kTW * kLdh * 2 <= kStages * kStageBytes, "P staging reuses the ring");
-static_assert(kSmemBytes <= 232448, "shared memory of one block");
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_two() {  // all but the two newest groups
-  asm volatile("cp.async.wait_group 2;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Byte offset of channel ch (a multiple of 8 for 16-byte access, of 2 for
+// pairs) of halo pixel m in the swizzled halo buffer.
+__device__ __forceinline__ int halo_off(int m, int ch) {
+  return m * (kC * 2) + ((((ch >> 3) ^ (m & 7))) << 4) + (ch & 7) * 2;
 }
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// 32 rows x 256 columns of a row-major [*, 256] weight matrix into a stage.
-__device__ __forceinline__ void load_weight_rows(__nv_bfloat16* sb, const __nv_bfloat16* w,
-                                                 int row0, int tid) {
-#pragma unroll
-  for (int i = 0; i < kKS * (kC / 8) / kThreads; ++i) {
-    const int q = tid + kThreads * i;
-    const int row = q / (kC / 8);
-    const int col = (q % (kC / 8)) * 8;
-    cp_async16(sb + row * kLdb + col, w + (int64_t)(row0 + row) * kC + col);
-  }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
 }
 
+template <int TH>
 __global__ void __launch_bounds__(kThreads, 1)
-fpn_level_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, Cin]
-                 const __nv_bfloat16* __restrict__ up,     // [N, ceil(H/2), ceil(W/2), 256] or null
-                 const __nv_bfloat16* __restrict__ wlat,   // [Cin, 256]
-                 const __nv_bfloat16* __restrict__ blat,   // [256]
-                 const __nv_bfloat16* __restrict__ w9,     // [9, 256, 256]
-                 const __nv_bfloat16* __restrict__ bout,   // [256]
-                 __nv_bfloat16* __restrict__ out_p,        // [N, H, W, 256]
-                 __nv_bfloat16* __restrict__ out_m,        // [N, H, W, 256] or null
+fpn_level_kernel(const __grid_constant__ CUtensorMap map_x,     // x [N, H, W, Cin]
+                 const __grid_constant__ CUtensorMap map_wlat,  // wlat^T [256, Cin]
+                 const __grid_constant__ CUtensorMap map_w9,    // w9^T [9 * 256, 256]
+                 const bf16* __restrict__ up,     // [N, ceil(H/2), ceil(W/2), 256] or null
+                 const bf16* __restrict__ blat,   // [256]
+                 const bf16* __restrict__ bout,   // [256]
+                 bf16* __restrict__ out_p,        // [N, H, W, 256]
+                 bf16* __restrict__ out_m,        // [N, H, W, 256] or null
                  int H, int W, int Cin) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* halo = reinterpret_cast<__nv_bfloat16*>(smem);
-  unsigned char* ring = smem + kHaloBytes;
+  using G = Geo<TH>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* halo = smem;
+  unsigned char* ring = smem + G::kHaloBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kSlotBytes);
+  uint64_t* empty = full + kStages;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tig = lane & 3;
-  const int lrow = lane & 15;          // ldmatrix: the row this lane addresses
-  const int lcol = (lane >> 4) * 8;    // ... and its 8-column half
+  const int wg = tid >> 7;
   const int tx0 = blockIdx.x * kTW;
-  const int ty0 = blockIdx.y * kTH;
+  const int ty0 = blockIdx.y * TH;
   const int n = blockIdx.z;
+  const int n_lat = Cin / kLatK;
 
-  // The coarser merged map under the halo, 512 B per pixel, joins the first
-  // cp.async group. Pixels outside the image are masked later, not read.
-  if (up != nullptr) {
-    const int H2 = (H + 1) / 2, W2 = (W + 1) / 2;
-    for (int q = tid; q < kHalo * (kC / 8); q += kThreads) {
-      const int m = q / (kC / 8);
-      const int col = (q % (kC / 8)) * 8;
-      const int y = ty0 - 1 + m / kHW;
-      const int xx = tx0 - 1 + m % kHW;
-      if (y >= 0 && y < H && xx >= 0 && xx < W) {
-        cp_async16(halo + m * kLdh + col,
-                   up + (((int64_t)n * H2 + (y >> 1)) * W2 + (xx >> 1)) * kC + col);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8 * kCluster);   // one arrival per consumer warp of the cluster
+    }
+    fence_barrier_init();
+  }
+  cluster_sync();
+
+  if (wg == 2) {
+    // ---- Producer: the lateral stages, then the 36 conv stages. The x box
+    // is the block's own; of each weight stage block r of the cluster loads
+    // output channels r * 256 / kCluster .. into every block of the cluster, so
+    // a slot is refilled once all of them have released it.
+    reg_dealloc<40>();
+    if (tid == 256) {
+      const int rank = (int)cluster_rank();
+      const uint16_t all = (uint16_t)((1 << kCluster) - 1);
+      const int n_stages = n_lat + kConvStages;
+      for (int s = 0; s < n_stages + kStages; ++s) {
+        const int slot = s % kStages;
+        mbar_wait(&empty[slot], ((s / kStages) & 1) ^ 1);
+        if (s >= n_stages) continue;    // the tail: every remote release has landed
+        unsigned char* dst = ring + slot * kSlotBytes;
+        if (s < n_lat) {
+          mbar_expect_tx(&full[slot], G::kXBox + kWlatBox);
+          tma_load_4d(dst, &map_x, &full[slot], s * kLatK, tx0 - 1, ty0 - 1, n);
+          tma_load_2d_multicast(dst + G::kABytes + rank * (kWlatBox / kCluster),
+                                &map_wlat, &full[slot], all, s * kLatK,
+                                rank * (kC / kCluster));
+        } else {
+          const int c = s - n_lat;   // tap c / 4, input channels (c % 4) * 64 ..
+          mbar_expect_tx(&full[slot], kSlotBytes);
+          tma_load_2d_multicast(dst + rank * (kSlotBytes / kCluster), &map_w9, &full[slot],
+                                all, (c % 4) * kConvK, (c / 4) * kC + rank * (kC / kCluster));
+        }
       }
     }
-  }
+  } else {
+    // ---- Consumers.
+    reg_alloc<232>();
+    const int warp = (tid >> 5) & 3;   // warp within the warpgroup
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t4 = lane & 3;
 
-  // ---- Phase 1: merged map on the halo, two passes of 96 halo pixels.
-  {
-    const int pm = warp & 1;           // m-tiles pm * 3 .. pm * 3 + 2 of the pass
-    const int cn = warp >> 1;          // channels cn * 32 .. cn * 32 + 31
-    const int n_stages = Cin / kKS;
-    for (int pass = 0; pass < 2; ++pass) {
-      // This thread's x copy: halo pixel pass * 96 + tid / 4, 16 B piece tid % 4.
-      const __nv_bfloat16* a_src = nullptr;
-      if (tid < kPassRows * (kKS / 8)) {
-        const int m = min(pass * kPassRows + tid / (kKS / 8), kHalo - 1);
-        const int y = min(max(ty0 - 1 + m / kHW, 0), H - 1);
-        const int xx = min(max(tx0 - 1 + m % kHW, 0), W - 1);
-        a_src = x + (((int64_t)n * H + y) * W + xx) * Cin + (tid % (kKS / 8)) * 8;
-      }
-      auto load_stage = [&](int s) {
-        if (s >= n_stages) return;
-        unsigned char* st = ring + (s % kStages) * kStageBytes;
-        load_weight_rows(reinterpret_cast<__nv_bfloat16*>(st), wlat, s * kKS, tid);
-        if (a_src != nullptr) {
-          __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(st + kStageBBytes);
-          cp_async16(sa + (tid / (kKS / 8)) * kLda + (tid % (kKS / 8)) * 8, a_src + s * kKS);
-        }
-      };
-
-      float acc[3][4][4];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          acc[i][nt][0] = acc[i][nt][1] = acc[i][nt][2] = acc[i][nt][3] = 0.0f;
+    // The coarser merged map under the halo, 512 B per pixel. Pixels
+    // outside the image are masked later, not read.
+    if (up != nullptr) {
+      const int H2 = (H + 1) / 2, W2 = (W + 1) / 2;
+      for (int q = tid; q < G::kHalo * (kC / 8); q += 256) {
+        const int m = q / (kC / 8);
+        const int ch = (q % (kC / 8)) * 8;
+        const int y = ty0 - 1 + m / kHW;
+        const int xx = tx0 - 1 + m % kHW;
+        if (y >= 0 && y < H && xx >= 0 && xx < W) {
+          cp_async16(halo + halo_off(m, ch),
+                     up + (((int64_t)n * H2 + (y >> 1)) * W2 + (xx >> 1)) * kC + ch);
         }
       }
-      for (int s = 0; s < kStages - 1; ++s) {
-        load_stage(s);
-        cp_async_commit();
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+
+    // ---- Phase 1: the lateral product on the halo's m-tiles, channels
+    // 128 wg .. + 127.
+    {
+      float acc[G::kLatMT][64];
+#pragma unroll
+      for (int mt = 0; mt < G::kLatMT; ++mt) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[mt][i] = 0.0f;
       }
-      for (int s = 0; s < n_stages; ++s) {
-        cp_async_wait_two();   // stage s has landed (this thread's copies)
-        __syncthreads();       // ... everyone's; stage s - 1 is consumed
-        load_stage(s + kStages - 1);
-        cp_async_commit();     // possibly empty: keeps the group count uniform
-        const unsigned char* st = ring + (s % kStages) * kStageBytes;
-        const __nv_bfloat16* sb = reinterpret_cast<const __nv_bfloat16*>(st);
-        const __nv_bfloat16* sa = reinterpret_cast<const __nv_bfloat16*>(st + kStageBBytes);
+      for (int s = 0; s < n_lat; ++s) {
+        const int slot = s % kStages;
+        mbar_wait(&full[slot], (s / kStages) & 1);
+        const unsigned char* st = ring + slot * kSlotBytes;
+        const uint64_t da = desc_sw64(st);
+        const uint64_t db = desc_sw64(st + G::kABytes + wg * 128 * kLatK * 2);
+        wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kKS; kk += 16) {
-          uint32_t a[3][4];
+        for (int kk = 0; kk < kLatK / 16; ++kk) {
 #pragma unroll
-          for (int i = 0; i < 3; ++i) {
-            ldsm_x4(a[i], sa + ((pm * 3 + i) * 16 + lrow) * kLda + kk + lcol);
-          }
-#pragma unroll
-          for (int np = 0; np < 2; ++np) {
-            uint32_t b[4];
-            ldsm_x4_trans(b, sb + (kk + lrow) * kLdb + cn * 32 + np * 16 + lcol);
-#pragma unroll
-            for (int i = 0; i < 3; ++i) {
-              mma_bf16(acc[i][2 * np], a[i], b[0], b[1]);
-              mma_bf16(acc[i][2 * np + 1], a[i], b[2], b[3]);
-            }
+          for (int mt = 0; mt < G::kLatMT; ++mt) {
+            wgmma_ss_n128(acc[mt], da + mt * (64 * kLatK * 2 >> 4) + kk * 2, db + kk * 2);
           }
         }
-      }
-      // Epilogue: the three roundings, the border mask, in place in the halo.
+        wgmma_commit();
+        wgmma_wait_all();
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
+        for (int mt = 0; mt < G::kLatMT; ++mt) fence_regs(acc[mt]);
+        if (lane == 0) {
+          for (int r = 0; r < kCluster; ++r) mbar_arrive_cluster(&empty[slot], r);
+        }
+      }
+
+      // Epilogue: the three roundings and the border mask, in place.
+      asm volatile("cp.async.wait_group 0;\n" ::);
+      named_bar(1, 256);   // every thread's prefetch of the coarser map has landed
+#pragma unroll
+      for (int mt = 0; mt < G::kLatMT; ++mt) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int m = pass * kPassRows + (pm * 3 + i) * 16 + g + 8 * h;
-          if (m >= kHalo) continue;
+          const int m = mt * 64 + warp * 16 + g + 8 * h;
+          if (m >= G::kHalo) continue;
           const int y = ty0 - 1 + m / kHW;
           const int xx = tx0 - 1 + m % kHW;
           const bool inside = y >= 0 && y < H && xx >= 0 && xx < W;
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const int ch = cn * 32 + nt * 8 + 2 * tig;
-            __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(halo + m * kLdh + ch);
+          for (int j = 0; j < 16; ++j) {
+            const int ch = wg * 128 + j * 8 + 2 * t4;
+            __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(halo + halo_off(m, ch));
             float v0 = 0.0f, v1 = 0.0f;
             if (inside) {
-              v0 = bf16_round(bf16_round(acc[i][nt][2 * h]) + __bfloat162float(blat[ch]));
-              v1 = bf16_round(bf16_round(acc[i][nt][2 * h + 1]) + __bfloat162float(blat[ch + 1]));
+              v0 = bf16_round(bf16_round(acc[mt][4 * j + 2 * h]) + __bfloat162float(blat[ch]));
+              v1 = bf16_round(bf16_round(acc[mt][4 * j + 2 * h + 1]) +
+                              __bfloat162float(blat[ch + 1]));
               if (up != nullptr) {
                 const __nv_bfloat162 u = *dst;
                 v0 = bf16_round(v0 + __bfloat162float(u.x));
@@ -255,130 +256,143 @@ fpn_level_kernel(const __nv_bfloat16* __restrict__ x,      // [N, H, W, Cin]
           }
         }
       }
-      __syncthreads();   // the ring is free for the next prologue; halo rows visible
+      named_bar(1, 256);   // the merged halo is complete
     }
-  }
 
-  // The merged map of the tile itself, 16-byte stores.
-  if (out_m != nullptr) {
-    for (int q = tid; q < kTH * kTW * (kC / 8); q += kThreads) {
-      const int p = q / (kC / 8);
-      const int col = (q % (kC / 8)) * 8;
-      const int r = p / kTW, c = p % kTW;
-      const int y = ty0 + r, xx = tx0 + c;
-      if (y < H && xx < W) {
-        *reinterpret_cast<uint4*>(out_m + (((int64_t)n * H + y) * W + xx) * kC + col) =
-            *reinterpret_cast<const uint4*>(halo + ((r + 1) * kHW + c + 1) * kLdh + col);
+    // The merged map of the tile itself, 16-byte stores.
+    if (out_m != nullptr) {
+      for (int q = tid; q < G::kPx * (kC / 8); q += 256) {
+        const int p = q / (kC / 8);
+        const int ch = (q % (kC / 8)) * 8;
+        const int r = p / kTW, c = p % kTW;
+        const int y = ty0 + r, xx = tx0 + c;
+        if (y < H && xx < W) {
+          *reinterpret_cast<uint4*>(out_m + (((int64_t)n * H + y) * W + xx) * kC + ch) =
+              *reinterpret_cast<const uint4*>(halo + halo_off((r + 1) * kHW + c + 1, ch));
+        }
       }
     }
-  }
 
-  // ---- Phase 2: 3x3 conv from the halo, tap weights through the ring.
-  {
-    const int pm = warp & 3;           // tile rows pm * 2, pm * 2 + 1 (one m-tile each)
-    const int cn = warp >> 2;          // channels cn * 64 .. cn * 64 + 63
-    constexpr int n_stages = 9 * kC / kKS;
-    auto load_stage = [&](int s) {
-      if (s >= n_stages) return;
-      load_weight_rows(reinterpret_cast<__nv_bfloat16*>(ring + (s % kStages) * kStageBytes), w9,
-                       s * kKS, tid);   // taps are contiguous: row s * 32 of [2304, 256]
-    };
-    float acc[2][8][4];
+    // ---- Phase 2: the 3x3 conv, A from the halo through registers.
+    {
+      constexpr int kN = G::kConvN;
+      const int pm = (TH == 8 ? 4 * wg : 0) + warp;   // this warp's tile row
+      const int ch0 = TH == 8 ? 0 : 128 * wg;         // this warpgroup's first channel
+      const int lrow = lane & 15;                     // ldmatrix: the pixel this lane addresses
+      const int lcol = (lane >> 4) * 8;               // ... and its 8-channel half
+      float acc[kN / 2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < kN / 2; ++i) acc[i] = 0.0f;
+      for (int c = 0; c < kConvStages; ++c) {
+        const int s = n_lat + c;
+        const int slot = s % kStages;
+        const int tap = c / 4;
+        const int k0 = (c % 4) * kConvK;
+        // Output pixel (pm, col) and tap (dy, dx) read halo pixel (pm + dy, col + dx).
+        const int m = (pm + tap / 3) * kHW + tap % 3 + lrow;
+        uint32_t a[kConvK / 16][4];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        acc[i][nt][0] = acc[i][nt][1] = acc[i][nt][2] = acc[i][nt][3] = 0.0f;
-      }
-    }
-    for (int s = 0; s < kStages - 1; ++s) {
-      load_stage(s);
-      cp_async_commit();
-    }
-    for (int s = 0; s < n_stages; ++s) {
-      cp_async_wait_two();
-      __syncthreads();
-      load_stage(s + kStages - 1);
-      cp_async_commit();
-      const __nv_bfloat16* sb =
-          reinterpret_cast<const __nv_bfloat16*>(ring + (s % kStages) * kStageBytes);
-      const int tap = s / (kC / kKS);
-      const int dy = tap / 3, dx = tap % 3;           // 0 .. 2: halo offsets
-      const int k0 = (s % (kC / kKS)) * kKS;
-      // Output pixel (r, c) and tap (dy, dx) read halo pixel (r + dy, c + dx).
-      const __nv_bfloat16* a_base = halo + ((pm * 2 + dy) * kHW + dx + lrow) * kLdh + k0 + lcol;
+        for (int kk = 0; kk < kConvK / 16; ++kk) {
+          ldsm_x4(a[kk], halo + halo_off(m, k0 + kk * 16 + lcol));
+        }
+        mbar_wait(&full[slot], (s / kStages) & 1);
+        const uint64_t db = desc_sw128(ring + slot * kSlotBytes + ch0 * kConvK * 2);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kKS; kk += 16) {
-        uint32_t a[2][4];
-        ldsm_x4(a[0], a_base + kk);
-        ldsm_x4(a[1], a_base + kHW * kLdh + kk);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t b[4];
-          ldsm_x4_trans(b, sb + (kk + lrow) * kLdb + cn * 64 + np * 16 + lcol);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            mma_bf16(acc[i][2 * np], a[i], b[0], b[1]);
-            mma_bf16(acc[i][2 * np + 1], a[i], b[2], b[3]);
+        for (int kk = 0; kk < kConvK / 16; ++kk) {
+          if constexpr (kN == 256) {
+            wgmma_rs_n256(acc, a[kk], db + kk * 2);
+          } else {
+            wgmma_rs_n128(acc, a[kk], db + kk * 2);
           }
         }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+        if (lane == 0) {
+          for (int r = 0; r < kCluster; ++r) mbar_arrive_cluster(&empty[slot], r);
+        }
       }
-    }
-    cp_async_wait_all();
-    __syncthreads();   // every warp is done with the ring: it now stages P
-    __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(ring);
+      named_bar(1, 256);   // both warpgroups are done with the ring: it now stages P
+      bf16* stage = reinterpret_cast<bf16*>(ring);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+      for (int j = 0; j < kN / 8; ++j) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = (pm * 2 + i) * kTW + g + 8 * h;
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int ch = cn * 64 + nt * 8 + 2 * tig;
+        for (int h = 0; h < 2; ++h) {
+          const int p = pm * kTW + g + 8 * h;
+          const int ch = ch0 + j * 8 + 2 * t4;
           __nv_bfloat162 o;
-          o.x = __float2bfloat16_rn(bf16_round(acc[i][nt][2 * h]) + __bfloat162float(bout[ch]));
-          o.y = __float2bfloat16_rn(bf16_round(acc[i][nt][2 * h + 1]) +
+          o.x = __float2bfloat16_rn(bf16_round(acc[4 * j + 2 * h]) + __bfloat162float(bout[ch]));
+          o.y = __float2bfloat16_rn(bf16_round(acc[4 * j + 2 * h + 1]) +
                                     __bfloat162float(bout[ch + 1]));
-          *reinterpret_cast<__nv_bfloat162*>(stage + p * kLdh + ch) = o;
+          *reinterpret_cast<__nv_bfloat162*>(stage + p * kLdo + ch) = o;
+        }
+      }
+      named_bar(1, 256);
+      for (int q = tid; q < G::kPx * (kC / 8); q += 256) {
+        const int p = q / (kC / 8);
+        const int ch = (q % (kC / 8)) * 8;
+        const int y = ty0 + p / kTW, xx = tx0 + p % kTW;
+        if (y < H && xx < W) {
+          *reinterpret_cast<uint4*>(out_p + (((int64_t)n * H + y) * W + xx) * kC + ch) =
+              *reinterpret_cast<const uint4*>(stage + p * kLdo + ch);
         }
       }
     }
-    __syncthreads();
-    for (int q = tid; q < kTH * kTW * (kC / 8); q += kThreads) {
-      const int p = q / (kC / 8);
-      const int col = (q % (kC / 8)) * 8;
-      const int y = ty0 + p / kTW, xx = tx0 + p % kTW;
-      if (y < H && xx < W) {
-        *reinterpret_cast<uint4*>(out_p + (((int64_t)n * H + y) * W + xx) * kC + col) =
-            *reinterpret_cast<const uint4*>(stage + p * kLdh + col);
-      }
-    }
   }
+}
+
+template <int TH>
+int launch(const void* x, const void* up, const void* wlat_t, const void* blat, const void* w9_t,
+           const void* bout, void* out_p, void* out_m, int N, int H, int W, int Cin,
+           cudaStream_t stream) {
+  using G = Geo<TH>;
+  CUtensorMap mx, mwlat, mw9;
+  const uint64_t dx[4] = {(uint64_t)Cin, (uint64_t)W, (uint64_t)H, (uint64_t)N};
+  const uint32_t bx[4] = {kLatK, kHW, TH + 2, 1};
+  const uint64_t dl[2] = {(uint64_t)Cin, (uint64_t)kC};
+  const uint32_t bl[2] = {kLatK, kC / kCluster};
+  const uint64_t d9[2] = {(uint64_t)kC, (uint64_t)9 * kC};
+  const uint32_t b9[2] = {kConvK, kC / kCluster};
+  if (!hopper_host::bf16_map(&mx, x, 4, dx, bx, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !hopper_host::bf16_map(&mwlat, wlat_t, 2, dl, bl, CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !hopper_host::bf16_map(&mw9, w9_t, 2, d9, b9, CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = fpn_level_kernel<TH>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  // Tile rows at or past H pad the grid to whole clusters; they store nothing.
+  const int rows = (H + TH - 1) / TH;
+  dim3 grid((W + kTW - 1) / kTW, (rows + kCluster - 1) / kCluster * kCluster, N);
+  err = hopper_host::launch_clustered(
+      kernel, grid, kThreads, G::kSmem, kCluster, stream, mx, mwlat, mw9,
+      reinterpret_cast<const bf16*>(up), reinterpret_cast<const bf16*>(blat),
+      reinterpret_cast<const bf16*>(bout), reinterpret_cast<bf16*>(out_p),
+      reinterpret_cast<bf16*>(out_m), H, W, Cin);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x [N, H, W, Cin] bf16 (Cin a multiple of 32); up [N, ceil(H/2), ceil(W/2),
 // 256] bf16, the merged map of the level above, or null on the top level;
-// wlat [Cin, 256], blat [256], w9 [9, 256, 256] (HWIO taps, dy-major), bout
+// wlat_t [256, Cin] (the lateral weights transposed), blat [256], w9_t
+// [9, 256, 256] (per tap dy-major, [output channel, input channel]), bout
 // [256], all bf16; out_p [N, H, W, 256] bf16; out_m the merged map of this
-// level, same shape, or null where no finer level needs it.
-extern "C" int fpn_level_bf16(const void* x, const void* up, const void* wlat, const void* blat,
-                              const void* w9, const void* bout, void* out_p, void* out_m, int N,
-                              int H, int W, int Cin, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cin % kKS || N > 65535 ||
-      (H + kTH - 1) / kTH > 65535) {
+// level, same shape, or null where no finer level needs it; tile_rows 8 or
+// 4, the output rows of a block's tile.
+extern "C" int fpn_level_bf16(const void* x, const void* up, const void* wlat_t,
+                              const void* blat, const void* w9_t, const void* bout, void* out_p,
+                              void* out_m, int N, int H, int W, int Cin, int tile_rows,
+                              void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cin % kLatK || N > 65535 ||
+      (H + 3) / 4 + kCluster > 65535 || (tile_rows != 8 && tile_rows != 4)) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      fpn_level_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, N);
-  using bf = __nv_bfloat16;
-  fpn_level_kernel<<<grid, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      reinterpret_cast<const bf*>(x), reinterpret_cast<const bf*>(up),
-      reinterpret_cast<const bf*>(wlat), reinterpret_cast<const bf*>(blat),
-      reinterpret_cast<const bf*>(w9), reinterpret_cast<const bf*>(bout),
-      reinterpret_cast<bf*>(out_p), reinterpret_cast<bf*>(out_m), H, W, Cin);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  return tile_rows == 8 ? launch<8>(x, up, wlat_t, blat, w9_t, bout, out_p, out_m, N, H, W, Cin, s)
+                        : launch<4>(x, up, wlat_t, blat, w9_t, bout, out_p, out_m, N, H, W, Cin, s);
 }

@@ -1,6 +1,8 @@
-// Device code shared by the spiking RPN head's forward kernel
-// (rpn_head.cu), its paired-image variant (rpn_head_x2.cu) and its backward
-// kernel (rpn_head_bwd.cu), which replays the forward: the shared-memory
+// Device code shared by the spiking RPN head's training forward
+// (rpn_head_train.cu), its paired-image variant (rpn_head_x2.cu) and its
+// backward kernel (rpn_head_bwd.cu), which replays the forward; the
+// evaluation route's kernel (rpn_head.cu) takes only lif_element and
+// step_mask from here. The shared-memory
 // layout of a block, the encoder's period map and per-step spike halo, the
 // 3x3 conv on the tensor cores with the tap weights streaming through a
 // cp.async ring, and the LIF update of one neuron. All kernels call the

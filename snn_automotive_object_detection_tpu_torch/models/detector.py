@@ -8,10 +8,12 @@ levels but the pool level. At inference the open-set postprocess
 follows; detections, pre-NMS proposals and ``all_boxes`` are rescaled to
 the original image sizes. In training the four losses come back instead.
 
-On a CUDA device the four spiking-core stages run as hand-written kernels
-(K1 RPN head, or K8 pair by pair when no rates are collected and
-``snn/cuda_rpn.PAIR_IMAGES`` is on; K2 RoIAlign, K3 encoder+fc6, K4 box
-tail); on the CPU they run as the kernels' plain PyTorch versions.
+With bf16 on a CUDA device the four spiking-core stages run as
+hand-written kernels (K1 RPN head, or K8 pair by pair when no rates are
+collected and ``snn/cuda_rpn.PAIR_IMAGES`` is on; K2 RoIAlign, K3
+encoder+fc6, K4 box tail); on the CPU they run as the kernels' plain
+PyTorch versions. With float32 they run as the reference's own scans and
+the gather RoIAlign, on either device, and launch no kernel.
 
 The compute dtype picks the backbone's route, by the reference's rule (its
 bf16 runs take the fused kernels, its float32 runs keep the unfused chain):
@@ -24,9 +26,9 @@ dtype, as in the reference.
 
 In training the route changes with what needs a gradient (see
 :func:`make_head_applies` and ``_detector_apply``): the fused stem serves
-while the stem is frozen, the FPN runs unfused, the RPN head is K1 with K7
-as its backward while the backbone is frozen, RoIAlign is the gather
-version and the box head the scan under autograd.
+while the stem is frozen, the FPN runs unfused, the RPN head is the
+training forward with K7 as its backward while the backbone is frozen,
+RoIAlign is the gather version and the box head the scan under autograd.
 """
 
 from __future__ import annotations
@@ -67,29 +69,34 @@ def make_head_applies(config, params, collect_rates: bool, training: bool = Fals
     """The RPN head's and the box head's apply functions for this call.
 
     The device, the dtype, ``training`` and the trainable backbone stages
-    pick the route; there is no flag. Outside training both heads run on
-    their kernels (plain versions on the CPU). In training the box head is
-    the scan under autograd, and the RPN head is the forward kernel with
-    the backward kernel as its gradient when the compute dtype is bf16, the
+    pick the route; there is no flag. The kernels take bf16 only, as the
+    reference gates its own on bf16. Outside training, with bf16, both
+    heads run on their kernels (plain versions on the CPU); with float32
+    both are the reference's scans (step encoder, LI readout at every
+    step), on either device. In training the box head is the scan under
+    autograd, and the RPN head is the training forward kernel with the
+    backward kernel as its gradient when the compute dtype is bf16, the
     backbone is frozen (that gradient is for the weights only) and no rates
     are collected; otherwise it is the scan too.
     """
     cd = config.compute_dtype
-    kernel_rpn_train = (cd == torch.bfloat16 and not collect_rates
+    kernels = cd == torch.bfloat16
+    kernel_rpn_train = (kernels and not collect_rates
                         and config.backbone_trainable_stages == 0)
 
     def rpn_head_apply(features):
-        if not training:
+        if not training and kernels:
             return heads.rpn_head_snn_apply(params["rpn_head"], features,
                                             config.t_rpn, collect_rates, cd)
-        if kernel_rpn_train:
+        if training and kernel_rpn_train:
             return heads.rpn_head_snn_train_apply(params["rpn_head"], features,
                                                   config.t_rpn, cd)
         return heads.rpn_head_snn_scan_apply(params["rpn_head"], features,
                                              config.t_rpn, collect_rates, cd)
 
     def box_head_apply(flat):
-        apply = heads.fastrcnn_snn_scan_apply if training else heads.fastrcnn_snn_apply
+        kernel = kernels and not training
+        apply = heads.fastrcnn_snn_apply if kernel else heads.fastrcnn_snn_scan_apply
         return apply(params["box_head"], flat, config.t_det, collect_rates, cd)
 
     return rpn_head_apply, box_head_apply

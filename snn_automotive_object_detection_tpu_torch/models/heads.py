@@ -17,14 +17,15 @@ heads.py``. At inference, as the reference runs them with its kernels on:
 For training:
 
   * :func:`rpn_head_snn_train_apply` is the kernel-backed RPN head made
-    differentiable for its weights: K1 forward, K7 backward
-    (``snn/cuda_rpn.RpnLevelTrain``), for bf16 with a frozen backbone.
+    differentiable for its weights: the training forward, which K7
+    replays, and K7 backward (``snn/cuda_rpn.RpnLevelTrain``), for bf16
+    with a frozen backbone.
   * :func:`rpn_head_snn_scan_apply` and :func:`fastrcnn_snn_scan_apply` are
     the reference's scans written as Python loops of PyTorch ops under
     autograd, with the SuperSpike surrogate in every spike. Training uses
     them for the box head, for float32, for trainable backbone stages and
-    for rate collection, on either device; they are no kernel's plain
-    version.
+    for rate collection, and evaluation for float32, on either device;
+    they are no kernel's plain version.
 
 Neuron states are float32; matmul operands are in the compute dtype.
 Rates follow the reference convention: mean spikes per neuron per step,
@@ -62,8 +63,8 @@ def rpn_head_snn_apply(params: Dict, features: List[torch.Tensor],
 
     A level takes the paired kernel (K8), which keeps no spike counts, when
     ``cuda_rpn.PAIR_IMAGES`` is on, no rates are collected and the level can
-    pair (an even batch); else the per-image kernel (K1). Both give the
-    same bits."""
+    pair (an even batch); else the per-image kernel (K1). The two sum the
+    conv in other orders, so a rare spike may differ between them."""
     w_out, a = _fused_readout(params)
     w_shared = params["shared_conv"]["w"]
     logits, bbox_reg, enc_rates, shared_rates = [], [], [], []
@@ -90,7 +91,7 @@ def rpn_head_snn_apply(params: Dict, features: List[torch.Tensor],
 def rpn_head_snn_train_apply(params: Dict, features: List[torch.Tensor],
                              num_steps: int, compute_dtype=torch.bfloat16):
     """:func:`rpn_head_snn_apply` made differentiable for the three weights:
-    per level the forward kernel with the backward kernel as its gradient
+    per level the training forward with the backward kernel as its gradient
     (on the CPU, their plain versions). The features get no gradient; rates
     are not collected. Returns (objectness list, bbox list, None)."""
     w_out, a = _fused_readout(params)

@@ -7,8 +7,9 @@ to the proposals, matched at 0.5/0.5 without low-quality matches, 512 per
 image are sampled at 25% positive, RoIAlign runs as the gather version
 (``ops/roi_align.py``), and the loss is cross-entropy plus smooth-L1
 (beta 1/9) over the sampled count. Eval: RoIAlign 7x7 over FPN levels 0-3
-(kernel K2), the box head, then the open-set postprocess. Foreground boxes (classes >= 1) are score-thresholded,
-small-filtered, NMS'd per class and capped at detections_per_img;
+(kernel K2 on bf16 maps, the gather version on float32 ones, as the
+reference gates its kernel), the box head, then the open-set postprocess.
+Foreground boxes (classes >= 1) are score-thresholded, small-filtered, NMS'd per class and capped at detections_per_img;
 background (class-0) boxes of proposals that no above-threshold foreground
 prediction claimed survive their own NMS and are all kept. The pre-NMS
 per-class scores and boxes go out for new-object discovery. All tensors
@@ -247,7 +248,8 @@ def roi_heads_forward(box_head_apply: Callable, features, proposals: torch.Tenso
                                            valid.reshape(-1))
         return {"rates": rates}, {"loss_classifier": loss_cls,
                                   "loss_box_reg": loss_box}
-    pooled = roi_align(features, proposals.contiguous(), image_bucket)
+    align = roi_align if features[0].dtype == torch.bfloat16 else multiscale_roi_align
+    pooled = align(features, proposals.contiguous(), image_bucket)
     cls, reg, rates = box_head_apply(pooled.reshape(n * p, -1))
     (gb, gs, gv), inter = _postproc_groups(
         cls.reshape(n, p, -1), reg.reshape(n, p, -1), proposals, prop_valid,

@@ -22,7 +22,12 @@ the TPU kernel's bf16 rounding sequence step by step:
     work; the finest level stores no merged map.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-(bf16 maps, 256 FPN channels, Cin a multiple of 32) or raises.
+(bf16 maps, 256 FPN channels, Cin a multiple of 32) or raises. The kernel
+reads both weights by TMA as the K-major B of its products, so the wrapper
+hands it ``wlat`` and each tap of ``wout`` transposed ([output, input]
+channels): one copy each, as the cast to bf16 alone would be. A block
+covers 8 x 16 output pixels, or 4 x 16 on a level whose 8-row tiles would
+leave most SMs of the card idle (:func:`tile_rows`).
 """
 
 from __future__ import annotations
@@ -87,9 +92,23 @@ def _check_shapes(c_feat, merged_next) -> None:
                              f"{want}, got {tuple(merged_next.shape)}")
 
 
+def tile_rows(c_feat: torch.Tensor) -> int:
+    """Output rows of a block's 16-column tile: 8, or 4 where 8-row tiles
+    would leave more than half of the card's SMs without a block. A 4-row
+    tile recomputes 1.69 lateral rows per output row, an 8-row tile 1.41,
+    so on an H100 C4 of the flagship bucket (72 blocks of 8 rows on 132
+    SMs) is faster with 8 rows and only C5 (18) takes 4 (PERF.md)."""
+    n, h, w, _ = c_feat.shape
+    sms = torch.cuda.get_device_properties(c_feat.device).multi_processor_count
+    return 8 if 2 * n * -(-h // 8) * -(-w // 16) >= sms else 4
+
+
 def _launch(c_feat: torch.Tensor, merged_next: Optional[torch.Tensor],
-            wlat: torch.Tensor, blat: torch.Tensor, w9: torch.Tensor,
-            bout: torch.Tensor, store_merged: bool):
+            wlat_t: torch.Tensor, blat: torch.Tensor, w9_t: torch.Tensor,
+            bout: torch.Tensor, store_merged: bool, rows: Optional[int] = None):
+    """K5 on one level. ``wlat_t`` [256, Cin] and ``w9_t`` [9, 256, 256]
+    are the transposed weights (see :func:`fpn_level`); ``rows`` the tile's
+    output rows, by default :func:`tile_rows`."""
     _check_shapes(c_feat, merged_next)
     n, h, w, cin = c_feat.shape
     c = FPN_CHANNELS
@@ -98,24 +117,36 @@ def _launch(c_feat: torch.Tensor, merged_next: Optional[torch.Tensor],
         raise ValueError(f"fpn_level kernel takes Cin a multiple of 32, got {cin}")
     if merged_next is not None:
         cb.require(merged_next, "merged_next", BF)
-    cb.require(wlat, "wlat", BF, (cin, c))
+    cb.require(wlat_t, "wlat_t", BF, (c, cin))
     cb.require(blat, "blat", BF, (c,))
-    cb.require(w9, "w9", BF, (9, c, c))
+    cb.require(w9_t, "w9_t", BF, (9, c, c))
     cb.require(bout, "bout", BF, (c,))
+    rows = tile_rows(c_feat) if rows is None else rows
     out_p = torch.empty((n, h, w, c), dtype=BF, device=c_feat.device)
     out_m = torch.empty((n, h, w, c), dtype=BF, device=c_feat.device) \
         if store_merged else None
     fn = cb.load(NAME).fpn_level_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     code = fn(c_feat.data_ptr(),
               None if merged_next is None else merged_next.data_ptr(),
-              wlat.data_ptr(), blat.data_ptr(), w9.data_ptr(), bout.data_ptr(),
+              wlat_t.data_ptr(), blat.data_ptr(), w9_t.data_ptr(), bout.data_ptr(),
               out_p.data_ptr(), None if out_m is None else out_m.data_ptr(),
-              n, h, w, cin, cb.stream_ptr(c_feat.device))
+              n, h, w, cin, rows, cb.stream_ptr(c_feat.device))
     cb.check(code, NAME)
     cb.LAUNCHES[NAME] += 1
     return out_p, out_m
+
+
+def kernel_weights(wlat: torch.Tensor, blat: torch.Tensor, wout: torch.Tensor,
+                   bout: torch.Tensor):
+    """The level's weights as :func:`_launch` takes them: (wlat_t [256,
+    Cin], blat, w9_t [9, 256, 256] per tap [output, input], bout), bf16."""
+    c = FPN_CHANNELS
+    cin = wlat.numel() // c
+    return (wlat.reshape(cin, c).t().to(BF).contiguous(), blat.to(BF).contiguous(),
+            wout.reshape(9, c, c).transpose(1, 2).to(BF).contiguous(),
+            bout.to(BF).contiguous())
 
 
 def fpn_level(c_feat: torch.Tensor, merged_next: Optional[torch.Tensor],
@@ -130,12 +161,8 @@ def fpn_level(c_feat: torch.Tensor, merged_next: Optional[torch.Tensor],
     wout [3, 3, 256, 256] HWIO / bout [256] the output conv.
     """
     if cb.dispatch_device(c_feat, NAME):
-        cin, c = c_feat.shape[-1], FPN_CHANNELS
-        return _launch(c_feat, merged_next,
-                       wlat.reshape(cin, c).to(BF).contiguous(),
-                       blat.to(BF).contiguous(),
-                       wout.reshape(9, c, c).to(BF).contiguous(),
-                       bout.to(BF).contiguous(), store_merged)
+        return _launch(c_feat, merged_next, *kernel_weights(wlat, blat, wout, bout),
+                       store_merged)
     return fpn_level_plain(c_feat, merged_next, wlat, blat, wout, bout, store_merged)
 
 

@@ -1,24 +1,29 @@
-"""Spiking RPN head through the hand-written CUDA kernels: the forward (K1),
-the forward for a pair of images (K8) and the backward for the weights
-(K7).
+"""Spiking RPN head through the hand-written CUDA kernels: the forward of
+the evaluation route (K1), the forward of the training route, the forward
+for a pair of images (K8) and the backward for the weights (K7).
 
 Replaces ``snn/pallas_rpn.py``: ``rpn_head_snn_pallas_apply`` with its
-per-level ``_run_level`` (K1, ``csrc/rpn_head.cu``) and its paired
+per-level ``_run_level`` (K1, ``csrc/rpn_head.cu``: one pass over the tap
+weights for a chunk of 8 steps, ``wgmma``, TMA) and its paired
 ``_run_level_x2`` (K8, ``csrc/rpn_head_x2.cu``), and
-``rpn_head_snn_pallas_train_apply`` with ``_run_level_bwd`` as the custom
-VJP of the level (K7, ``csrc/rpn_head_bwd.cu``). :func:`rpn_level_plain`,
-:func:`rpn_level_x2_plain` and :func:`rpn_level_bwd_plain` beside them are
-their plain PyTorch versions and follow the TPU kernels' formulation:
-threshold-count encoder periods, the conv current rounded to the plane
-dtype, f32 LIF states, an LI-weighted spike sum with
-:func:`snnf.li_coefficients` and one fused readout after the loop, rounded
-to the plane dtype; backwards, the replay
+``rpn_head_snn_pallas_train_apply`` with its forward
+(``csrc/rpn_head_train.cu``) and ``_run_level_bwd`` as the custom VJP of
+the level (K7, ``csrc/rpn_head_bwd.cu``). The training forward, K8 and
+K7's replay run the same device code (``csrc/rpn_head_common.cuh``), so
+their spikes are equal bits; K1 sums its products in another order.
+:func:`rpn_level_plain`, :func:`rpn_level_x2_plain` and
+:func:`rpn_level_bwd_plain` beside them are their plain PyTorch versions
+and follow the TPU kernels' formulation: threshold-count encoder periods,
+the conv current rounded to the plane dtype, f32 LIF states, an
+LI-weighted spike sum with :func:`snnf.li_coefficients` and one fused
+readout after the loop, rounded to the plane dtype; backwards, the replay
 with stored decayed membranes, the reverse SuperSpike sweep written out
 (no autograd) and the two weight-gradient products.
 
 A CPU tensor takes the plain versions (bf16 or f32 planes); a CUDA tensor
 launches the kernels, which take bf16 planes only, or raises.
-:class:`RpnLevelTrain` ties the two into one differentiable level.
+:class:`RpnLevelTrain` ties the training forward and K7 into one
+differentiable level.
 """
 
 from __future__ import annotations
@@ -32,14 +37,15 @@ from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
 from snn_automotive_object_detection_tpu_torch.utils.constants import device_constant
 
 NAME = "rpn_head"
+TRAIN_NAME = "rpn_head_train"
 BWD_NAME = "rpn_head_bwd"
 X2_NAME = "rpn_head_x2"
 # Whether the head outside training takes the paired kernel for the levels
 # that can pair (see :func:`x2_feasible`) when no rates are collected.
-# Pairing changes no output bit. On: on an H100 the five flagship levels
-# take 20.5 ms paired against 21.1-21.5 ms one by one, more than the spread
-# of the repeats (PERF.md; ``chip_smoke.py`` prints both in every run).
-PAIR_IMAGES = True
+# ``chip_smoke.check_rpn_x2`` times K8 against K1 in turns on the five
+# flagship levels in every run. Off: on an H100 K1 takes 5.7-5.8 ms for
+# them and K8 20.8 ms (PERF.md).
+PAIR_IMAGES = False
 # Split counts of the weight-gradient kernel: 36 tiles of dw9 times 11
 # splits are three blocks for each of 132 SMs.
 DW9_SPLITS = 11
@@ -57,9 +63,18 @@ def _constants(num_steps: int, device) -> torch.Tensor:
 
 
 def _taps(w_shared: torch.Tensor) -> torch.Tensor:
-    """[3, 3, C, C] HWIO -> [9, C, C] bf16, dy-major, as the kernels take it."""
+    """[3, 3, C, C] HWIO -> [9, C, C] bf16, dy-major, [input, output]
+    channels per tap, as the training forward, K7 and K8 take it."""
     c = w_shared.shape[2]
     return w_shared.reshape(9, c, c).to(torch.bfloat16).contiguous()
+
+
+def _taps_t(w_shared: torch.Tensor) -> torch.Tensor:
+    """[3, 3, C, C] HWIO -> [9, C, C] bf16, dy-major, [output, input]
+    channels per tap: K1 reads each tap's rows by TMA as the K-major B of
+    its products. One copy, as the cast to bf16 alone would be."""
+    c = w_shared.shape[2]
+    return w_shared.reshape(9, c, c).transpose(1, 2).to(torch.bfloat16).contiguous()
 
 
 def _level_steps(feat: torch.Tensor, w_shared: torch.Tensor,
@@ -142,28 +157,44 @@ def _check_level(name, feat, w9, w_out, num_steps):
                          f"{MAX_OUT} readout channels")
 
 
-def _launch(feat: torch.Tensor, w9: torch.Tensor, w_out: torch.Tensor,
-            num_steps: int, spike_sum: bool = False):
+def _launch_with(name: str, symbol: str, feat: torch.Tensor, w9: torch.Tensor,
+                 w_out: torch.Tensor, num_steps: int, spike_sum: bool):
     n, h, w, c = feat.shape
     n_out = w_out.shape[1]
-    _check_level(NAME, feat, w9, w_out, num_steps)
+    _check_level(name, feat, w9, w_out, num_steps)
     consts = _constants(num_steps, feat.device)
     out = torch.empty((n, h, w, n_out), dtype=torch.float32, device=feat.device)
     counts = torch.zeros((n, 2), dtype=torch.int64, device=feat.device)
     ssum = (torch.empty((n, h, w, c), dtype=torch.float32, device=feat.device)
             if spike_sum else None)
-    fn = cb.load(NAME).rpn_level_bf16
+    fn = getattr(cb.load(name), symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     code = fn(feat.data_ptr(), w9.data_ptr(), w_out.data_ptr(), consts.data_ptr(),
               out.data_ptr(), counts.data_ptr(),
               None if ssum is None else ssum.data_ptr(), n, h, w, num_steps,
               n_out, cb.stream_ptr(feat.device))
-    cb.check(code, NAME)
-    cb.LAUNCHES[NAME] += 1
+    cb.check(code, name)
+    cb.LAUNCHES[name] += 1
     if spike_sum:
         return out, counts[:, 0], counts[:, 1], ssum
     return out, counts[:, 0], counts[:, 1]
+
+
+def _launch(feat: torch.Tensor, w9_t: torch.Tensor, w_out: torch.Tensor,
+            num_steps: int, spike_sum: bool = False):
+    """K1 on one level; ``w9_t`` from :func:`_taps_t`. Same returns as
+    :func:`rpn_level_plain`."""
+    return _launch_with(NAME, "rpn_level_bf16", feat, w9_t, w_out, num_steps, spike_sum)
+
+
+def _launch_train(feat: torch.Tensor, w9: torch.Tensor, w_out: torch.Tensor,
+                  num_steps: int, spike_sum: bool = False):
+    """The training forward on one level; ``w9`` from :func:`_taps`. Same
+    returns as :func:`rpn_level_plain`, and the same spikes as K7's replay
+    and K8 bit for bit."""
+    return _launch_with(TRAIN_NAME, "rpn_level_train_bf16", feat, w9, w_out,
+                        num_steps, spike_sum)
 
 
 def _launch_x2(feat: torch.Tensor, w9: torch.Tensor, w_out: torch.Tensor,
@@ -191,11 +222,22 @@ def _launch_x2(feat: torch.Tensor, w9: torch.Tensor, w_out: torch.Tensor,
 
 def rpn_level(feat: torch.Tensor, w_shared: torch.Tensor, w_out: torch.Tensor,
               num_steps: int, spike_sum: bool = False):
-    """One level through the kernel (CUDA) or the plain version (CPU).
-    Same returns as :func:`rpn_level_plain`."""
+    """One level on the evaluation route: K1 (CUDA) or the plain version
+    (CPU). Same returns as :func:`rpn_level_plain`."""
     if cb.dispatch_device(feat, NAME):
-        return _launch(feat, _taps(w_shared), w_out.to(torch.bfloat16).contiguous(),
+        return _launch(feat, _taps_t(w_shared), w_out.to(torch.bfloat16).contiguous(),
                        num_steps, spike_sum)
+    return rpn_level_plain(feat, w_shared, w_out, num_steps, spike_sum)
+
+
+def rpn_level_train(feat: torch.Tensor, w_shared: torch.Tensor, w_out: torch.Tensor,
+                    num_steps: int, spike_sum: bool = False):
+    """One level on the training route: the training forward (CUDA), whose
+    spikes K7 replays, or the plain version (CPU). Same returns as
+    :func:`rpn_level_plain`."""
+    if cb.dispatch_device(feat, TRAIN_NAME):
+        return _launch_train(feat, _taps(w_shared), w_out.to(torch.bfloat16).contiguous(),
+                             num_steps, spike_sum)
     return rpn_level_plain(feat, w_shared, w_out, num_steps, spike_sum)
 
 
@@ -340,15 +382,16 @@ def rpn_level_bwd(feat: torch.Tensor, w_shared: torch.Tensor, w_out: torch.Tenso
 
 
 class RpnLevelTrain(torch.autograd.Function):
-    """One differentiable level: forward is :func:`rpn_level` (K1 on a CUDA
-    tensor), backward :func:`rpn_level_bwd` (K7). Only ``feat``,
+    """One differentiable level: forward is :func:`rpn_level_train` (the
+    training forward on a CUDA tensor), backward :func:`rpn_level_bwd` (K7),
+    which replays it. Only ``feat``,
     ``w_shared`` and ``w_out`` are kept for the backward, which replays the
     forward. The features get no gradient: the backbone is frozen wherever
     this route is taken."""
 
     @staticmethod
     def forward(ctx, feat, w_shared, w_out, num_steps):
-        out, enc, lif = rpn_level(feat, w_shared, w_out, num_steps)
+        out, enc, lif = rpn_level_train(feat, w_shared, w_out, num_steps)
         ctx.save_for_backward(feat, w_shared, w_out)
         ctx.num_steps = num_steps
         ctx.mark_non_differentiable(enc, lif)

@@ -1,6 +1,8 @@
-"""The nine hand-written CUDA kernels against their plain PyTorch versions,
-on the card, at small and ragged shapes (the flagship shapes are
-chip_smoke.py's): pixel rows that end inside a 32-pixel segment, RoI rows
+"""The ten hand-written CUDA kernels (the nine TPU kernels' counterparts and
+the RPN head's training forward) against their plain PyTorch versions, on
+the card, at small and ragged shapes (the flagship FPN too; the other
+flagship shapes are chip_smoke.py's): pixel rows that end inside a 16- or
+32-pixel segment, RoI rows
 that end inside a row tile, boxes on and past the image border.
 
 Every test here needs a CUDA device and is marked ``cuda``; without one it
@@ -18,7 +20,9 @@ Tolerances, on identical bf16 inputs:
   * K1 readout and K4 logits: every element within 2^-7 |want| + 1e-4
     (utils/kernel_checks.py: one bf16 ulp of the value, since both sides
     round the same f32 sums of spikes once to bf16), and every K1 readout
-    element a bf16 value;
+    element a bf16 value; where a K1 spike flipped, against the plain
+    product of the kernel's own spike sums. The same for the training
+    forward;
   * K2: 1e-5 absolute on N(0, 1) features (the same f32 operations on the
     same bf16 values; measured bit-equal on an H100);
   * K3: 1e-3 absolute (sums of 0/1 x bf16 weights in another order);
@@ -33,14 +37,16 @@ Tolerances, on identical bf16 inputs:
     gradient's largest element (``kernel_checks.grad_excess``: the same
     spikes and the same reverse sweep on both sides, the plain version
     summing in f64 and the kernel on the tensor cores), the replay's spike
-    sum equal to K1's neuron by neuron, and the same bits on a second run.
-    Where K1 and its plain version differ in a LIF spike (allowed as above),
+    sum equal to the training forward's neuron by neuron, and the same bits
+    on a second run. Where the training forward and its plain version
+    differ in a LIF spike (allowed as above),
     ``dw_out``, which is linear in the spike sums, is held against the plain
     product of the replay's own sums.
-  * K8 (the paired RPN head): readout and spike sums equal to K1's bit for
-    bit (the same device code in the same order), and held to its plain
-    version as K1 is; where a LIF spike flipped, the readout, linear in the
-    spike sums, is held against the plain product of the kernel's own sums.
+  * K8 (the paired RPN head): readout and spike sums equal to the training
+    forward's bit for bit (the same device code in the same order), and
+    held to its plain version as K1 is; where a LIF spike flipped, the
+    readout, linear in the spike sums, is held against the plain product of
+    the kernel's own sums.
   * K9 (the fused box head): per-row |differences| of the fc6 and fc7 spike
     counts at most 0.1% of the spikes plus one; rows with equal counts
     within 1e-3 (1 + |want|) in every logit and delta (f32 sums of spikes
@@ -76,24 +82,51 @@ def dev():
     return torch.device("cuda:0")
 
 
-@pytest.mark.parametrize("h,w,t", [(3, 45, 8), (2, 7, 4), (5, 64, 12)])
-def test_rpn_head_kernel_matches_plain(dev, h, w, t):
-    g = torch.Generator(device=dev).manual_seed(h * w + t)
-    feat = (torch.rand((2, h, w, 256), generator=g, device=dev) * 2).to(BF)
-    w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.02
-    w_out = torch.randn((256, 15), generator=g, device=dev) * 0.05
-    before = cb.LAUNCHES[k1.NAME]
-    out, enc, lif, ssum = k1.rpn_level(feat, w_shared, w_out, t, spike_sum=True)
-    torch.cuda.synchronize()
-    assert cb.LAUNCHES[k1.NAME] == before + 1
-    p_out, p_enc, p_lif, p_ssum = k1.rpn_level_plain(feat, w_shared, w_out, t,
-                                                     spike_sum=True)
-    assert out.shape == (2, h, w, 15) and ssum.shape == (2, h, w, 256)
+def _hold_rpn_eval(got, want, w_out):
+    """K1's (readout, encoder counts, LIF counts, spike sums) against the
+    plain version's: encoder counts exact, neurons with a flipped LIF spike
+    at most 0.1% of those that spiked, the readout within one bf16 ulp +
+    1e-4 of the plain readout, or, where a spike flipped, of the plain
+    product of the kernel's own spike sums (the readout is linear in
+    them)."""
+    out, enc, _, ssum = got
+    p_out, p_enc, p_lif, p_ssum = want
     assert torch.equal(enc, p_enc)
-    assert int(p_lif.sum()) > 0
-    assert int((ssum != p_ssum).sum()) <= 1e-3 * int(p_lif.sum())
-    assert kc.bf16_valued(out)
-    assert kc.excess(out, p_out) <= 1
+    spiked = int((p_ssum != 0).sum())
+    flips = int((ssum != p_ssum).sum())
+    assert spiked > 0 and flips <= 1e-3 * spiked
+    if flips:
+        p_out = torch.matmul(ssum, w_out.to(BF).float()).to(BF).float()
+    assert kc.bf16_valued(out) and kc.excess(out, p_out) <= 1
+
+
+# Widths that end inside a 16-pixel tile, one and two images, T from 1 to
+# 32 (one and four chunks of 8 steps, a chunk that ends in the first
+# warpgroup's steps), 15, 75 and 128 readout channels.
+@pytest.mark.parametrize("n,h,w,t,n_out", [(2, 3, 45, 8, 15), (2, 2, 7, 4, 15),
+                                           (1, 5, 64, 12, 15), (1, 3, 21, 1, 75),
+                                           (2, 2, 33, 32, 128), (1, 4, 17, 8, 75),
+                                           (2, 3, 50, 12, 128)])
+def test_rpn_head_kernel_matches_plain(dev, n, h, w, t, n_out):
+    g = torch.Generator(device=dev).manual_seed(n * h * w + t + n_out)
+    feat = (torch.rand((n, h, w, 256), generator=g, device=dev) * 2).to(BF)
+    w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.02
+    w_out = torch.randn((256, n_out), generator=g, device=dev) * 0.05
+    before = cb.LAUNCHES[k1.NAME], cb.LAUNCHES[k1.TRAIN_NAME]
+    got = k1.rpn_level(feat, w_shared, w_out, t, spike_sum=True)
+    no_sum = k1.rpn_level(feat, w_shared, w_out, t)
+    torch.cuda.synchronize()
+    assert (cb.LAUNCHES[k1.NAME], cb.LAUNCHES[k1.TRAIN_NAME]) == (before[0] + 2, before[1])
+    assert got[0].shape == (n, h, w, n_out) and got[3].shape == (n, h, w, 256)
+    # Without the spike-sum output: the same readout and counts.
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], no_sum))
+    want = k1.rpn_level_plain(feat, w_shared, w_out, t, spike_sum=True)
+    assert t == 1 or int(want[2].sum()) > 0
+    if t > 1:
+        _hold_rpn_eval(got, want, w_out)
+    else:   # one step: no LIF neuron has spiked yet
+        assert torch.equal(got[1], want[1]) and int(got[2].sum()) == 0
+        assert torch.equal(got[0], want[0]) and float(got[3].abs().max()) == 0
 
 
 def test_roi_align_kernel_matches_plain(dev):
@@ -150,8 +183,11 @@ def test_box_tail_kernel_matches_plain(dev, r, t):
     (3, [(9, 17), (5, 9), (3, 5), (2, 3)], (256, 512, 1024, 2048)),       # ragged tiles
     (2, [(24, 48), (12, 24), (6, 12), (3, 6)], (256, 512, 1024, 2048)),   # exact pyramid
     (1, [(17, 33), (9, 17), (5, 9), (3, 5)], (32, 64, 96, 160)),   # Cin below the ring's depth
+    (2, [(192, 384), (96, 192), (48, 96), (24, 48)], (256, 512, 1024, 2048)),   # flagship
 ])
 def test_fpn_level_kernel_matches_plain(dev, n, shapes, cins):
+    """Each level through the entry point (the tile the level's shape
+    picks) and with both tiles, 8 x 16 and 4 x 16 pixels per block."""
     g = torch.Generator(device=dev).manual_seed(n + shapes[0][0])
     merged = None
     for i in (3, 2, 1, 0):
@@ -170,12 +206,15 @@ def test_fpn_level_kernel_matches_plain(dev, n, shapes, cins):
         if merged is not None:
             up = merged.repeat_interleave(2, 1).repeat_interleave(2, 2)[:, :h, :w]
             addends += [up, up]
-        assert got_m.shape == got_p.shape == (n, h, w, 256) and got_p.dtype == BF
-        assert kc.chain_excess(got_m, want_m, 2 if merged is None else 3, addends) <= 1
-        want_p = k5.outer_plain(got_m, wout, bout)
-        assert kc.chain_excess(got_p, want_p, 2, (bout.to(BF),)) <= 1
-        assert kc.differing(got_m, want_m) <= kc.MAX_DIFFERING * want_m.numel()
-        assert kc.differing(got_p, want_p) <= kc.MAX_DIFFERING * want_p.numel()
+        weights = k5.kernel_weights(wlat, blat, wout, bout)
+        runs = [(got_p, got_m)] + [k5._launch(c, merged, *weights, True, rows) for rows in (8, 4)]
+        for run_p, run_m in runs:
+            assert run_m.shape == run_p.shape == (n, h, w, 256) and run_p.dtype == BF
+            assert kc.chain_excess(run_m, want_m, 2 if merged is None else 3, addends) <= 1
+            want_p = k5.outer_plain(run_m, wout, bout)
+            assert kc.chain_excess(run_p, want_p, 2, (bout.to(BF),)) <= 1
+            assert kc.differing(run_m, want_m) <= kc.MAX_DIFFERING * want_m.numel()
+            assert kc.differing(run_p, want_p) <= kc.MAX_DIFFERING * want_p.numel()
         only_p, none = k5.fpn_level(c, merged, wlat, blat, wout, bout, store_merged=False)
         assert none is None and torch.equal(only_p, got_p)
         merged = want_m
@@ -220,7 +259,7 @@ def test_rpn_head_bwd_kernel_matches_plain(dev, n, h, w, t):
     torch.cuda.synchronize()
     assert cb.LAUNCHES[k1.BWD_NAME] == before + 2
     p_dw, p_dwo, p_ssum = k1.rpn_level_bwd_plain(feat, w_shared, w_out, cot, t, spike_sum=True)
-    fwd_ssum = k1.rpn_level(feat, w_shared, w_out, t, spike_sum=True)[3]
+    fwd_ssum = k1.rpn_level_train(feat, w_shared, w_out, t, spike_sum=True)[3]
     assert dw.shape == (3, 3, 256, 256) and dwo.shape == (256, 15)
     assert torch.equal(ssum, fwd_ssum) and (t == 1 or float(ssum.max()) > 0)
     flips = int((ssum != p_ssum).sum())
@@ -234,7 +273,8 @@ def test_rpn_head_bwd_kernel_matches_plain(dev, n, h, w, t):
 
 
 def test_rpn_level_train_backward_is_the_kernel(dev):
-    """``RpnLevelTrain`` under autograd: K1's values forward, K7's gradients
+    """``RpnLevelTrain`` under autograd: the training forward's values (and
+    no launch of K1, the evaluation route's kernel), K7's gradients
     backward (the three weights' gradients against the plain version, the
     fused readout's split into ``conv_cls`` and ``conv_bbox``), none for the
     features, no plain version on the card."""
@@ -253,7 +293,8 @@ def test_rpn_level_train_backward_is_the_kernel(dev):
     obj, box, _ = heads.rpn_head_snn_train_apply(params, feats, 8)
     sum((torch.cat([o, b], -1) * c).sum() for o, b, c in zip(obj, box, cots)).backward()
     torch.cuda.synchronize()
-    assert cb.LAUNCHES[k1.NAME] == 2 and cb.LAUNCHES[k1.BWD_NAME] == 2
+    assert cb.LAUNCHES[k1.TRAIN_NAME] == 2 and cb.LAUNCHES[k1.BWD_NAME] == 2
+    assert cb.LAUNCHES[k1.NAME] == 0
     assert all(v == 0 for v in cb.PLAIN_CUDA_CALLS.values())
     assert all(f.grad is None for f in feats)
     w_out, _ = heads._fused_readout(params)
@@ -280,14 +321,14 @@ def test_rpn_head_kernels_wide_readout(dev, n_out):
     w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.02
     w_out = torch.randn((256, n_out), generator=g, device=dev) * 0.05
     cot = torch.randn((n, h, w, n_out), generator=g, device=dev)
-    out, enc, lif, ssum = k1.rpn_level(feat, w_shared, w_out, t, spike_sum=True)
-    p_out, p_enc, p_lif, p_ssum = k1.rpn_level_plain(feat, w_shared, w_out, t, spike_sum=True)
-    assert out.shape == (n, h, w, n_out) and torch.equal(enc, p_enc) and int(p_lif.sum()) > 0
+    want = k1.rpn_level_plain(feat, w_shared, w_out, t, spike_sum=True)
+    _hold_rpn_eval(k1.rpn_level(feat, w_shared, w_out, t, spike_sum=True), want, w_out)
+    # The training forward, whose spikes K7 replays.
+    trained = k1.rpn_level_train(feat, w_shared, w_out, t, spike_sum=True)
+    assert trained[0].shape == (n, h, w, n_out)
+    _hold_rpn_eval(trained, want, w_out)
+    ssum, p_ssum = trained[3], want[3]
     flips = int((ssum != p_ssum).sum())
-    assert flips <= 1e-3 * int(p_lif.sum())
-    if flips:
-        p_out = torch.matmul(ssum, w_out.to(BF).float()).to(BF).float()
-    assert kc.bf16_valued(out) and kc.excess(out, p_out) <= 1
     dw, dwo, r_ssum = k1.rpn_level_bwd(feat, w_shared, w_out, cot, t, spike_sum=True)
     again = k1.rpn_level_bwd(feat, w_shared, w_out, cot, t)
     p_dw, p_dwo, _ = k1.rpn_level_bwd_plain(feat, w_shared, w_out, cot, t, spike_sum=True)
@@ -304,6 +345,8 @@ def test_rpn_head_kernels_wide_readout(dev, n_out):
 @pytest.mark.parametrize("n,h,w,t,n_out", [(2, 3, 45, 8, 15), (4, 5, 17, 4, 15),
                                            (2, 1, 7, 12, 75), (4, 9, 33, 12, 15)])
 def test_rpn_head_x2_kernel_matches_rpn_head_and_plain(dev, n, h, w, t, n_out):
+    """K8 against the training forward (the same device code: equal bits)
+    and against its plain version."""
     g = torch.Generator(device=dev).manual_seed(n * h * w + t)
     feat = (torch.rand((n, h, w, 256), generator=g, device=dev) * 2).to(BF)
     w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.02
@@ -312,7 +355,7 @@ def test_rpn_head_x2_kernel_matches_rpn_head_and_plain(dev, n, h, w, t, n_out):
     out, ssum = k1.rpn_level_x2(feat, w_shared, w_out, t, spike_sum=True)
     torch.cuda.synchronize()
     assert (cb.LAUNCHES[k1.X2_NAME], cb.LAUNCHES[k1.NAME]) == (before[0] + 1, before[1])
-    one = k1.rpn_level(feat, w_shared, w_out, t, spike_sum=True)
+    one = k1.rpn_level_train(feat, w_shared, w_out, t, spike_sum=True)
     assert out.shape == (n, h, w, n_out)
     assert torch.equal(out, one[0]) and torch.equal(ssum, one[3])
     assert torch.equal(k1.rpn_level_x2(feat, w_shared, w_out, t), out)
@@ -394,3 +437,36 @@ def test_kernels_refuse_other_dtypes(dev):
                               "bias": torch.zeros(64, device=dev)}},
                       torch.zeros((1, 8, 8, 3), device=dev, dtype=torch.float64),
                       (0.5, 0.5, 0.5), (0.2, 0.2, 0.2))
+
+
+def test_float32_eval_launches_no_kernel(dev):
+    """float32 evaluation on the card takes the reference's scans and the
+    gather RoIAlign: no kernel launches, no plain version of a kernel runs,
+    and the outputs are finite and well formed."""
+    from snn_automotive_object_detection_tpu_torch.models.detector import detector_apply
+    from snn_automotive_object_detection_tpu_torch.models.factory import (
+        DetectorConfig, init_params)
+    from snn_automotive_object_detection_tpu_torch.models.rpn import RPNConfig
+
+    cfg = DetectorConfig(num_classes=3, t_rpn=3, t_det=3, min_size=64, max_size=128,
+                         rpn=RPNConfig(pre_nms_top_n_test=60, post_nms_top_n_test=20),
+                         compute_dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    n = 2
+    batch = {"images": torch.rand((n, 64, 128, 3), generator=torch.Generator(device=dev)
+                                  .manual_seed(1), device=dev),
+             "image_sizes": torch.tensor([[64, 128]] * n, device=dev),
+             "original_sizes": torch.tensor([[128, 256]] * n, device=dev)}
+    cb.reset_counts()
+    out, losses = detector_apply(params, batch, cfg, collect_rates=True)
+    torch.cuda.synchronize()
+    assert all(v == 0 for v in cb.LAUNCHES.values()), cb.LAUNCHES
+    assert all(v == 0 for v in cb.PLAIN_CUDA_CALLS.values()), cb.PLAIN_CUDA_CALLS
+    assert losses == {}
+    p = cfg.rpn.post_nms_top_n_test
+    assert out["boxes"].shape[0] == n and out["boxes"].shape[1] > p
+    assert out["all_scores"].shape == (n, p, 3) and out["all_boxes"].shape == (n, p, 3, 4)
+    for k in ("boxes", "scores", "proposals", "objectness", "all_scores", "all_boxes"):
+        assert out[k].dtype == torch.float32 and bool(torch.isfinite(out[k]).all()), k
+    assert out["rpn_rates"]["shared"].shape == (5, n)
+    assert bool((out["scores"] >= 0).all() and (out["scores"] <= 1).all())

@@ -5,8 +5,9 @@ Setup of tests/test_parity_e2e.py: 128x256 bucket, T_rpn = T_det = 6,
 scaled so that every spiking layer fires at realistic rates and the class
 scores are well separated. Both stacks get the same weights (the JAX
 ``init_params`` tree, scaled in numpy, through ``utils/weights.py``) and
-the same numpy images; the JAX side runs with the closed-form encoder
-(``fast_encoder=True``) that the port's kernels and plain versions use.
+the same numpy images. In float32 both stacks run the reference's own
+scans (step encoder, LI readout at every step) and the gather RoIAlign:
+the port launches no kernel and runs no kernel's plain version.
 
 Tolerances are test_parity_e2e.py:148-277's: detection scores 1e-4,
 boxes 1e-3 relative / 5e-2 absolute, labels exact; pre-NMS scores 1e-4 /
@@ -28,8 +29,6 @@ convolutions. So the port also runs once on the JAX backbone's own
 features, and from there on every output must agree element by element at
 the same tolerances, with no outlier allowed and spike rates to 1e-6.
 """
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -55,11 +54,6 @@ T_STEPS = 6
 IMG = (128, 256)
 N_IMAGES = 3
 MEAN, STD = (0.2869, 0.3251, 0.2839), (0.1870, 0.1902, 0.1872)
-
-
-@dataclasses.dataclass(frozen=True)
-class FastEncoderConfig(JConfig):
-    fast_encoder: bool = True
 
 
 def _scaled_params(cfg):
@@ -90,7 +84,7 @@ def _scaled_params(cfg):
 
 
 def _run_both():
-    jcfg = FastEncoderConfig(
+    jcfg = JConfig(
         num_classes=5, t_rpn=T_STEPS, t_det=T_STEPS, min_size=IMG[0],
         max_size=IMG[1], image_mean=MEAN, image_std=STD,
         rpn=JRPN(pre_nms_top_n_test=100, post_nms_top_n_test=50),
