@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Time K1 and K5 with parts of them switched off, on one NVIDIA GPU.
+"""Time the ``wgmma`` kernels with parts of them switched off, on one
+NVIDIA GPU.
 
-    python3 chip_diagnose.py
+    python3 chip_diagnose.py            # K1, K5, K3 and K4
+    python3 chip_diagnose.py K3 K4      # only those kernels' variants
 
-Shows what limits the two ``wgmma`` kernels. Each variant below replaces
-lines of ``csrc/rpn_head.cu`` (K1) or ``csrc/fpn_level.cu`` (K5) in a copy
-of ``csrc/`` in a temporary directory (the repository is never edited).
-All variants build at once, one ``nvcc`` each with the package's flags,
-and each is timed with CUDA events (median of 10) at the flagship shapes
+Shows what limits K1, K5, K3 and K4. Each variant below replaces lines of
+``csrc/rpn_head.cu`` (K1), ``csrc/fpn_level.cu`` (K5) or
+``csrc/spike_gemm.cuh`` (the spike-code GEMM of K3 and K4) in a copy of
+``csrc/`` in a temporary directory (the repository is never edited). All
+variants build at once, one ``nvcc`` each with the package's flags, and
+each is timed with CUDA events (median of 10) at the flagship shapes
 through the kernel's C interface, so no wrapper's host work is in the
 times: K1 on the five RPN levels of an image pair at T = 8 with 15 readout
-channels, K5 on C2..C5 with 8-row and with 4-row tiles. A variant with
-the products or the A build switched off computes wrong numbers; only its
-time means anything.
+channels, K5 on C2..C5 with 8-row and with 4-row tiles, K3 on x [2000,
+12544] at T = 12, K4 on cur6 [12, 2000, 1024] with 45 readout columns. A
+variant with the products or the A build switched off computes wrong
+numbers; only its time means anything.
 """
 
 from __future__ import annotations
@@ -44,6 +48,21 @@ K5_NO_PRODUCTS = [
     ("wgmma_ss_n128(acc[mt], da + mt * (64 * kLatK * 2 >> 4) + kk * 2, db + kk * 2);",
      "acc[mt][kk] += (float)((da ^ db) & 1);")]
 
+# The spike-code GEMM (K3, and K4's fc7 and readout): products replaced by
+# a use of A and the descriptor; A built from a constant, not the codes.
+SG_NO_PRODUCTS = [
+    ("for (int kk = 0; kk < kK / 16; ++kk) wgmma_rs<kN>(acc[0], a[0][kk], db + kk * 128);",
+     "for (int kk = 0; kk < kK / 16; ++kk) acc[0][kk] += __uint_as_float("
+     "a[0][kk][0] ^ a[0][kk][1] ^ a[0][kk][2] ^ a[0][kk][3]) + (float)(db & 1);"),
+    ("for (int kk = 0; kk < kK / 16; ++kk) wgmma_rs<kN>(acc[1], a[kMt - 1][kk], db + kk * 128);",
+     "for (int kk = 0; kk < kK / 16; ++kk) acc[1][kk] += __uint_as_float("
+     "a[kMt - 1][kk][0] ^ a[kMt - 1][kk][3]) + (float)(db & 1);")]
+SG_NO_A_BUILD = [
+    ("a[0][kk][i] = ((pair[i] >> t0) & 0x10001u) * 0x3F80u;",
+     "a[0][kk][i] = (uint32_t)(t0 + kk + i);"),
+    ("if constexpr (kMt == 2) a[kMt - 1][kk][i] = ((pair[i] >> t1) & 0x10001u) * 0x3F80u;",
+     "if constexpr (kMt == 2) a[kMt - 1][kk][i] = (uint32_t)(t1 + kk + i);")]
+
 # (kernel, variant, replacements)
 VARIANTS = [
     ("K1", "as built", []),
@@ -57,19 +76,27 @@ VARIANTS = [
     ("K5", "one block per cluster", CLUSTER_OF_ONE),
     ("K5", "no products", K5_NO_PRODUCTS),
     ("K5", "no products, one block per cluster", CLUSTER_OF_ONE + K5_NO_PRODUCTS),
-]
-SOURCE = {"K1": "rpn_head.cu", "K5": "fpn_level.cu"}
+] + [(k, v, subs) for k in ("K3", "K4") for v, subs in (
+    ("as built", []),
+    ("one block per cluster", CLUSTER_OF_ONE),
+    ("no products", SG_NO_PRODUCTS),
+    ("no A build", SG_NO_A_BUILD),
+    ("weight stream only", SG_NO_PRODUCTS + SG_NO_A_BUILD))]
+# (the file the replacements patch, the source built)
+SOURCE = {"K1": ("rpn_head.cu", "rpn_head.cu"), "K5": ("fpn_level.cu", "fpn_level.cu"),
+          "K3": ("spike_gemm.cuh", "encoder_fc6.cu"), "K4": ("spike_gemm.cuh", "box_tail.cu")}
 
 
-def build(tmp: Path):
+def build(tmp: Path, variants):
     """Every variant's library, built in parallel; returns [ctypes.CDLL]."""
     from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
 
     procs = []
-    for i, (kernel, variant, subs) in enumerate(VARIANTS):
+    for i, (kernel, variant, subs) in enumerate(variants):
         src = tmp / f"v{i}"
         shutil.copytree(cb.CSRC_DIR, src)
-        cu = src / SOURCE[kernel]
+        patched, built = SOURCE[kernel]
+        cu = src / patched
         text = cu.read_text()
         for old, new in subs:
             if text.count(old) != 1:
@@ -78,11 +105,12 @@ def build(tmp: Path):
             text = text.replace(old, new)
         cu.write_text(text)
         lib = src / "lib.so"
-        procs.append((subprocess.Popen([cb._nvcc(), *cb.NVCC_FLAGS, "-o", str(lib), str(cu)],
+        procs.append((subprocess.Popen([cb._nvcc(), *cb.NVCC_FLAGS, "-o", str(lib),
+                                        str(src / built)],
                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True), lib))
     libs = []
-    for (kernel, variant, _), (proc, lib) in zip(VARIANTS, procs):
+    for (kernel, variant, _), (proc, lib) in zip(variants, procs):
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"chip_diagnose: {kernel} {variant} does not build:\n{out}")
@@ -101,8 +129,11 @@ def main() -> int:
         return 1
     import chip_smoke
     from snn_automotive_object_detection_tpu_torch.ops import cuda_fpn as k5
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_fc6 as k3
     from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
     from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+
+    chosen = [v for v in VARIANTS if not sys.argv[1:] or v[0] in sys.argv[1:]]
 
     chip_smoke.reference_numerics()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -156,9 +187,48 @@ def main() -> int:
                     p.data_ptr(), None if m is None else m.data_ptr(), n, h, w, cin, rows,
                     stream), "K5")
 
+    # K3: x in the encoder's range; w6 and the thresholds as the wrapper
+    # passes them.
+    x = (torch.rand((2000, 12544), generator=g, device=dev) * 2.5).to(bf)
+    w6 = ((torch.rand((12544, 1024), generator=g, device=dev) * 2 - 1) / 112.0).to(bf)
+    thr = k3._thresholds(12, dev)
+    cur6_f = torch.empty((12, 2000, 1024), device=dev)
+    enc_counts = torch.zeros(2000, dtype=torch.int32, device=dev)
+    x_codes = torch.empty((2000, 12544), dtype=torch.int16, device=dev)
+
+    def k3_run(lib):
+        fn = lib.encoder_fc6_bf16
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        cb.check(fn(x.data_ptr(), w6.data_ptr(), thr.data_ptr(), cur6_f.data_ptr(),
+                    enc_counts.data_ptr(), x_codes.data_ptr(), 2000, 12544, 1024, 12, stream),
+                 "K3")
+
+    # K4: fc6 currents around the LIF threshold, as chip_smoke.check_box_tail.
+    cur6 = (torch.randn((12, 2000, 1024), generator=g, device=dev) * 0.15).to(bf)
+    w7 = ((torch.rand((1024, 1024), generator=g, device=dev) * 2 - 1) / 32.0).to(bf)
+    # The readout padded to 48 columns, as the wrapper pads it.
+    wro = torch.nn.functional.pad((torch.rand((1024, 45), generator=g, device=dev) * 2 - 1)
+                                  / 32.0, (0, 3)).to(bf)
+    logits = torch.empty((2000, 45), device=dev)
+    tail_counts = torch.zeros((2000, 2), dtype=torch.int32, device=dev)
+    codes = torch.empty((2, 2000, 1024), dtype=torch.int16, device=dev)
+
+    def k4_run(lib):
+        fn = lib.box_tail_bf16
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        cb.check(fn(cur6.data_ptr(), w7.data_ptr(), wro.data_ptr(), logits.data_ptr(),
+                    tail_counts.data_ptr(), codes[0].data_ptr(), codes[1].data_ptr(), 2000, 12,
+                    1024, 45, stream), "K4")
+
     with tempfile.TemporaryDirectory() as tmp:
-        libs = build(Path(tmp))
-        for (kernel, variant, _), lib in zip(VARIANTS, libs):
+        libs = build(Path(tmp), chosen)
+        for (kernel, variant, _), lib in zip(chosen, libs):
+            if kernel in ("K3", "K4"):
+                ms = chip_smoke._median_ms(lambda: (k3_run if kernel == "K3" else k4_run)(lib), 10)
+                print(f"{kernel} {variant}: {ms:.3f} ms")
+                continue
             if kernel == "K1":
                 per = [chip_smoke._median_ms(lambda: k1_run(lib, f), 10) for f in feats]
                 print(f"K1 {variant}: P2..P6 " + " / ".join(f"{x:.3f}" for x in per)

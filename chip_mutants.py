@@ -85,6 +85,23 @@ MUTANTS = [
      "box_head_fused.cu", "lif_step(v[j], cu[j], stage[lane + 32 * j]);",
      "lif_step(v[j], cu[j], __bfloat162float(__float2bfloat16_rn(stage[lane + 32 * j])));",
      "check_box_head_fused", "box_head_fused"),
+    ("K3: a w6 stage read from the ring slot before its own (the spike-code GEMM)",
+     "spike_gemm.cuh", "const uint64_t db = desc_mn_sw128(base, RingT::kChunkBytes);",
+     "const uint64_t db = desc_mn_sw128(ring + ((slot + kStages - 1) % kStages) * "
+     "RingT::kSlotBytes, RingT::kChunkBytes);", "check_encoder_fc6", "encoder_fc6"),
+    ("K3: the code's step bit one step late (spikes at t + 1 = p, 2p, ... moved to t + 2)",
+     "encoder_fc6.cu", "for (int k = p; k <= T; k += p) bits |= 1u << (k - 1);",
+     "for (int k = p; k <= T; k += p) bits |= 1u << k;", "check_encoder_fc6", "encoder_fc6"),
+    ("K4: LIF6's last step left out of the scan",
+     "box_tail.cu", "      if (t < T) {\n        const bf16* cv",
+     "      if (t < T - 1) {\n        const bf16* cv", "check_box_tail", "box_tail"),
+    ("K4: LIF7's last step left out of the fc7 epilogue",
+     "spike_gemm.cuh", "for (int t = 0; t < c.T; ++t) {\n      const uint4 raw",
+     "for (int t = 0; t < c.T - 1; ++t) {\n      const uint4 raw", "check_box_tail", "box_tail"),
+    ("K4: the readout's last step left out of the LI epilogue",
+     "spike_gemm.cuh", "for (int t = 0; t < c.T; ++t) {\n        const float cur",
+     "for (int t = 0; t < c.T - 1; ++t) {\n        const float cur", "check_box_tail",
+     "box_tail"),
 ]
 
 # The mutants to run can be named by the kernel their description begins

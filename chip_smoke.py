@@ -24,7 +24,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
                dense bf16 tensor-core and the f32 peak, counting the spikes
                these inputs produce), and for the stem and the FPN the time
                of the unfused cuDNN chain in bf16 on the same inputs (for
-               the FPN level by level too). The RPN head of the evaluation
+               the FPN level by level too); for the box head's encoder +
+               fc6 (K3) and tail (K4), which no single call computes,
+               cuBLAS's time for the dense product alone on materialised
+               spikes (the T R encoder spikes by w6, the fc6 spikes by w7),
+               and K3's dense TFLOP/s. The RPN head of the evaluation
                route (K1) and of the training route (the training forward)
                are held to the plain version with flipped LIF spikes
                counted neuron by neuron, timed in turns, level by level
@@ -133,13 +137,21 @@ def _bound(n_bytes, tensor_ops, f32_ops=0.0):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def _record(results, name, replaces, err, ms, pms, bound, library_ms=None):
+def _record(results, name, replaces, err, ms, pms, bound, library_ms=None,
+            product_only_ms=None):
+    """One kernel's entry of the JSON line. ``library_ms`` is a PyTorch call
+    that computes the kernel's whole function; ``product_only_ms``, where no
+    call does, cuBLAS's time for the kernel's dense product alone on
+    materialised spikes (an extra key)."""
+    extra = {} if product_only_ms is None else {"product_only_ms": product_only_ms}
     results.append(dict(
         name=name, route="cuda",
         source=f"snn_automotive_object_detection_tpu_torch/csrc/{name}.cu",
         replaces=f"snn_automotive_object_detection_tpu/{replaces}",
-        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=library_ms, **bound))
+        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=library_ms, **bound, **extra))
     lib = "" if library_ms is None else f", {library_ms:.3f} ms unfused cuDNN chain in bf16"
+    if product_only_ms is not None:
+        lib += f", {product_only_ms:.3f} ms cuBLAS product only"
     print(f"{name}: {ms:.3f} ms kernel, {pms:.3f} ms plain{lib}; bound "
           f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
           f"({ms / bound['bound_ms']:.1f}x)")
@@ -248,9 +260,6 @@ def check_kernels(dev, results):
 
     from snn_automotive_object_detection_tpu_torch.ops import cuda_roi_align as k2
     from snn_automotive_object_detection_tpu_torch.ops.roi_align import level_geometry
-    from snn_automotive_object_detection_tpu_torch.snn import cuda_fc6 as k3
-    from snn_automotive_object_detection_tpu_torch.snn import cuda_tail as k4
-    from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
 
     g = torch.Generator(device=dev).manual_seed(1234)
     bf = torch.bfloat16
@@ -280,7 +289,25 @@ def check_kernels(dev, results):
     _record(results, "roi_align", "ops/pallas_roi_align.py:309", err, ms, pms,
             _bound(_nbytes(*pooled_feats, boxes, got), 0.0, 32.0 * got.numel()))
 
-    # K3: encoder + fc6, R = 2000 rows of 7*7*256.
+    check_encoder_fc6(dev, g, results)
+    check_box_tail(dev, g, results)
+    check_fpn(dev, g, results)
+    check_stem(dev, g, results)
+    check_rpn_bwd(dev, g, results)
+    check_wide_readout(dev, g, results)
+    check_rpn_x2(dev, g, results)
+    check_box_head_fused(dev, g, results)
+
+
+def check_encoder_fc6(dev, g, results):
+    """K3: encoder + fc6 on R = 2000 rows of 7*7*256, T = 12, against its
+    plain version; timed beside cuBLAS's product alone on materialised
+    spikes."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_fc6 as k3
+
+    bf = torch.bfloat16
     x = (torch.rand((2000, 12544), generator=g, device=dev) * 2.5).to(bf)
     w6 = ((torch.rand((12544, 1024), generator=g, device=dev) * 2 - 1)
           / 112.0).to(bf).contiguous()
@@ -295,11 +322,32 @@ def check_kernels(dev, results):
         _fail("K3 disagrees with its plain version")
     ms = _median_ms(lambda: k3._launch(x, w6, 12), 10)
     pms = _median_ms(lambda: k3.encoder_fc6_plain(x, w6, 12), 3)
+    # No single call computes the kernel's function; cuBLAS's product of
+    # the materialised [T R, 12544] encoder spikes by w6 is its dense part.
+    codes, _ = k3.encoder_codes_plain(x, 12)
+    z = torch.cat([((codes >> t) & 1).to(bf) for t in range(12)])
+    del codes
+    product_ms = _median_ms(lambda: torch.matmul(z, w6), 10)
+    del z
+    dense = 2.0 * 12 * 2000 * 12544 * 1024
+    print(f"K3 encoder_fc6: {dense / ms / 1e9:.1f} dense TFLOP/s; cuBLAS product only "
+          f"(materialised spikes x w6, bf16) {product_ms:.3f} ms")
     # A sparse product adds one 1024-wide w6 row for each encoder spike.
     _record(results, "encoder_fc6", "snn/pallas_fc6.py:227", err, ms, pms,
-            _bound(_nbytes(x, w6, got, cnt_k), 2.0 * cnt_p.sum().item() * 1024))
+            _bound(_nbytes(x, w6, got, cnt_k), 2.0 * cnt_p.sum().item() * 1024),
+            product_only_ms=product_ms)
 
-    # K4: box-head tail on bf16 fc6 currents around the LIF threshold.
+
+def check_box_tail(dev, g, results):
+    """K4: the box-head tail on bf16 fc6 currents around the LIF threshold,
+    R = 2000, T = 12, 9 classes, against its plain version; timed beside
+    cuBLAS's fc7 product alone on materialised fc6 spikes."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_tail as k4
+    from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
+
+    bf = torch.bfloat16
     cur6 = (torch.randn((12, 2000, 1024), generator=g, device=dev) * 0.15).to(bf)
     w7 = ((torch.rand((1024, 1024), generator=g, device=dev) * 2 - 1) / 32.0)
     wc = ((torch.rand((1024, 9), generator=g, device=dev) * 2 - 1) / 32.0)
@@ -323,19 +371,19 @@ def check_kernels(dev, results):
         _fail("K4 disagrees with its plain version")
     ms = _median_ms(lambda: k4._launch(cur6, w7b, wro, 9), 10)
     pms = _median_ms(lambda: k4.box_tail_plain(cur6, w7, wc, wb), 5)
+    codes6, _ = k4.lif6_codes_plain(cur6)
+    s6 = torch.cat([((codes6 >> t) & 1).to(bf) for t in range(12)])
+    product_ms = _median_ms(lambda: torch.matmul(s6, w7b), 10)
+    print(f"K4 box_tail: cuBLAS product only (materialised fc6 spikes x w7, bf16) "
+          f"{product_ms:.3f} ms")
     # fc7 adds one 1024-wide row for each fc6 spike and the readout one
     # 45-wide row for each fc7 spike; two LIF layers and the LI readout take
     # about 10 f32 operations per neuron and step.
     _record(results, "box_tail", "snn/pallas_tail.py:241", err, ms, pms,
             _bound(_nbytes(cur6, w7b, wro, *got),
                    2.0 * want[2].sum().item() * 1024 + 2.0 * want[3].sum().item() * 45,
-                   10.0 * 12 * 2000 * (2 * 1024 + 45)))
-    check_fpn(dev, g, results)
-    check_stem(dev, g, results)
-    check_rpn_bwd(dev, g, results)
-    check_wide_readout(dev, g, results)
-    check_rpn_x2(dev, g, results)
-    check_box_head_fused(dev, g, results)
+                   10.0 * 12 * 2000 * (2 * 1024 + 45)),
+            product_only_ms=product_ms)
 
 
 def check_fpn(dev, g, results):

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the kernels written for warpgroup
-// matrix multiplies (fpn_level.cu, rpn_head.cu): mbarriers, TMA tile loads
+// matrix multiplies (fpn_level.cu, rpn_head.cu, and through spike_gemm.cuh
+// encoder_fc6.cu and box_tail.cu): mbarriers, TMA tile loads
 // (multicast to a thread-block cluster too), the wgmma descriptors and
 // instructions, register reallocation between warpgroups, named and
 // cluster barriers, and on the host the encoding of a tensor map and the
@@ -10,7 +11,10 @@
 // swizzle; both are the K-major layouts wgmma reads through a descriptor
 // (8-row atoms of 1024 B or 512 B, which must start 1024-byte aligned).
 // A k16 step inside a row advances the descriptor's address by 32 B; a
-// 64-row (or 128-row) offset along M or N advances it by whole atoms.
+// 64-row (or 128-row) offset along M or N advances it by whole atoms. The
+// same box with N innermost ([K][N] in memory, MN-major) is what wgmma
+// reads with its transpose bit set (desc_mn_sw128): there a k16 step is two
+// atoms, 2048 B.
 //
 // Register fragments. For wgmma with A in registers, warp w of the
 // warpgroup supplies rows 16w .. 16w + 15 in the m16n8k16 A layout of
@@ -100,6 +104,16 @@ __device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorM
       : "memory");
 }
 
+// A tile into this block's shared memory only.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -151,6 +165,14 @@ __device__ __forceinline__ void fence_regs(float (&d)[kN]) {
 // or the 64-byte swizzle (rows of 32 bf16) starting at p.
 __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// Descriptor of an MN-major tile with the 128-byte swizzle: rows of 64
+// bf16 along N (128 B) for consecutive k, 8-row atoms of 1024 B along K,
+// and `lbo` bytes from one 64-wide N chunk to the next.
+__device__ __forceinline__ uint64_t desc_mn_sw128(const void* p, uint32_t lbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         (64ull << 32) | (1ull << 62);
 }
 
 __device__ __forceinline__ uint64_t desc_sw64(const void* p) {
@@ -209,6 +231,42 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D[64 x 128] += A[64 x 16] (registers) x B[16 x 128] (shared memory, MN-major:
+// B stored [K][N], the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] (registers) x B[16 x 64] (shared memory, MN-major:
+// B stored [K][N], the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // D[64 x 128] += A[64 x 16] x B[16 x 128], both in shared memory, K-major.
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
                                              uint64_t desc_b) {
@@ -233,10 +291,11 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
 // ---- host: tensor maps and cluster launches
 namespace hopper_host {
 
-// Launches `kernel` with clusters of `cluster_y` blocks along grid y.
+// Launches `kernel` with clusters of `cluster_x` x `cluster_y` blocks.
 template <typename... Params, typename... Args>
-cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid, int threads, int smem,
-                             int cluster_y, cudaStream_t stream, Args... args) {
+cudaError_t launch_clustered_xy(void (*kernel)(Params...), dim3 grid, int threads, int smem,
+                                int cluster_x, int cluster_y, cudaStream_t stream,
+                                Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(threads, 1, 1);
@@ -244,12 +303,19 @@ cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid, int threads, 
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.x = cluster_x;
   attr[0].val.clusterDim.y = cluster_y;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// Launches `kernel` with clusters of `cluster_y` blocks along grid y.
+template <typename... Params, typename... Args>
+cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid, int threads, int smem,
+                             int cluster_y, cudaStream_t stream, Args... args) {
+  return launch_clustered_xy(kernel, grid, threads, smem, 1, cluster_y, stream, args...);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -273,11 +339,11 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dims (innermost first, contiguous) read in boxes
-// of `box`; coordinates outside the tensor read as zeros. Returns false
-// when the map cannot be made.
-inline bool bf16_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                     const uint32_t* box, CUtensorMapSwizzle swizzle) {
+// A tensor of 16-bit elements (bf16, or uint16 codes) of `rank` dims
+// (innermost first, contiguous) read in boxes of `box`; coordinates outside
+// the tensor read as zeros. Returns false when the map cannot be made.
+inline bool map_16bit(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                      const uint64_t* dims, const uint32_t* box, CUtensorMapSwizzle swizzle) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   cuuint64_t gdim[5], gstride[4];
@@ -290,10 +356,14 @@ inline bool bf16_map(CUtensorMap* map, const void* base, int rank, const uint64_
     if (i > 0) gstride[i - 1] = stride;
     stride *= dims[i];
   }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), gdim, gstride,
-            bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, type, rank, const_cast<void*>(base), gdim, gstride, bdim, estride,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool bf16_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                     const uint32_t* box, CUtensorMapSwizzle swizzle) {
+  return map_16bit(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, box, swizzle);
 }
 
 }  // namespace hopper_host

@@ -5,6 +5,12 @@ Shapes are the JAX kernel tests' (tests/test_pallas_fc6.py,
 tests/test_pallas_tail.py): d_in 512, rep 128, 6 classes, rows not a
 multiple of 128.
 
+The kernels' passes have plain versions of their own: K3's code pass
+(``encoder_codes_plain``, spike trains as codes plus counts) is held to the
+threshold count of ``encoder_fc6_pallas``, and K4's three passes
+(``lif6_codes_plain``, ``fc7_lif_codes_plain``, ``readout_plain``) compose
+to ``box_tail_plain`` bit for bit and through it to ``box_tail_pallas``.
+
 Tolerances:
   * encoder spike counts: exact (integer functions of the input).
   * fc6 currents: 1e-5 absolute in f32 and bf16 (the same 0/1 x weight
@@ -26,6 +32,7 @@ from snn_automotive_object_detection_tpu.models import heads as jheads
 from snn_automotive_object_detection_tpu.snn.pallas_fc6 import encoder_fc6_pallas
 from snn_automotive_object_detection_tpu.snn.pallas_tail import box_tail_pallas
 from snn_automotive_object_detection_tpu_torch.models import heads as theads
+from snn_automotive_object_detection_tpu_torch.snn import cuda_fc6, cuda_tail
 from snn_automotive_object_detection_tpu_torch.snn.cuda_fc6 import encoder_fc6
 from snn_automotive_object_detection_tpu_torch.snn.cuda_tail import box_tail
 from snn_automotive_object_detection_tpu_torch.utils.weights import from_numpy_tree
@@ -52,6 +59,56 @@ def test_encoder_fc6_matches_pallas(head, t, dtype):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
     np.testing.assert_array_equal(cnt.numpy(), np.asarray(want_cnt).astype(np.int64))
     assert cnt.sum() > 0
+
+
+@pytest.mark.parametrize("t,rep", [(4, 128), (12, 128), (12, 1024)])
+def test_encoder_codes_match_pallas_threshold_count(t, rep):
+    """K3's code pass: the codes' spike counts equal the Pallas kernel's
+    encoder counts, and the spikes they encode times w6 give its currents."""
+    rng = np.random.default_rng(40 + t + rep)
+    x = rng.uniform(0, 2.5, (40, 512)).astype(np.float32)
+    w6 = (rng.uniform(-1, 1, (512, rep)) / 22.0).astype(np.float32)
+    want, want_cnt = encoder_fc6_pallas(jnp.asarray(x), jnp.asarray(w6), t,
+                                        state_dtype=jnp.float32, interpret=True,
+                                        collect_rates=True)
+    codes, cnt = cuda_fc6.encoder_codes_plain(torch.from_numpy(x), t)
+    assert codes.shape == (40, 512) and int(codes.max()) < 2 ** t
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(want_cnt).astype(np.int64))
+    assert cnt.sum() > 0
+    cur6 = np.stack([((codes >> s) & 1).float().numpy() @ w6 for s in range(t)])
+    np.testing.assert_allclose(cur6, np.asarray(want), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("t,rep,dtype", [(4, 128, "bfloat16"), (12, 128, "bfloat16"),
+                                         (12, 1024, "bfloat16"), (12, 128, "float32")])
+def test_box_tail_passes_compose_to_plain_and_pallas(t, rep, dtype):
+    """K4's three passes, each through its plain version, give
+    box_tail_plain's bits; and, as box_tail_plain does, the Pallas tail's
+    logits and fc6 counts (fc7 within the flips of one-ulp currents)."""
+    rng = np.random.default_rng(t + rep)
+    r = 40
+    cur6 = rng.normal(0.0, 0.4, (t, r, rep)).astype(np.float32)
+    w7 = (rng.uniform(-1, 1, (rep, rep)) * 8.0 / rep ** 0.5).astype(np.float32)
+    wc = (rng.uniform(-1, 1, (rep, 6)) / rep ** 0.5).astype(np.float32)
+    wb = (rng.uniform(-1, 1, (rep, 24)) / rep ** 0.5).astype(np.float32)
+    td = getattr(torch, dtype)
+    tcur = torch.from_numpy(cur6).to(td)
+    tw = [torch.from_numpy(w) for w in (w7, wc, wb)]
+    codes6, c6 = cuda_tail.lif6_codes_plain(tcur)
+    codes7, c7 = cuda_tail.fc7_lif_codes_plain(codes6, tw[0], t, td)
+    cls, box = cuda_tail.readout_plain(codes7, tw[1], tw[2], t, td)
+    want = cuda_tail.box_tail_plain(tcur, *tw)
+    for a, b in zip((cls, box, c6, c7), want):
+        assert torch.equal(a, b)
+    assert int(c7.sum()) > 0 and int(codes6.max()) < 2 ** t
+    if dtype == "bfloat16":
+        k_c, k_b, k_6, k_7 = box_tail_pallas(jnp.asarray(cur6).astype(jnp.bfloat16),
+                                             *map(jnp.asarray, (w7, wc, wb)), t,
+                                             collect_rates=True, interpret=True)
+        np.testing.assert_allclose(cls.numpy(), np.asarray(k_c), atol=0.05)
+        np.testing.assert_allclose(box.numpy(), np.asarray(k_b), atol=0.05)
+        assert _flips(c6, k_6) == 0
+        assert _flips(c7, k_7) <= 0.01 * float(c7.sum())
 
 
 def _flips(a, b):

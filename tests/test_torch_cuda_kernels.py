@@ -150,29 +150,45 @@ def test_roi_align_kernel_matches_plain(dev):
     assert float((out - want).abs().max()) <= 1e-5
 
 
-@pytest.mark.parametrize("r,t", [(150, 12), (32, 4), (7, 1)])
-def test_encoder_fc6_kernel_matches_plain(dev, r, t):
-    g = torch.Generator(device=dev).manual_seed(r + t)
-    x = (torch.rand((r, 512), generator=g, device=dev) * 2.5).to(BF)
-    w6 = ((torch.rand((512, 128), generator=g, device=dev) * 2 - 1) / 22.0).to(BF)
+# K3 and K4 run 16 RoI rows per block and pair consecutive row tiles in a
+# cluster: R at a tile's edges (1, 15, 16, 17), odd counts of row tiles (1,
+# 3 and 125 tiles: the last cluster's partner is a padded tile), T from 1 to
+# 16 (one to four m-tiles of 4 steps, T = 10 ending inside one), one and
+# two column tiles, and the flagship D = 12544.
+@pytest.mark.parametrize("r,d,rep,t", [(150, 512, 128, 12), (32, 512, 128, 4), (7, 512, 128, 1),
+                                       (1, 512, 128, 1), (15, 512, 256, 4),
+                                       (16, 512, 128, 10), (17, 512, 256, 12),
+                                       (48, 512, 128, 16), (2000, 512, 128, 12),
+                                       (40, 12544, 1024, 12)])
+def test_encoder_fc6_kernel_matches_plain(dev, r, d, rep, t):
+    g = torch.Generator(device=dev).manual_seed(r + t + d)
+    x = (torch.rand((r, d), generator=g, device=dev) * 2.5).to(BF)
+    w6 = ((torch.rand((d, rep), generator=g, device=dev) * 2 - 1) / d ** 0.5).to(BF)
     cur6, cnt = k3.encoder_fc6(x, w6, t)
     want, want_cnt = k3.encoder_fc6_plain(x, w6, t)
-    assert cur6.shape == (t, r, 128)
+    assert cur6.shape == (t, r, rep)
     assert torch.equal(cnt, want_cnt) and int(cnt.sum()) > 0
     assert float((cur6 - want).abs().max()) <= 1e-3
 
 
-@pytest.mark.parametrize("r,t", [(203, 12), (8, 10), (3, 8)])
-def test_box_tail_kernel_matches_plain(dev, r, t):
-    g = torch.Generator(device=dev).manual_seed(r * t)
-    cur6 = (torch.randn((t, r, 1024), generator=g, device=dev) * 0.15).to(BF)
+# The same row tiles and steps for K4, and a readout of 16 classes (80
+# columns, two n64 column tiles). LIF7 cannot spike before step 2 (each
+# layer takes its input one step late), so T = 1 has no fc7 spike; below 8
+# steps the fc6 currents are larger so that both layers spike.
+@pytest.mark.parametrize("r,t,n_cls", [(203, 12, 9), (8, 10, 9), (3, 8, 9), (1, 1, 9),
+                                       (15, 4, 9), (16, 10, 9), (17, 12, 9), (48, 16, 9),
+                                       (2000, 12, 9), (33, 12, 16)])
+def test_box_tail_kernel_matches_plain(dev, r, t, n_cls):
+    g = torch.Generator(device=dev).manual_seed(r * t + n_cls)
+    scale = 0.15 if t >= 8 else 2.0
+    cur6 = (torch.randn((t, r, 1024), generator=g, device=dev) * scale).to(BF)
     w7 = (torch.rand((1024, 1024), generator=g, device=dev) * 2 - 1) / 32.0
-    wc = (torch.rand((1024, 9), generator=g, device=dev) * 2 - 1) / 32.0
-    wb = (torch.rand((1024, 36), generator=g, device=dev) * 2 - 1) / 32.0
+    wc = (torch.rand((1024, n_cls), generator=g, device=dev) * 2 - 1) / 32.0
+    wb = (torch.rand((1024, 4 * n_cls), generator=g, device=dev) * 2 - 1) / 32.0
     cls, box, c6, c7 = k4.box_tail(cur6, w7, wc, wb)
     p_cls, p_box, p6, p7 = k4.box_tail_plain(cur6, w7, wc, wb)
-    assert cls.shape == (r, 9) and box.shape == (r, 36)
-    assert torch.equal(c6, p6) and int(p7.sum()) > 0
+    assert cls.shape == (r, n_cls) and box.shape == (r, 4 * n_cls)
+    assert torch.equal(c6, p6) and (int(p7.sum()) > 0 or t < 3)
     assert int((c7 - p7).abs().sum()) <= 1e-3 * int(p7.sum()) + 1
     assert kc.excess(cls, p_cls) <= 1
     assert kc.excess(box, p_box) <= 1
@@ -420,6 +436,16 @@ def test_kernels_refuse_other_dtypes(dev):
                         torch.zeros((256, 15), device=dev), 4)
     with pytest.raises(TypeError):
         k3.encoder_fc6(torch.zeros((4, 64), device=dev), torch.zeros((64, 64), device=dev), 4)
+    # K3 and K4 take whole weight stages (64 deep, 128 wide) and T <= 16.
+    for d, rep, t in ((96, 128, 4), (64, 64, 4), (64, 128, 17)):
+        with pytest.raises(ValueError):
+            k3.encoder_fc6(torch.zeros((4, d), device=dev, dtype=BF),
+                           torch.zeros((d, rep), device=dev, dtype=BF), t)
+    for rep, t in ((192, 4), (1024, 17)):
+        with pytest.raises(ValueError):
+            k4.box_tail(torch.zeros((t, 2, rep), device=dev, dtype=BF),
+                        torch.zeros((rep, rep), device=dev), torch.zeros((rep, 9), device=dev),
+                        torch.zeros((rep, 36), device=dev))
     with pytest.raises(TypeError):
         k9.fastrcnn_snn_cuda(torch.zeros((4, 64), device=dev, dtype=torch.int32),
                              torch.zeros((64, 1024), device=dev),
