@@ -2,19 +2,22 @@
 """Time the ``wgmma`` kernels with parts of them switched off, on one
 NVIDIA GPU.
 
-    python3 chip_diagnose.py            # K1, K5, K3 and K4
+    python3 chip_diagnose.py            # K1, K5, K3, K4 and K7
     python3 chip_diagnose.py K3 K4      # only those kernels' variants
 
-Shows what limits K1, K5, K3 and K4. Each variant below replaces lines of
-``csrc/rpn_head.cu`` (K1), ``csrc/fpn_level.cu`` (K5) or
-``csrc/spike_gemm.cuh`` (the spike-code GEMM of K3 and K4) in a copy of
+Shows what limits K1, K5, K3, K4 and K7's weight gradient. Each variant
+below replaces lines of ``csrc/rpn_head.cu`` (K1), ``csrc/fpn_level.cu``
+(K5), ``csrc/spike_gemm.cuh`` (the spike-code GEMM of K3 and K4) or
+``csrc/rpn_head_bwd.cu`` (K7) in a copy of
 ``csrc/`` in a temporary directory (the repository is never edited). All
 variants build at once, one ``nvcc`` each with the package's flags, and
 each is timed with CUDA events (median of 10) at the flagship shapes
 through the kernel's C interface, so no wrapper's host work is in the
 times: K1 on the five RPN levels of an image pair at T = 8 with 15 readout
 channels, K5 on C2..C5 with 8-row and with 4-row tiles, K3 on x [2000,
-12544] at T = 12, K4 on cur6 [12, 2000, 1024] with 45 readout columns. A
+12544] at T = 12, K4 on cur6 [12, 2000, 1024] with 45 readout columns, K7's
+weight gradient alone (its C interface with only that phase) on random dc
+planes and period maps of the five levels at T = 8. A
 variant with the products or the A build switched off computes wrong
 numbers; only its time means anything.
 """
@@ -63,6 +66,17 @@ SG_NO_A_BUILD = [
     ("if constexpr (kMt == 2) a[kMt - 1][kk][i] = ((pair[i] >> t1) & 0x10001u) * 0x3F80u;",
      "if constexpr (kMt == 2) a[kMt - 1][kk][i] = (uint32_t)(t1 + kk + i);")]
 
+# K7's weight gradient: products replaced by a use of A and the
+# descriptor; A built from the step masks, not the period bytes.
+K7_NO_PRODUCTS = [
+    ("for (int kk = 0; kk < kK / 16; ++kk) wgmma_rs_n256_tb(acc, a[kk], db + kk * 128);",
+     "for (int kk = 0; kk < kK / 16; ++kk) acc[kk] += __uint_as_float("
+     "a[kk][0] ^ a[kk][1] ^ a[kk][2] ^ a[kk][3]) + (float)(db & 1);")]
+K7_NO_A_BUILD = [
+    ("a[kk][2 * h] = spike_pair(q[0], lo[j], hi[j]);", "a[kk][2 * h] = (uint32_t)lo[j] + kk;"),
+    ("a[kk][2 * h + 1] = spike_pair(q[8], lo[j], hi[j]);",
+     "a[kk][2 * h + 1] = (uint32_t)hi[j] + h;")]
+
 # (kernel, variant, replacements)
 VARIANTS = [
     ("K1", "as built", []),
@@ -81,10 +95,15 @@ VARIANTS = [
     ("one block per cluster", CLUSTER_OF_ONE),
     ("no products", SG_NO_PRODUCTS),
     ("no A build", SG_NO_A_BUILD),
-    ("weight stream only", SG_NO_PRODUCTS + SG_NO_A_BUILD))]
+    ("weight stream only", SG_NO_PRODUCTS + SG_NO_A_BUILD))] + [
+    ("K7", "as built", []),
+    ("K7", "no products", K7_NO_PRODUCTS),
+    ("K7", "no A build", K7_NO_A_BUILD),
+    ("K7", "dc stream only", K7_NO_PRODUCTS + K7_NO_A_BUILD)]
 # (the file the replacements patch, the source built)
 SOURCE = {"K1": ("rpn_head.cu", "rpn_head.cu"), "K5": ("fpn_level.cu", "fpn_level.cu"),
-          "K3": ("spike_gemm.cuh", "encoder_fc6.cu"), "K4": ("spike_gemm.cuh", "box_tail.cu")}
+          "K3": ("spike_gemm.cuh", "encoder_fc6.cu"), "K4": ("spike_gemm.cuh", "box_tail.cu"),
+          "K7": ("rpn_head_bwd.cu", "rpn_head_bwd.cu")}
 
 
 def build(tmp: Path, variants):
@@ -222,9 +241,36 @@ def main() -> int:
                     tail_counts.data_ptr(), codes[0].data_ptr(), codes[1].data_ptr(), 2000, 12,
                     1024, 45, stream), "K4")
 
+    # K7's weight gradient: dc planes of the size K1 saves at T = 8 and
+    # period maps of 1 .. T + 1, five levels.
+    dcs = [(torch.randn((2, h, w, 8, 256), generator=g, device=dev) * 1e-3).to(bf)
+           for h, w in levels]
+    pers = [torch.randint(1, 10, (2, h, w, 256), generator=g, device=dev).to(torch.uint8)
+            for h, w in levels]
+    dw9 = torch.empty((9, 256, 256), device=dev)
+
+    def k7_run(lib, i):
+        n, h, w, t, c = dcs[i].shape
+        s9 = k1._splits(n * h * (-(-w // 8)), k1.DW9_SPLITS)
+        part9 = torch.empty((s9, 9, c, c), device=dev)
+        counters = torch.zeros(18, dtype=torch.int32, device=dev)
+        fn = lib.rpn_level_bwd_bf16
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        cb.check(fn(dcs[i].data_ptr(), pers[i].data_ptr(), None, wout.data_ptr(),
+                    consts.data_ptr(), None, None, part9.data_ptr(), None,
+                    counters.data_ptr(), dw9.data_ptr(), None, n, h, w, t, 15, s9, 1, 2,
+                    stream), "K7")
+
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(Path(tmp), chosen)
         for (kernel, variant, _), lib in zip(chosen, libs):
+            if kernel == "K7":
+                per = [chip_smoke._median_ms(lambda: k7_run(lib, i), 10)
+                       for i in range(len(levels))]
+                print(f"K7 weight gradient {variant}: P2..P6 " + " / ".join(f"{x:.3f}" for x in per)
+                      + f" ms, five levels {sum(per):.3f} ms")
+                continue
             if kernel in ("K3", "K4"):
                 ms = chip_smoke._median_ms(lambda: (k3_run if kernel == "K3" else k4_run)(lib), 10)
                 print(f"{kernel} {variant}: {ms:.3f} ms")

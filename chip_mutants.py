@@ -23,6 +23,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PKG = "snn_automotive_object_detection_tpu_torch"
 
+# The card tests that reach K7.
+K7_TESTS = "rpn_head_bwd or train_backward or wide_readout"
+
 # (name, source under csrc/, the line as it stands, the broken line,
 #  chip_smoke phase, pytest -k expression)
 MUTANTS = [
@@ -58,23 +61,33 @@ MUTANTS = [
      "rpn_head.cu", "const uint64_t db = desc_sw128(ring + slot * kSlotBytes);",
      "const uint64_t db = desc_sw128(ring + ((slot + kStages - 1) % kStages) * kSlotBytes);",
      "check_rpn_head", "test_rpn_head_kernel_matches_plain"),
-    ("K7: the last reverse step (t = 0) left out",
-     "rpn_head_bwd.cu", "for (int t = T - 1; t >= 0; --t) {", "for (int t = T - 1; t >= 1; --t) {",
-     "check_rpn_bwd", "rpn_head_bwd or rpn_level_train"),
+    ("K7: the last reverse step (t = 0) left out of the sweep",
+     "rpn_head_bwd.cu", "for (int t = kTMax - 1; t >= 0; --t) {",
+     "for (int t = kTMax - 1; t >= 1; --t) {", "check_rpn_bwd", K7_TESTS),
     ("K7: the reset's gate (1 - s_t) left out of the reverse step",
      "rpn_head_bwd.cu", "const float keep = (u > 0.0f) ? 0.0f : 1.0f;     // 1 - s_t",
-     "const float keep = 1.0f;", "check_rpn_bwd", "rpn_head_bwd or rpn_level_train"),
+     "const float keep = 1.0f;", "check_rpn_bwd", K7_TESTS),
     ("K7: the weight gradient's spikes shifted against the tap (x mirrored)",
-     "rpn_head_bwd.cu", "const int gx = x0 + px + dx;", "const int gx = x0 + px - dx;",
-     "check_rpn_bwd", "rpn_head_bwd or rpn_level_train"),
+     "rpn_head_bwd.cu", "x0 + dx, y + dy, n);", "x0 - dx, y + dy, n);",
+     "check_rpn_bwd", K7_TESTS),
     ("K7: the first split's partial left out of the fixed-order sum",
      "rpn_head_bwd.cu", "for (int sp = 0; sp < S; ++sp) {", "for (int sp = 1; sp < S; ++sp) {",
-     "check_rpn_bwd", "rpn_head_bwd or rpn_level_train"),
+     "check_rpn_bwd", K7_TESTS),
+    ("K7: the weight gradient's tap shift without its row (dy dropped)",
+     "rpn_head_bwd.cu", "x0 + dx, y + dy, n);", "x0 + dx, y, n);",
+     "check_rpn_bwd", K7_TESTS),
+    ("K7: the sweep's gw without the last readout channel",
+     "rpn_head_bwd.cu", "for (int j = 0; j < n_out; ++j) {\n      const float gv",
+     "for (int j = 0; j < n_out - 1; ++j) {\n      const float gv",
+     "check_rpn_bwd", K7_TESTS),
+    ("K7: K1's training instance stores each chunk's currents one step off (rotated)",
+     "rpn_head.cu", "* T + chunk * kChunk + sl) * kC +",
+     "* T + chunk * kChunk + (sl + 1) % steps) * kC +",
+     "check_rpn_bwd", K7_TESTS + " or rpn_head_kernel_matches_plain"),
     ("K8: the second image's spikes taken from the first image's halo",
      "rpn_head_x2.cu", "const int col0 = img * G::kHw;", "const int col0 = 0;",
      "check_rpn_x2", "rpn_head_x2"),
-    ("K8: a tap-weight stage read one trip of the ring late (shared with the training "
-     "forward and K7)",
+    ("K8: a tap-weight stage read one trip of the ring late",
      "rpn_head_common.cuh", "sm.ring + (st % kStages) * (kStageRows * kLdw) + cg * 32;",
      "sm.ring + ((st + kStages - 1) % kStages) * (kStageRows * kLdw) + cg * 32;",
      "check_rpn_x2", "rpn_head_x2"),

@@ -1,8 +1,11 @@
 // Spiking RPN head, one FPN level, all T steps, for Hopper (bf16 planes,
-// f32 neuron states): the evaluation route.
+// f32 neuron states): the evaluation route, and in a training instance the
+// forward of the training route.
 //
 // Replaces the TPU kernel snn/pallas_rpn.py (_rpn_level_kernel, launched by
-// _run_level for rpn_head_snn_pallas_apply). Per level and step t:
+// _run_level for rpn_head_snn_pallas_apply and, as the forward of the
+// custom VJP _level_train, for rpn_head_snn_pallas_train_apply). Per level
+// and step t:
 //   z_t   = encoder spikes, from the closed-form period
 //           p = 1 + sum_m [x * (1 - a^m) <= 0.25]: z_t = ((t + 1) % p == 0)
 //   cur_t = bf16(conv3x3(z_t, w9))            (bias-free, zero padding)
@@ -41,16 +44,22 @@
 // lif_element rounds first, and staged in shared memory as [step][pixel]
 // [channel]; then each consumer thread runs the LIF recurrence of one
 // channel of the 16 pixels over the chunk's steps with f32 state in
-// registers, through lif_element of rpn_head_common.cuh, so the neuron
-// arithmetic is the training forward's operation for operation. The LI-
-// weighted spike sum then goes through shared memory into the readout (up
-// to 128 channels) in the training forward's order. Spike counts are exact
-// 64-bit integers; the encoder's are floor(T / p) per element.
+// registers, through lif_element of rpn_head_common.cuh. The LI-weighted
+// spike sum then goes through shared memory into the readout (up to 128
+// channels). Spike counts are exact 64-bit integers; the encoder's are
+// floor(T / p) per element.
 //
-// The sums of the conv run in another order than the training forward's
-// (rpn_head_train.cu), so a current can round to the neighbouring bf16
-// value and, rarely, flip a spike: the checks count such neurons through
-// the spike-sum output.
+// Training instance (template flag kSave, C entry rpn_level_save_bf16):
+// the same code, which also stores what the backward (rpn_head_bwd.cu)
+// needs in place of a replay of the conv: each chunk's staged bf16
+// currents as cur [N, H, W, T, 256] (16-byte stores along the channels,
+// the pixel's T x 256 block contiguous), the block's own periods as
+// per [N, H, W, 256] uint8 and the spike sums. Its readout, counts and
+// spike sums are the evaluation instance's bits.
+//
+// The plain version sums the conv in another order, so a current can
+// round to the neighbouring bf16 value and, rarely, flip a spike: the
+// checks count such neurons through the spike-sum output.
 
 #include "hopper.cuh"
 #include "rpn_head_common.cuh"
@@ -103,15 +112,18 @@ __device__ __forceinline__ uint32_t spike_pair(uint32_t pp, unsigned long long m
   return b0 * 0x3F80u | b1 * 0x3F800000u;
 }
 
+template <bool kSave>
 __global__ void __launch_bounds__(kThreads, 1)
-rpn_eval_kernel(const __grid_constant__ CUtensorMap map_w9,  // w9 [9 * 256 out, 256 in]
-                const bf16* __restrict__ feat,     // [N, H, W, C]
-                const bf16* __restrict__ wout,     // [C, n_out]
-                const float* __restrict__ consts,  // thr[T], li[T]
-                float* __restrict__ out,           // [N, H, W, n_out]
-                unsigned long long* __restrict__ counts,  // [N, 2] enc, lif
-                float* __restrict__ ssum_out,      // [N, H, W, C] or null
-                int H, int W, int T, int n_out) {
+rpn_level_kernel(const __grid_constant__ CUtensorMap map_w9,  // w9 [9 * 256 out, 256 in]
+                 const bf16* __restrict__ feat,     // [N, H, W, C]
+                 const bf16* __restrict__ wout,     // [C, n_out]
+                 const float* __restrict__ consts,  // thr[T], li[T]
+                 float* __restrict__ out,           // [N, H, W, n_out]
+                 unsigned long long* __restrict__ counts,  // [N, 2] enc, lif
+                 float* __restrict__ ssum_out,      // [N, H, W, C]; null: none (kSave: never)
+                 bf16* __restrict__ cur_out,        // kSave: [N, H, W, T, C]
+                 uint8_t* __restrict__ per_out,     // kSave: [N, H, W, C]
+                 int H, int W, int T, int n_out) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -205,6 +217,15 @@ rpn_eval_kernel(const __grid_constant__ CUtensorMap map_w9,  // w9 [9 * 256 out,
           *reinterpret_cast<const uint2*>(p8);
     }
     named_bar(1, 256);
+    if constexpr (kSave) {
+      // The block's own periods (halo row 1, columns 1 .. 16), 16 bytes a thread.
+      const int px = tid >> 4;
+      const int c16 = (tid & 15) * 16;
+      if (y < H && x0 + px < W) {
+        *reinterpret_cast<uint4*>(per_out + (((int64_t)n * H + y) * W + x0 + px) * kC + c16) =
+            *reinterpret_cast<const uint4*>(per + (kHw + 1 + px) * kLdp + c16);
+      }
+    }
 
     // Neuron state: this thread owns channel tid of the 16 pixels.
     float v[kPx], cu[kPx], ss[kPx];
@@ -268,8 +289,22 @@ rpn_eval_kernel(const __grid_constant__ CUtensorMap map_w9,  // w9 [9 * 256 out,
         }
       }
       named_bar(1, 256);
-      // LIF over the chunk's steps, in order, and the LI-weighted spike sum.
       const int steps = min(kChunk, T - chunk * kChunk);
+      if constexpr (kSave) {
+        // The chunk's currents of each pixel: steps chunk * 8 .. of its
+        // contiguous T x 256 block, 16 bytes a thread along the channels.
+        for (int q = tid; q < kPx * steps * (kC / 8); q += 256) {
+          const int px = q / (steps * (kC / 8));
+          const int sl = (q / (kC / 8)) % steps;
+          const int c8 = (q % (kC / 8)) * 8;
+          if (y < H && x0 + px < W) {
+            *reinterpret_cast<uint4*>(
+                cur_out + ((((int64_t)n * H + y) * W + x0 + px) * T + chunk * kChunk + sl) * kC +
+                c8) = *reinterpret_cast<const uint4*>(stage + (sl * kPx + px) * kLdc + c8);
+          }
+        }
+      }
+      // LIF over the chunk's steps, in order, and the LI-weighted spike sum.
       for (int sl = 0; sl < steps; ++sl) {
         const float lit = li[chunk * kChunk + sl];
 #pragma unroll
@@ -316,6 +351,34 @@ rpn_eval_kernel(const __grid_constant__ CUtensorMap map_w9,  // w9 [9 * 256 out,
   }
 }
 
+template <bool kSave>
+int launch_level(const void* feat, const void* w9_t, const void* wout, const float* consts,
+                 float* out, void* counts, float* ssum, void* cur, void* per, int N, int H,
+                 int W, int T, int n_out, void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || T < 1 || T > kMaxT || n_out < 1 ||
+      n_out > kMaxOut || H > 65535 || N > 65535 || (kSave && ssum == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap map;
+  const uint64_t dims[2] = {(uint64_t)kC, (uint64_t)9 * kC};
+  const uint32_t box[2] = {kK, kC / kCluster};
+  if (!hopper_host::bf16_map(&map, w9_t, 2, dims, box, CU_TENSOR_MAP_SWIZZLE_128B)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = rpn_level_kernel<kSave>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((W + kPx - 1) / kPx, (H + kCluster - 1) / kCluster * kCluster, N);
+  err = hopper_host::launch_clustered(
+      kernel, grid, kThreads, kSmem, kCluster, (cudaStream_t)stream, map,
+      reinterpret_cast<const bf16*>(feat), reinterpret_cast<const bf16*>(wout), consts, out,
+      reinterpret_cast<unsigned long long*>(counts), ssum, reinterpret_cast<bf16*>(cur),
+      reinterpret_cast<uint8_t*>(per), H, W, T, n_out);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // feat [N, H, W, 256] bf16; w9_t [9, 256, 256] bf16, per tap (dy-major)
@@ -327,25 +390,17 @@ rpn_eval_kernel(const __grid_constant__ CUtensorMap map_w9,  // w9 [9 * 256 out,
 extern "C" int rpn_level_bf16(const void* feat, const void* w9_t, const void* wout,
                               const float* consts, float* out, void* counts, float* ssum,
                               int N, int H, int W, int T, int n_out, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || T < 1 || T > kMaxT || n_out < 1 ||
-      n_out > kMaxOut || H > 65535 || N > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  CUtensorMap map;
-  const uint64_t dims[2] = {(uint64_t)kC, (uint64_t)9 * kC};
-  const uint32_t box[2] = {kK, kC / kCluster};
-  if (!hopper_host::bf16_map(&map, w9_t, 2, dims, box, CU_TENSOR_MAP_SWIZZLE_128B)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  auto kernel = rpn_eval_kernel;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + kPx - 1) / kPx, (H + kCluster - 1) / kCluster * kCluster, N);
-  err = hopper_host::launch_clustered(
-      kernel, grid, kThreads, kSmem, kCluster, (cudaStream_t)stream, map,
-      reinterpret_cast<const bf16*>(feat), reinterpret_cast<const bf16*>(wout), consts, out,
-      reinterpret_cast<unsigned long long*>(counts), ssum, H, W, T, n_out);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_level<false>(feat, w9_t, wout, consts, out, counts, ssum, nullptr, nullptr, N,
+                             H, W, T, n_out, stream);
+}
+
+// The training instance: the same arguments (ssum required), and in
+// addition cur [N, H, W, T, 256] bf16, the conv currents as the LIF took
+// them, and per [N, H, W, 256] uint8, the encoder periods (T + 1: never).
+extern "C" int rpn_level_save_bf16(const void* feat, const void* w9_t, const void* wout,
+                                   const float* consts, float* out, void* counts, float* ssum,
+                                   void* cur, void* per, int N, int H, int W, int T, int n_out,
+                                   void* stream) {
+  return launch_level<true>(feat, w9_t, wout, consts, out, counts, ssum, cur, per, N, H, W, T,
+                            n_out, stream);
 }

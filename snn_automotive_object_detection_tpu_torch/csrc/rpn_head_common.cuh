@@ -1,17 +1,12 @@
-// Device code shared by the spiking RPN head's training forward
-// (rpn_head_train.cu), its paired-image variant (rpn_head_x2.cu) and its
-// backward kernel (rpn_head_bwd.cu), which replays the forward; the
-// evaluation route's kernel (rpn_head.cu) takes only lif_element and
-// step_mask from here. The shared-memory
-// layout of a block, the encoder's period map and per-step spike halo, the
-// 3x3 conv on the tensor cores with the tap weights streaming through a
-// cp.async ring, and the LIF update of one neuron. All kernels call the
-// same functions in the same order, so the pair's and the replay's conv
-// sums, and with them their spike trains, are bit-equal to the forward's.
-//
-// A block covers kTP pixels of one row: all of one image (Tile<1>), or
-// kTP / 2 pixels of each image of a pair at the same place (Tile<2>), whose
-// two halos lie side by side in the spike buffer.
+// Device code of the spiking RPN head shared by its paired-image kernel
+// (rpn_head_x2.cu, K8), whose block covers the same kTP / 2 pixels of a row
+// in each image of a pair, and the neuron helpers that the level kernel
+// (rpn_head.cu, K1) and the backward (rpn_head_bwd.cu, K7) take from here:
+// lif_element, the LIF update of one neuron in the order every kernel and
+// plain version runs it, and step_mask. For the pair: the shared-memory
+// layout of a block, the encoder's period map and per-step spike halo (the
+// two images' halos side by side), and the 3x3 conv on the tensor cores
+// with the tap weights streaming through a cp.async ring.
 
 #pragma once
 
@@ -41,30 +36,25 @@ constexpr int kStageBytes = kStageRows * kLdw * 2;
 constexpr int kRingBytes = kStages * kStageBytes;
 constexpr int kVec = 8;                                  // channels per item
 
-// Geometry and shared-memory layout of a block that covers kImgs images.
-template <int kImgs>
+// Geometry and shared-memory layout of a block that covers a pair of images.
 struct Tile {
+  static constexpr int kImgs = 2;
   static constexpr int kPx = kTP / kImgs;                // pixels per image
   static constexpr int kHw = kPx + 2;                    // halo width per image
   static constexpr int kCols = kImgs * kHw;              // halo columns of the block
   static constexpr int kPerBytes = 3 * kCols * kC;       // uint8 periods
   static constexpr int kZBytes = 3 * kCols * kLdz * 2;   // bf16 spikes
-  static constexpr int kIdxOff = kPerBytes + kZBytes;
-  static constexpr int kConstOff = kIdxOff + 256 * 4;
+  static constexpr int kConstOff = kPerBytes + kZBytes;
   static constexpr int kMaskOff = kConstOff + 2 * kMaxT * 4;
   static constexpr int kWOff = (kMaskOff + kMaxT * 8 + 127) / 128 * 128;
   static constexpr int kSmemBytes = kWOff + kRingBytes;
   static constexpr int kItems = 3 * kCols * kC / kVec;   // items of the halo
 
   static_assert(kPerBytes % 128 == 0, "spike halo must stay aligned");
-  static_assert(kIdxOff % 32 == 0 && kStageBytes % 32 == 0, "fragment pointers need 32 B");
+  static_assert(kConstOff % 32 == 0 && kStageBytes % 32 == 0, "fragment pointers need 32 B");
   static_assert(kTP * kC * 4 <= kZBytes, "spike-sum staging reuses the spike halo");
   static_assert(kSmemBytes <= 232448, "shared memory of one block");
 };
-
-constexpr int kHalo = Tile<1>::kHw;
-constexpr int kZBytes = Tile<1>::kZBytes;
-constexpr int kSmemBytes = Tile<1>::kSmemBytes;
 
 static_assert(kStageRows * kC / 8 % kThreads == 0, "whole 16-byte copies per thread");
 
@@ -76,20 +66,17 @@ using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::ro
 struct Smem {
   uint8_t* per;                    // [3][kCols][kC] encoder periods
   __nv_bfloat16* z;                // [3][kCols][kLdz] this step's encoder spikes
-  float* idx;                      // [256] 0..255, recovers a fragment element's place
   float* thr;                      // [T] encoder thresholds
   float* li;                       // [T] LI readout coefficients
   unsigned long long* spk_mask;    // [T] bit p set when period p spikes at the step
   __nv_bfloat16* ring;             // [kStages][kStageRows][kLdw] tap weights
 };
 
-template <int kImgs = 1>
 __device__ __forceinline__ Smem carve(unsigned char* smem) {
-  using G = Tile<kImgs>;
+  using G = Tile;
   Smem s;
   s.per = smem;
   s.z = reinterpret_cast<__nv_bfloat16*>(smem + G::kPerBytes);
-  s.idx = reinterpret_cast<float*>(smem + G::kIdxOff);
   s.thr = reinterpret_cast<float*>(smem + G::kConstOff);
   s.li = s.thr + kMaxT;
   s.spk_mask = reinterpret_cast<unsigned long long*>(smem + G::kMaskOff);
@@ -108,10 +95,6 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_one() {  // all but the newest group
   asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
 // Periods p <= T + 1 that spike at step t (0-based): bit p is set when
@@ -137,11 +120,10 @@ __device__ __forceinline__ void load_stage(__nv_bfloat16* ring, const __nv_bfloa
   }
 }
 
-// The index matrix, the thresholds, the LI coefficients and the step
-// masks. The caller synchronises afterwards.
+// The thresholds, the LI coefficients and the step masks. The caller
+// synchronises afterwards.
 __device__ __forceinline__ void load_constants(const Smem& sm, const float* consts,
                                                int T, int tid) {
-  if (tid < 256) sm.idx[tid] = (float)tid;
   if (tid < T) {
     sm.thr[tid] = consts[tid];
     sm.li[tid] = consts[T + tid];
@@ -150,14 +132,13 @@ __device__ __forceinline__ void load_constants(const Smem& sm, const float* cons
 }
 
 // Period map of the halo around row y, pixels x0 .. x0 + kPx - 1 of
-// images n .. n + kImgs - 1 (3 x 34 for one image), 8 channels per item:
+// images n and n + 1 (3 x 18 each), 8 channels per item:
 // p = 1 + sum_m [x * thr[m] <= 0.25]. Outside the image the conv's zero
 // padding never spikes: period T + 1.
-template <int kImgs = 1>
 __device__ __forceinline__ void build_period_map(const Smem& sm, const __nv_bfloat16* feat,
                                                  int n, int y, int x0, int H, int W, int T,
                                                  int tid) {
-  using G = Tile<kImgs>;
+  using G = Tile;
   for (int q = tid; q < G::kItems; q += kThreads) {
     const int e0 = q * kVec;
     const int row = e0 / (G::kCols * kC);
@@ -186,9 +167,8 @@ __device__ __forceinline__ void build_period_map(const Smem& sm, const __nv_bflo
 
 // Encoder spikes of the halo at step t, from the period map. Returns this
 // thread's count of spikes among the block's own pixels inside the image.
-template <int kImgs = 1>
 __device__ __forceinline__ int build_spikes(const Smem& sm, int t, int x0, int W, int tid) {
-  using G = Tile<kImgs>;
+  using G = Tile;
   const __nv_bfloat16 one = __float2bfloat16(1.0f);
   const __nv_bfloat16 zero = __float2bfloat16(0.0f);
   const unsigned long long m_t = sm.spk_mask[t];
@@ -226,11 +206,10 @@ __device__ __forceinline__ void prefetch_weights(const Smem& sm, const __nv_bflo
 }
 
 // 3x3 conv of the spike halo on the tensor cores, the tap weights
-// streaming through the ring: warp (ph, cg) gets the 16 pixels whose halo
-// begins at column col0 of the spike buffer (ph*16 of the one image, or
-// all of image ph of a pair) and channels cg*32 .. +31 as two accumulator
-// fragments. One trip of the ring serves every warp of the block.
-template <int kImgs = 1>
+// streaming through the ring: warp (img, cg) gets the 16 pixels of image
+// img, whose halo begins at column col0 of the spike buffer, and channels
+// cg*32 .. +31 as two accumulator fragments. One trip of the ring serves
+// every warp of the block.
 __device__ __forceinline__ void conv_step(Acc (&acc)[2], const Smem& sm,
                                           const __nv_bfloat16* w9, int tid, int col0, int cg) {
   wmma::fill_fragment(acc[0], 0.0f);
@@ -245,7 +224,7 @@ __device__ __forceinline__ void conv_step(Acc (&acc)[2], const Smem& sm,
     const int dx = k % 3 - 1;
     const int kc0 = (st % (kC / kStageRows)) * (kStageRows / 16);
     const __nv_bfloat16* a_base =
-        sm.z + ((1 + dy) * Tile<kImgs>::kCols + col0 + 1 + dx) * kLdz + kc0 * 16;
+        sm.z + ((1 + dy) * Tile::kCols + col0 + 1 + dx) * kLdz + kc0 * 16;
     const __nv_bfloat16* b_base = sm.ring + (st % kStages) * (kStageRows * kLdw) + cg * 32;
 #pragma unroll
     for (int kk = 0; kk < kStageRows / 16; ++kk) {

@@ -3,30 +3,27 @@
 //
 // Replaces the TPU kernel snn/pallas_rpn.py (_rpn_x2_kernel, launched by
 // _run_level_x2 for rpn_head_snn_pallas_apply when rates are not
-// collected): the level kernel of rpn_head.cu for images 2p and 2p + 1 in
-// one instance that shares one copy of the weights. Per image it computes
-// what rpn_head.cu computes, bit for bit: the same encoder periods, the
-// same conv sums in the same order, the same LIF update and the same
-// readout loop. It keeps no spike counters.
+// collected): one FPN level for images 2p and 2p + 1 in one instance that
+// shares one copy of the weights. Per image it computes what the plain
+// version (cuda_rpn.rpn_level_plain) computes: the same encoder periods,
+// the conv on bf16 spikes summed in f32 and rounded to bf16, the LIF
+// update of lif_element and the readout loop. It keeps no spike counters.
+// K1 (rpn_head.cu) sums the conv in another order, so a current can round
+// to the neighbouring bf16 value and, rarely, flip a spike between the two.
 //
-// What bounds it on this card: as rpn_head.cu, the 3x3 conv on the tensor
-// cores and the tap weights, which every block pulls from L2 once per step
-// (1.2 MB). The LIF state of 32 pixels x 256 channels fills the register
-// file of a block of 16 warps (v, i, the spike sum and the conv
-// accumulator are 64 registers of each thread), and shared memory has no
-// room for a second 34-pixel halo beside the weight ring, so a block
-// cannot hold 32 pixels of each image.
+// What bounds it on this card: the 3x3 conv on the tensor cores and the
+// tap weights, which every block pulls from L2 once per step (1.2 MB). The
+// LIF state of 32 pixels x 256 channels fills the register file of a block
+// of 16 warps (v, i, the spike sum and the conv accumulator are 64
+// registers of each thread), and shared memory has no room for a second
+// 34-pixel halo beside the weight ring, so a block cannot hold 32 pixels
+// of each image.
 //
-// Design: the tile per image halves. A block owns the same 16-pixel row
-// segment of both images: warps 0-7 carry image 2p, warps 8-15 image
-// 2p + 1, each warp 16 pixels x 32 channels as in rpn_head.cu. The two
-// 3 x 18 halos lie side by side in the spike buffer, and one trip of the
-// cp.async weight ring per step serves both images' products. A block
-// therefore moves as many weight bytes per output pixel as rpn_head.cu
-// does; what changes is that the two images' independent step chains run
-// in one block, and that a pair's halo is 36 columns for 32 pixels
-// instead of 34. The device code is rpn_head_common.cuh's, shared with
-// rpn_head.cu, which is what makes the outputs equal bits.
+// Design: a block owns the same 16-pixel row segment of both images: warps
+// 0-7 carry image 2p, warps 8-15 image 2p + 1, each warp 16 pixels x 32
+// channels on WMMA 16x16x16. The two 3 x 18 halos lie side by side in the
+// spike buffer, and one trip of the cp.async weight ring per step serves
+// both images' products. The device code is rpn_head_common.cuh's.
 
 #include "rpn_head_common.cuh"
 
@@ -34,7 +31,7 @@ using namespace rpn;
 
 namespace {
 
-using G = Tile<2>;
+using G = Tile;
 
 __global__ void __launch_bounds__(kThreads, 1)
 rpn_level_x2_kernel(const __nv_bfloat16* __restrict__ feat,   // [N, H, W, C], N even
@@ -45,7 +42,7 @@ rpn_level_x2_kernel(const __nv_bfloat16* __restrict__ feat,   // [N, H, W, C], N
                     float* __restrict__ ssum_out,             // [N, H, W, C] or null
                     int H, int W, int T, int n_out) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Smem sm = carve<2>(smem);
+  const Smem sm = carve(smem);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -58,7 +55,7 @@ rpn_level_x2_kernel(const __nv_bfloat16* __restrict__ feat,   // [N, H, W, C], N
 
   load_constants(sm, consts, T, tid);
   __syncthreads();
-  build_period_map<2>(sm, feat, n0, y, x0, H, W, T, tid);
+  build_period_map(sm, feat, n0, y, x0, H, W, T, tid);
 
   Acc acc[2], v[2], cu[2], ss[2];
   for (int f = 0; f < 2; ++f) {
@@ -70,8 +67,8 @@ rpn_level_x2_kernel(const __nv_bfloat16* __restrict__ feat,   // [N, H, W, C], N
 
   for (int t = 0; t < T; ++t) {
     prefetch_weights(sm, w9, tid);
-    build_spikes<2>(sm, t, x0, W, tid);
-    conv_step<2>(acc, sm, w9, tid, col0, cg);
+    build_spikes(sm, t, x0, W, tid);
+    conv_step(acc, sm, w9, tid, col0, cg);
     const float lit = sm.li[t];
     for (int f = 0; f < 2; ++f) {
       for (int e = 0; e < acc[f].num_elements; ++e) {
@@ -83,7 +80,7 @@ rpn_level_x2_kernel(const __nv_bfloat16* __restrict__ feat,   // [N, H, W, C], N
   }
 
   // Spike sums -> shared memory (row = image * 16 + pixel) -> fused
-  // readout, rounded to bf16, summed over the channels in rpn_head.cu's order.
+  // readout, rounded to bf16, summed over the channels in order.
   float* stage = reinterpret_cast<float*>(sm.z);
   for (int f = 0; f < 2; ++f) {
     wmma::store_matrix_sync(stage + (img * G::kPx) * kC + cg * 32 + f * 16, ss[f], kC,

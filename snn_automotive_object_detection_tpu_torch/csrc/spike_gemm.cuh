@@ -390,7 +390,7 @@ int launch(const void* w, int n_total, const void* codes, int R, int K, int T,
   const uint64_t cd[2] = {(uint64_t)K, (uint64_t)R};
   const uint32_t cbox[2] = {kK, kRows};
   if (!hopper_host::bf16_map(&map_w, w, 2, wd, wb, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !hopper_host::map_16bit(&map_code, CU_TENSOR_MAP_DATA_TYPE_UINT16, codes, 2, cd, cbox,
+      !hopper_host::map_tiled(&map_code, CU_TENSOR_MAP_DATA_TYPE_UINT16, 2, codes, 2, cd, cbox,
                               CU_TENSOR_MAP_SWIZZLE_128B)) {
     return (int)cudaErrorInvalidValue;
   }

@@ -26,8 +26,8 @@ dtype, as in the reference.
 
 In training the route changes with what needs a gradient (see
 :func:`make_head_applies` and ``_detector_apply``): the fused stem serves
-while the stem is frozen, the FPN runs unfused, the RPN head is the
-training forward with K7 as its backward while the backbone is frozen,
+while the stem is frozen, the FPN runs unfused, the RPN head is K1's
+training instance with K7 as its backward while the backbone is frozen,
 RoIAlign is the gather version and the box head the scan under autograd.
 """
 
@@ -74,7 +74,7 @@ def make_head_applies(config, params, collect_rates: bool, training: bool = Fals
     heads run on their kernels (plain versions on the CPU); with float32
     both are the reference's scans (step encoder, LI readout at every
     step), on either device. In training the box head is the scan under
-    autograd, and the RPN head is the training forward kernel with the
+    autograd, and the RPN head is K1's training instance with the
     backward kernel as its gradient when the compute dtype is bf16, the
     backbone is frozen (that gradient is for the weights only) and no rates
     are collected; otherwise it is the scan too.

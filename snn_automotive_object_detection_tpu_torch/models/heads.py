@@ -17,9 +17,9 @@ heads.py``. At inference, as the reference runs them with its kernels on:
 For training:
 
   * :func:`rpn_head_snn_train_apply` is the kernel-backed RPN head made
-    differentiable for its weights: the training forward, which K7
-    replays, and K7 backward (``snn/cuda_rpn.RpnLevelTrain``), for bf16
-    with a frozen backbone.
+    differentiable for its weights: K1's training instance, which saves
+    the per-step currents, and K7 backward on them
+    (``snn/cuda_rpn.RpnLevelTrain``), for bf16 with a frozen backbone.
   * :func:`rpn_head_snn_scan_apply` and :func:`fastrcnn_snn_scan_apply` are
     the reference's scans written as Python loops of PyTorch ops under
     autograd, with the SuperSpike surrogate in every spike. Training uses
@@ -91,9 +91,9 @@ def rpn_head_snn_apply(params: Dict, features: List[torch.Tensor],
 def rpn_head_snn_train_apply(params: Dict, features: List[torch.Tensor],
                              num_steps: int, compute_dtype=torch.bfloat16):
     """:func:`rpn_head_snn_apply` made differentiable for the three weights:
-    per level the training forward with the backward kernel as its gradient
-    (on the CPU, their plain versions). The features get no gradient; rates
-    are not collected. Returns (objectness list, bbox list, None)."""
+    per level K1's training instance forward and K7 backward on what it
+    saved (on the CPU, their plain versions). The features get no gradient;
+    rates are not collected. Returns (objectness list, bbox list, None)."""
     w_out, a = _fused_readout(params)
     logits, bbox_reg = [], []
     for feat in features:

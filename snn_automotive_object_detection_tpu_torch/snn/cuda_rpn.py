@@ -1,34 +1,41 @@
 """Spiking RPN head through the hand-written CUDA kernels: the forward of
-the evaluation route (K1), the forward of the training route, the forward
-for a pair of images (K8) and the backward for the weights (K7).
+one FPN level (K1, with a training instance that saves what the backward
+needs), the forward for a pair of images (K8) and the backward for the
+weights (K7).
 
 Replaces ``snn/pallas_rpn.py``: ``rpn_head_snn_pallas_apply`` with its
 per-level ``_run_level`` (K1, ``csrc/rpn_head.cu``: one pass over the tap
 weights for a chunk of 8 steps, ``wgmma``, TMA) and its paired
 ``_run_level_x2`` (K8, ``csrc/rpn_head_x2.cu``), and
-``rpn_head_snn_pallas_train_apply`` with its forward
-(``csrc/rpn_head_train.cu``) and ``_run_level_bwd`` as the custom VJP of
-the level (K7, ``csrc/rpn_head_bwd.cu``). The training forward, K8 and
-K7's replay run the same device code (``csrc/rpn_head_common.cuh``), so
-their spikes are equal bits; K1 sums its products in another order.
-:func:`rpn_level_plain`, :func:`rpn_level_x2_plain` and
-:func:`rpn_level_bwd_plain` beside them are their plain PyTorch versions
-and follow the TPU kernels' formulation: threshold-count encoder periods,
-the conv current rounded to the plane dtype, f32 LIF states, an
-LI-weighted spike sum with :func:`snnf.li_coefficients` and one fused
-readout after the loop, rounded to the plane dtype; backwards, the replay
-with stored decayed membranes, the reverse SuperSpike sweep written out
-(no autograd) and the two weight-gradient products.
+``rpn_head_snn_pallas_train_apply``, whose custom VJP ``_level_train`` runs
+``_run_level`` forward and ``_run_level_bwd`` backward (K7,
+``csrc/rpn_head_bwd.cu``). Here the training forward is K1 too: its
+training instance also stores the per-step bf16 conv currents, the period
+map and the spike sums (:class:`Saved`), and K7 starts from those instead
+of replaying the conv: a sweep reruns the LIF from the currents and runs
+the reverse SuperSpike sweep, writing dc over the currents in place, and a
+spike-code GEMM on ``wgmma`` forms the weight gradient.
+:func:`rpn_level_plain`, :func:`rpn_level_x2_plain`,
+:func:`rpn_level_bwd_plain` and :func:`rpn_level_bwd_from_saved_plain`
+beside them are their plain PyTorch versions and follow the TPU kernels'
+formulation: threshold-count encoder periods, the conv current rounded to
+the plane dtype, f32 LIF states, an LI-weighted spike sum with
+:func:`snnf.li_coefficients` and one fused readout after the loop, rounded
+to the plane dtype; backwards, the decayed membranes of the forward (from a
+replay of the conv, or from the saved currents), the reverse SuperSpike
+sweep written out (no autograd) and the two weight-gradient products.
 
 A CPU tensor takes the plain versions (bf16 or f32 planes); a CUDA tensor
 launches the kernels, which take bf16 planes only, or raises.
-:class:`RpnLevelTrain` ties the training forward and K7 into one
+:class:`RpnLevelTrain` ties K1's training instance and K7 into one
 differentiable level.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -37,7 +44,6 @@ from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
 from snn_automotive_object_detection_tpu_torch.utils.constants import device_constant
 
 NAME = "rpn_head"
-TRAIN_NAME = "rpn_head_train"
 BWD_NAME = "rpn_head_bwd"
 X2_NAME = "rpn_head_x2"
 # Whether the head outside training takes the paired kernel for the levels
@@ -46,12 +52,24 @@ X2_NAME = "rpn_head_x2"
 # flagship levels in every run. Off: on an H100 K1 takes 5.7-5.8 ms for
 # them and K8 20.8 ms (PERF.md).
 PAIR_IMAGES = False
-# Split counts of the weight-gradient kernel: 36 tiles of dw9 times 11
-# splits are three blocks for each of 132 SMs.
-DW9_SPLITS = 11
-DWOUT_SPLITS = 64
+# Split counts of K7's pixel range: the weight gradient's 18 blocks per
+# split (9 taps x 2 input-channel tiles) times 7 are one wave on 132 SMs;
+# dwout's 264 blocks of 256 threads are two for each SM.
+DW9_SPLITS = 7
+DWOUT_SPLITS = 264
 MAX_T = 32
 MAX_OUT = 128
+
+
+class Saved(NamedTuple):
+    """What the training forward of a level keeps for its backward:
+    the conv currents as the LIF took them, cur [N, H, W, T, C] in the
+    plane dtype; the encoder periods, per [N, H, W, C] uint8 (T + 1: no
+    spike within T steps); the LI-weighted spike sums, ssum [N, H, W, C]
+    f32."""
+    cur: torch.Tensor
+    per: torch.Tensor
+    ssum: torch.Tensor
 
 
 def _constants(num_steps: int, device) -> torch.Tensor:
@@ -64,7 +82,7 @@ def _constants(num_steps: int, device) -> torch.Tensor:
 
 def _taps(w_shared: torch.Tensor) -> torch.Tensor:
     """[3, 3, C, C] HWIO -> [9, C, C] bf16, dy-major, [input, output]
-    channels per tap, as the training forward, K7 and K8 take it."""
+    channels per tap, as K8 takes it."""
     c = w_shared.shape[2]
     return w_shared.reshape(9, c, c).to(torch.bfloat16).contiguous()
 
@@ -78,9 +96,10 @@ def _taps_t(w_shared: torch.Tensor) -> torch.Tensor:
 
 
 def _level_steps(feat: torch.Tensor, w_shared: torch.Tensor,
-                 w_out: torch.Tensor, num_steps: int):
+                 w_out: torch.Tensor, num_steps: int, save: bool = False):
     """The T steps of one level on a batch of images: (readout, encoder
-    counts, LIF spike counts, LI-weighted spike sums)."""
+    counts, LIF spike counts, LI-weighted spike sums, and with ``save`` the
+    :class:`Saved` tensors, else None)."""
     cd = feat.dtype
     n, h, w, c = feat.shape
     consts = _constants(num_steps, feat.device)
@@ -91,32 +110,44 @@ def _level_steps(feat: torch.Tensor, w_shared: torch.Tensor,
     ssum = torch.zeros((n, h, w, c), dtype=torch.float32, device=feat.device)
     enc = torch.zeros(n, dtype=torch.int64, device=feat.device)
     lif = torch.zeros(n, dtype=torch.int64, device=feat.device)
+    curs = []
     for t in range(num_steps):
         z = snnf.encoder_spikes_at(periods, t, cd)
-        cur = F.conv2d(z.permute(0, 3, 1, 2), weight, padding=1)
-        cur = cur.permute(0, 2, 3, 1).float()
-        s, state = snnf.lif_feed_forward_step(cur, state)
+        cur = F.conv2d(z.permute(0, 3, 1, 2), weight, padding=1).permute(0, 2, 3, 1)
+        if save:
+            curs.append(cur)
+        s, state = snnf.lif_feed_forward_step(cur.float(), state)
         ssum = ssum + li[t] * s
         enc += z.sum(dim=(1, 2, 3), dtype=torch.int64)
         lif += s.sum(dim=(1, 2, 3), dtype=torch.int64)
     out = torch.matmul(ssum, w_out.to(cd).float()).to(cd).float()
-    return out, enc, lif, ssum
+    saved = Saved(torch.stack(curs, dim=3), periods.to(torch.uint8), ssum) if save else None
+    return out, enc, lif, ssum, saved
+
+
+def _returns(got, spike_sum: bool, save: bool):
+    """(readout, encoder counts, LIF counts) from ``got`` = (those, spike
+    sums, saved), then the spike sums with ``spike_sum``, then the saved
+    tensors with ``save``."""
+    return got[:3] + ((got[3],) if spike_sum else ()) + ((got[4],) if save else ())
 
 
 def rpn_level_plain(feat: torch.Tensor, w_shared: torch.Tensor,
-                    w_out: torch.Tensor, num_steps: int, spike_sum: bool = False):
+                    w_out: torch.Tensor, num_steps: int, spike_sum: bool = False,
+                    save: bool = False):
     """One FPN level, plain PyTorch.
 
     feat [N, H, W, C] in the plane dtype (bf16 or f32); w_shared
     [3, 3, C, C] HWIO; w_out [C, n_out]. Returns (readout [N, H, W, n_out]
     float32 holding plane-dtype values, encoder counts [N] int64, LIF spike
-    counts [N] int64), and with ``spike_sum`` also the LI-weighted spike sum
+    counts [N] int64); with ``spike_sum`` also the LI-weighted spike sum
     [N, H, W, C] f32 of every neuron, for checks that count flipped spikes
-    neuron by neuron.
+    neuron by neuron; with ``save`` last the :class:`Saved` tensors that
+    :func:`rpn_level_bwd_from_saved_plain` starts from (the currents rounded
+    to the plane dtype, as the LIF takes them).
     """
     cb.note_plain(NAME, feat)
-    got = _level_steps(feat, w_shared, w_out, num_steps)
-    return got if spike_sum else got[:3]
+    return _returns(_level_steps(feat, w_shared, w_out, num_steps, save), spike_sum, save)
 
 
 def x2_feasible(feat_shape) -> bool:
@@ -157,44 +188,36 @@ def _check_level(name, feat, w9, w_out, num_steps):
                          f"{MAX_OUT} readout channels")
 
 
-def _launch_with(name: str, symbol: str, feat: torch.Tensor, w9: torch.Tensor,
-                 w_out: torch.Tensor, num_steps: int, spike_sum: bool):
+def _launch(feat: torch.Tensor, w9_t: torch.Tensor, w_out: torch.Tensor,
+            num_steps: int, spike_sum: bool = False, save: bool = False):
+    """K1 on one level, its training instance with ``save``; ``w9_t`` from
+    :func:`_taps_t`. Same returns as :func:`rpn_level_plain`."""
     n, h, w, c = feat.shape
     n_out = w_out.shape[1]
-    _check_level(name, feat, w9, w_out, num_steps)
-    consts = _constants(num_steps, feat.device)
-    out = torch.empty((n, h, w, n_out), dtype=torch.float32, device=feat.device)
-    counts = torch.zeros((n, 2), dtype=torch.int64, device=feat.device)
-    ssum = (torch.empty((n, h, w, c), dtype=torch.float32, device=feat.device)
-            if spike_sum else None)
-    fn = getattr(cb.load(name), symbol)
+    _check_level(NAME, feat, w9_t, w_out, num_steps)
+    dev = feat.device
+    consts = _constants(num_steps, dev)
+    out = torch.empty((n, h, w, n_out), dtype=torch.float32, device=dev)
+    counts = torch.zeros((n, 2), dtype=torch.int64, device=dev)
+    ssum = (torch.empty((n, h, w, c), dtype=torch.float32, device=dev)
+            if spike_sum or save else None)
+    args = [feat.data_ptr(), w9_t.data_ptr(), w_out.data_ptr(), consts.data_ptr(),
+            out.data_ptr(), counts.data_ptr(), None if ssum is None else ssum.data_ptr()]
+    lib = cb.load(NAME)
+    saved = None
+    if save:
+        saved = Saved(torch.empty((n, h, w, num_steps, c), dtype=torch.bfloat16, device=dev),
+                      torch.empty((n, h, w, c), dtype=torch.uint8, device=dev), ssum)
+        fn = lib.rpn_level_save_bf16
+        args += [saved.cur.data_ptr(), saved.per.data_ptr()]
+    else:
+        fn = lib.rpn_level_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    code = fn(feat.data_ptr(), w9.data_ptr(), w_out.data_ptr(), consts.data_ptr(),
-              out.data_ptr(), counts.data_ptr(),
-              None if ssum is None else ssum.data_ptr(), n, h, w, num_steps,
-              n_out, cb.stream_ptr(feat.device))
-    cb.check(code, name)
-    cb.LAUNCHES[name] += 1
-    if spike_sum:
-        return out, counts[:, 0], counts[:, 1], ssum
-    return out, counts[:, 0], counts[:, 1]
-
-
-def _launch(feat: torch.Tensor, w9_t: torch.Tensor, w_out: torch.Tensor,
-            num_steps: int, spike_sum: bool = False):
-    """K1 on one level; ``w9_t`` from :func:`_taps_t`. Same returns as
-    :func:`rpn_level_plain`."""
-    return _launch_with(NAME, "rpn_level_bf16", feat, w9_t, w_out, num_steps, spike_sum)
-
-
-def _launch_train(feat: torch.Tensor, w9: torch.Tensor, w_out: torch.Tensor,
-                  num_steps: int, spike_sum: bool = False):
-    """The training forward on one level; ``w9`` from :func:`_taps`. Same
-    returns as :func:`rpn_level_plain`, and the same spikes as K7's replay
-    and K8 bit for bit."""
-    return _launch_with(TRAIN_NAME, "rpn_level_train_bf16", feat, w9, w_out,
-                        num_steps, spike_sum)
+    fn.argtypes = [ctypes.c_void_p] * len(args) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    code = fn(*args, n, h, w, num_steps, n_out, cb.stream_ptr(dev))
+    cb.check(code, NAME)
+    cb.LAUNCHES[NAME] += 1
+    return _returns((out, counts[:, 0], counts[:, 1], ssum, saved), spike_sum, save)
 
 
 def _launch_x2(feat: torch.Tensor, w9: torch.Tensor, w_out: torch.Tensor,
@@ -221,24 +244,13 @@ def _launch_x2(feat: torch.Tensor, w9: torch.Tensor, w_out: torch.Tensor,
 
 
 def rpn_level(feat: torch.Tensor, w_shared: torch.Tensor, w_out: torch.Tensor,
-              num_steps: int, spike_sum: bool = False):
-    """One level on the evaluation route: K1 (CUDA) or the plain version
-    (CPU). Same returns as :func:`rpn_level_plain`."""
+              num_steps: int, spike_sum: bool = False, save: bool = False):
+    """One level through K1 (CUDA; its training instance with ``save``) or
+    the plain version (CPU). Same returns as :func:`rpn_level_plain`."""
     if cb.dispatch_device(feat, NAME):
         return _launch(feat, _taps_t(w_shared), w_out.to(torch.bfloat16).contiguous(),
-                       num_steps, spike_sum)
-    return rpn_level_plain(feat, w_shared, w_out, num_steps, spike_sum)
-
-
-def rpn_level_train(feat: torch.Tensor, w_shared: torch.Tensor, w_out: torch.Tensor,
-                    num_steps: int, spike_sum: bool = False):
-    """One level on the training route: the training forward (CUDA), whose
-    spikes K7 replays, or the plain version (CPU). Same returns as
-    :func:`rpn_level_plain`."""
-    if cb.dispatch_device(feat, TRAIN_NAME):
-        return _launch_train(feat, _taps(w_shared), w_out.to(torch.bfloat16).contiguous(),
-                             num_steps, spike_sum)
-    return rpn_level_plain(feat, w_shared, w_out, num_steps, spike_sum)
+                       num_steps, spike_sum, save)
+    return rpn_level_plain(feat, w_shared, w_out, num_steps, spike_sum, save)
 
 
 def rpn_level_x2(feat: torch.Tensor, w_shared: torch.Tensor, w_out: torch.Tensor,
@@ -251,55 +263,35 @@ def rpn_level_x2(feat: torch.Tensor, w_shared: torch.Tensor, w_out: torch.Tensor
     return rpn_level_x2_plain(feat, w_shared, w_out, num_steps, spike_sum)
 
 
-def rpn_level_bwd_plain(feat: torch.Tensor, w_shared: torch.Tensor,
-                        w_out: torch.Tensor, g: torch.Tensor, num_steps: int,
-                        spike_sum: bool = False):
-    """Backward of one level for its weights, plain PyTorch, written out
-    step by step (no autograd).
+def _decayed(state) -> torch.Tensor:
+    """The decayed membrane a LIF step takes its spike on."""
+    p = snnf.LIF_PARAMS
+    return state.v + snnf.DT * p.tau_mem_inv * ((p.v_leak - state.v) + state.i)
 
-    feat [N, H, W, C] in the plane dtype (bf16 or f32); w_shared
-    [3, 3, C, C]; w_out [C, n_out]; g [N, H, W, n_out] f32, the cotangent
-    of the readout. Returns (dw_shared [3, 3, C, C] f32, dw_out [C, n_out]
-    f32), and with ``spike_sum`` also the replay's LI-weighted spike sum
-    [N, H, W, C] f32, which must equal the forward's.
-    """
-    cb.note_plain(BWD_NAME, feat)
-    cd = feat.dtype
-    n, h, w, c = feat.shape
+
+def _reverse_sweep(vds, periods: torch.Tensor, w_out: torch.Tensor, g: torch.Tensor,
+                   li: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
+    """The reverse SuperSpike sweep of one level from the forward's decayed
+    membranes ``vds`` (T tensors [N, H, W, C] f32) and encoder periods
+    [N, H, W, C], with the cotangent g [N, H, W, n_out]: the 3x3 conv's
+    weight gradient [3, 3, C, C] f32."""
+    n, h, w, c = periods.shape
     p = snnf.LIF_PARAMS
     tau_mem, tau_syn = snnf.DT * p.tau_mem_inv, snnf.DT * p.tau_syn_inv
-    consts = _constants(num_steps, feat.device)
-    thr, li = consts[:num_steps], consts[num_steps:]
-    periods = snnf.threshold_periods(feat.float(), thr)
-    weight = w_shared.to(cd).permute(3, 2, 0, 1).contiguous()
-
-    # Replay of the forward, keeping each step's decayed membrane.
-    state = snnf.zeros_lif_state((n, h, w, c), device=feat.device)
-    ssum = torch.zeros((n, h, w, c), dtype=torch.float32, device=feat.device)
-    vds = []
-    for t in range(num_steps):
-        z = snnf.encoder_spikes_at(periods, t, cd)
-        cur = F.conv2d(z.permute(0, 3, 1, 2), weight, padding=1)
-        cur = cur.permute(0, 2, 3, 1).float()
-        vds.append(state.v + tau_mem * ((p.v_leak - state.v) + state.i))
-        s, state = snnf.lif_feed_forward_step(cur, state)
-        ssum = ssum + li[t] * s
-
-    # Reverse sweep: only gw sees the cotangent rounded to the plane dtype.
-    g = g.float()
-    # gw = bf16(g) @ wout^T summed over the readout channels in order, each
+    # Only gw sees the cotangent rounded to the plane dtype: gw =
+    # bf16(g) @ wout^T summed over the readout channels in order, each
     # product and each add rounded to f32, as the kernel sums it.
-    g_cd, wo_cd = g.to(cd).float(), w_out.to(cd).float()
-    gw = torch.zeros_like(ssum)
+    g_cd, wo_cd = g.float().to(cd).float(), w_out.to(cd).float()
+    gw = torch.zeros((n, h, w, c), dtype=torch.float32, device=periods.device)
     for j in range(w_out.shape[1]):
         gw = gw + g_cd[..., j:j + 1] * wo_cd[:, j]
-    lv = torch.zeros_like(ssum)
-    lam = torch.zeros_like(ssum)
+    lv = torch.zeros_like(gw)
+    lam = torch.zeros_like(gw)
     # The products of dw9 are exact (0/1 spikes times plane-dtype values);
     # summed in f64, so that this version's own sums over up to a million
     # pixels and steps carry no f32 rounding of their own.
-    dw9 = torch.zeros((9, c, c), dtype=torch.float64, device=feat.device)
-    for t in reversed(range(num_steps)):
+    dw9 = torch.zeros((9, c, c), dtype=torch.float64, device=periods.device)
+    for t in reversed(range(len(vds))):
         z = snnf.encoder_spikes_at(periods, t, cd).double()
         zp = F.pad(z, (0, 0, 1, 1, 1, 1))
         dc = lam.to(cd).double().reshape(-1, c)      # lam before this step's update
@@ -314,8 +306,67 @@ def rpn_level_bwd_plain(feat: torch.Tensor, w_shared: torch.Tensor,
         dvd = (1.0 - (u > 0).float()) * lv + ds * sp
         lv = (1.0 - tau_mem) * dvd
         lam = tau_mem * dvd + (1.0 - tau_syn) * lam
+    return dw9.float().reshape(3, 3, c, c)
+
+
+def rpn_level_bwd_plain(feat: torch.Tensor, w_shared: torch.Tensor,
+                        w_out: torch.Tensor, g: torch.Tensor, num_steps: int,
+                        spike_sum: bool = False):
+    """Backward of one level for its weights, plain PyTorch, written out
+    step by step (no autograd), replaying the forward's conv.
+
+    feat [N, H, W, C] in the plane dtype (bf16 or f32); w_shared
+    [3, 3, C, C]; w_out [C, n_out]; g [N, H, W, n_out] f32, the cotangent
+    of the readout. Returns (dw_shared [3, 3, C, C] f32, dw_out [C, n_out]
+    f32), and with ``spike_sum`` also the replay's LI-weighted spike sum
+    [N, H, W, C] f32, which must equal the forward's.
+    """
+    cb.note_plain(BWD_NAME, feat)
+    cd = feat.dtype
+    n, h, w, c = feat.shape
+    consts = _constants(num_steps, feat.device)
+    thr, li = consts[:num_steps], consts[num_steps:]
+    periods = snnf.threshold_periods(feat.float(), thr)
+    weight = w_shared.to(cd).permute(3, 2, 0, 1).contiguous()
+
+    # Replay of the forward, keeping each step's decayed membrane.
+    state = snnf.zeros_lif_state((n, h, w, c), device=feat.device)
+    ssum = torch.zeros((n, h, w, c), dtype=torch.float32, device=feat.device)
+    vds = []
+    for t in range(num_steps):
+        z = snnf.encoder_spikes_at(periods, t, cd)
+        cur = F.conv2d(z.permute(0, 3, 1, 2), weight, padding=1)
+        cur = cur.permute(0, 2, 3, 1).float()
+        vds.append(_decayed(state))
+        s, state = snnf.lif_feed_forward_step(cur, state)
+        ssum = ssum + li[t] * s
+    dw_shared = _reverse_sweep(vds, periods, w_out, g, li, cd)
     dw_out = dwout_plain(ssum, g)
-    dw_shared = dw9.float().reshape(3, 3, c, c)
+    return (dw_shared, dw_out, ssum) if spike_sum else (dw_shared, dw_out)
+
+
+def rpn_level_bwd_from_saved_plain(saved: Saved, w_out: torch.Tensor, g: torch.Tensor,
+                                   num_steps: int, spike_sum: bool = False):
+    """The plain version of K7: backward of one level for its weights from
+    what the training forward saved (:class:`Saved`, from
+    :func:`rpn_level_plain` with ``save``), with no replay of the conv: the
+    LIF rerun from the saved currents gives the decayed membranes, then the
+    reverse sweep and the two products. Same returns as
+    :func:`rpn_level_bwd_plain` (the spike sums are the rerun's), and the
+    same bits where the saved tensors are that function's forward's. The
+    saved tensors are left as they are."""
+    cb.note_plain(BWD_NAME, saved.cur)
+    n, h, w, t, c = saved.cur.shape
+    li = _constants(num_steps, saved.cur.device)[num_steps:]
+    state = snnf.zeros_lif_state((n, h, w, c), device=saved.cur.device)
+    ssum = torch.zeros((n, h, w, c), dtype=torch.float32, device=saved.cur.device)
+    vds = []
+    for step in range(num_steps):
+        vds.append(_decayed(state))
+        s, state = snnf.lif_feed_forward_step(saved.cur[..., step, :].float(), state)
+        ssum = ssum + li[step] * s
+    dw_shared = _reverse_sweep(vds, saved.per.int(), w_out, g, li, saved.cur.dtype)
+    dw_out = dwout_plain(saved.ssum, g)
     return (dw_shared, dw_out, ssum) if spike_sum else (dw_shared, dw_out)
 
 
@@ -323,8 +374,8 @@ def dwout_plain(ssum: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The readout's weight gradient ssum^T @ g, [C, n_out] f32, from the
     LI-weighted spike sums [N, H, W, C] and the f32 cotangent. It is linear
     in the spike sums, so a check can hold K7's ``dw_out`` against this
-    product of K7's own replayed sums where the forward kernel and its
-    plain version differ in a spike."""
+    product of the forward kernel's own sums where the kernel and its plain
+    version differ in a spike."""
     c = ssum.shape[-1]
     return torch.matmul(ssum.reshape(-1, c).t(), g.float().reshape(-1, g.shape[-1]))
 
@@ -335,71 +386,106 @@ def _splits(n_chunks: int, target: int) -> int:
     return -(-n_chunks // per)
 
 
-def _launch_bwd(feat: torch.Tensor, w9: torch.Tensor, w_out: torch.Tensor,
-                g: torch.Tensor, num_steps: int, spike_sum: bool = False):
-    """K7 on one level. Returns (dw9 [9, C, C] f32, dw_out [C, n_out] f32)
-    and with ``spike_sum`` the replay's spike sum."""
-    n, h, w, c = feat.shape
+def _padded_steps(num_steps: int) -> int:
+    """Steps per pixel in K7's weight-gradient GEMM: T padded to 8, 16 or 32,
+    so that a stage of 64 GEMM rows holds whole pixels."""
+    return 8 if num_steps <= 8 else 16 if num_steps <= 16 else 32
+
+
+def _launch_bwd(saved: Saved, w_out: torch.Tensor, g: torch.Tensor, num_steps: int,
+                spike_sum: bool = False, phases: int = 7):
+    """K7 on one level from K1's saved tensors; ``w_out`` bf16. The sweep
+    writes dc over ``saved.cur`` IN PLACE. Returns (dw9 [9, C, C] f32,
+    dw_out [C, n_out] f32) and with ``spike_sum`` the sweep's own spike sums
+    (equal to ``saved.ssum``). ``phases`` picks the kernels (bit 0 the
+    sweep, bit 1 dw9, bit 2 dwout) for timings; 7 is the backward."""
+    n, h, w, t, c = saved.cur.shape
     n_out = w_out.shape[1]
-    _check_level(BWD_NAME, feat, w9, w_out, num_steps)
+    cb.require(saved.cur, "cur", torch.bfloat16, (n, h, w, num_steps, 256))
+    cb.require(saved.per, "per", torch.uint8, (n, h, w, c))
+    cb.require(saved.ssum, "ssum", torch.float32, (n, h, w, c))
+    cb.require(w_out, "w_out", torch.bfloat16, (c, n_out))
     cb.require(g, "g", torch.float32, (n, h, w, n_out))
-    dev = feat.device
-    consts = _constants(num_steps, dev)
-    n_chunks = n * h * (-(-w // 32))
-    s9, s_out = _splits(n_chunks, DW9_SPLITS), _splits(n_chunks, DWOUT_SPLITS)
+    if not 1 <= num_steps <= MAX_T or not 1 <= n_out <= MAX_OUT:
+        raise ValueError(f"{BWD_NAME} kernel takes T <= {MAX_T} and at most "
+                         f"{MAX_OUT} readout channels")
+    dev = saved.cur.device
     f32 = torch.float32
-    vd = torch.empty(n_chunks * num_steps * 16 * 512, dtype=f32, device=dev)
-    per = torch.empty((n, h, w, c), dtype=torch.uint8, device=dev)
-    dc = torch.empty((n, h, w, num_steps, c), dtype=torch.bfloat16, device=dev)
-    ssum = torch.empty((n, h, w, c), dtype=f32, device=dev)
+    px = 64 // _padded_steps(num_steps)
+    s9 = _splits(n * h * (-(-w // px)), DW9_SPLITS)
+    s_out = _splits(n * h * w, DWOUT_SPLITS)
     part9 = torch.empty((s9 if s9 > 1 else 0, 9, c, c), dtype=f32, device=dev)
     part_out = torch.empty((s_out, c, n_out), dtype=f32, device=dev)
-    counters = torch.zeros(37, dtype=torch.int32, device=dev)
+    counters = torch.zeros(18, dtype=torch.int32, device=dev)
     dw9 = torch.empty((9, c, c), dtype=f32, device=dev)
     dw_out = torch.empty((c, n_out), dtype=f32, device=dev)
+    swept = torch.empty((n, h, w, c), dtype=f32, device=dev) if spike_sum else None
+    consts = _constants(num_steps, dev)
     fn = cb.load(BWD_NAME).rpn_level_bwd_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    code = fn(feat.data_ptr(), w9.data_ptr(), w_out.data_ptr(), consts.data_ptr(),
-              g.data_ptr(), vd.data_ptr(), per.data_ptr(), dc.data_ptr(),
-              ssum.data_ptr(), part9.data_ptr(), part_out.data_ptr(),
-              counters.data_ptr(), dw9.data_ptr(), dw_out.data_ptr(), n, h, w,
-              num_steps, n_out, s9, s_out, cb.stream_ptr(dev))
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    code = fn(saved.cur.data_ptr(), saved.per.data_ptr(), saved.ssum.data_ptr(),
+              w_out.data_ptr(), consts.data_ptr(), g.data_ptr(),
+              None if swept is None else swept.data_ptr(), part9.data_ptr(),
+              part_out.data_ptr(), counters.data_ptr(), dw9.data_ptr(), dw_out.data_ptr(),
+              n, h, w, num_steps, n_out, s9, s_out, phases, cb.stream_ptr(dev))
     cb.check(code, BWD_NAME)
     cb.LAUNCHES[BWD_NAME] += 1
-    return (dw9, dw_out, ssum) if spike_sum else (dw9, dw_out)
+    return (dw9, dw_out, swept) if spike_sum else (dw9, dw_out)
+
+
+def rpn_level_bwd_from_saved(saved: Saved, w_out: torch.Tensor, g: torch.Tensor,
+                             num_steps: int, spike_sum: bool = False):
+    """Weight gradients of one level from the training forward's saved
+    tensors: K7 (CUDA; it overwrites ``saved.cur`` with dc) or
+    :func:`rpn_level_bwd_from_saved_plain` (CPU). Same returns as
+    :func:`rpn_level_bwd_plain`."""
+    if cb.dispatch_device(saved.cur, BWD_NAME):
+        got = _launch_bwd(saved, w_out.to(torch.bfloat16).contiguous(),
+                          g.float().contiguous(), num_steps, spike_sum)
+        c = saved.cur.shape[-1]
+        return (got[0].reshape(3, 3, c, c),) + got[1:]
+    return rpn_level_bwd_from_saved_plain(saved, w_out, g, num_steps, spike_sum)
 
 
 def rpn_level_bwd(feat: torch.Tensor, w_shared: torch.Tensor, w_out: torch.Tensor,
                   g: torch.Tensor, num_steps: int, spike_sum: bool = False):
-    """Weight gradients of one level through the kernel (CUDA) or the plain
-    version (CPU). Same returns as :func:`rpn_level_bwd_plain`."""
+    """Weight gradients of one level: K1's training instance, then K7 on
+    what it saved (CUDA), or the replaying plain version (CPU). Same
+    returns as :func:`rpn_level_bwd_plain`; on CUDA the spike sums are K7's
+    sweep's."""
     if cb.dispatch_device(feat, BWD_NAME):
-        got = _launch_bwd(feat, _taps(w_shared), w_out.to(torch.bfloat16).contiguous(),
-                          g.float().contiguous(), num_steps, spike_sum)
-        return (got[0].reshape(w_shared.shape),) + got[1:]
+        *_, saved = rpn_level(feat, w_shared, w_out, num_steps, save=True)
+        return rpn_level_bwd_from_saved(saved, w_out, g, num_steps, spike_sum)
     return rpn_level_bwd_plain(feat, w_shared, w_out, g, num_steps, spike_sum)
 
 
 class RpnLevelTrain(torch.autograd.Function):
-    """One differentiable level: forward is :func:`rpn_level_train` (the
-    training forward on a CUDA tensor), backward :func:`rpn_level_bwd` (K7),
-    which replays it. Only ``feat``,
-    ``w_shared`` and ``w_out`` are kept for the backward, which replays the
-    forward. The features get no gradient: the backbone is frozen wherever
-    this route is taken."""
+    """One differentiable level: forward is :func:`rpn_level` with ``save``
+    (K1's training instance on a CUDA tensor), backward
+    :func:`rpn_level_bwd_from_saved` (K7) on the tensors it saved: the
+    currents, the period map and the spike sums, not the features. K7
+    overwrites the saved currents, so the backward runs once. The features
+    get no gradient: the backbone is frozen wherever this route is taken."""
 
     @staticmethod
     def forward(ctx, feat, w_shared, w_out, num_steps):
-        out, enc, lif = rpn_level_train(feat, w_shared, w_out, num_steps)
-        ctx.save_for_backward(feat, w_shared, w_out)
+        out, enc, lif, saved = rpn_level(feat, w_shared, w_out, num_steps, save=True)
+        ctx.save_for_backward(*saved, w_out)
         ctx.num_steps = num_steps
+        ctx.w_shape, ctx.w_dtype = w_shared.shape, w_shared.dtype
+        ctx.spent = False
         ctx.mark_non_differentiable(enc, lif)
         return out, enc, lif
 
     @staticmethod
     def backward(ctx, g_out, _g_enc, _g_lif):
-        feat, w_shared, w_out = ctx.saved_tensors
-        dw_shared, dw_out = rpn_level_bwd(feat, w_shared, w_out, g_out,
-                                          ctx.num_steps)
-        return None, dw_shared.to(w_shared.dtype), dw_out.to(w_out.dtype), None
+        if ctx.spent:
+            raise RuntimeError("RpnLevelTrain's backward runs once: K7 writes over "
+                               "the saved currents")
+        ctx.spent = True
+        cur, per, ssum, w_out = ctx.saved_tensors
+        dw_shared, dw_out = rpn_level_bwd_from_saved(Saved(cur, per, ssum), w_out, g_out,
+                                                     ctx.num_steps)
+        return (None, dw_shared.reshape(ctx.w_shape).to(ctx.w_dtype), dw_out.to(w_out.dtype),
+                None)

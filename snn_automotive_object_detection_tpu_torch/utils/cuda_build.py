@@ -32,7 +32,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
 KERNELS = ("rpn_head", "roi_align", "encoder_fc6", "box_tail", "fpn_level",
-           "stem", "rpn_head_bwd", "rpn_head_x2", "box_head_fused", "rpn_head_train")
+           "stem", "rpn_head_bwd", "rpn_head_x2", "box_head_fused")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
