@@ -1,25 +1,33 @@
 #!/usr/bin/env python3
-"""Time the ``wgmma`` kernels with parts of them switched off, on one
+"""Time the redesigned kernels with parts of them switched off, on one
 NVIDIA GPU.
 
-    python3 chip_diagnose.py            # K1, K5, K3, K4 and K7
-    python3 chip_diagnose.py K3 K4      # only those kernels' variants
+    python3 chip_diagnose.py            # K1, K5, K3, K4, K7, K2 and K6
+    python3 chip_diagnose.py K2 K6      # only those kernels' variants
+    python3 chip_diagnose.py K9         # K9's check on the input where it failed
 
-Shows what limits K1, K5, K3, K4 and K7's weight gradient. Each variant
-below replaces lines of ``csrc/rpn_head.cu`` (K1), ``csrc/fpn_level.cu``
-(K5), ``csrc/spike_gemm.cuh`` (the spike-code GEMM of K3 and K4) or
-``csrc/rpn_head_bwd.cu`` (K7) in a copy of
-``csrc/`` in a temporary directory (the repository is never edited). All
-variants build at once, one ``nvcc`` each with the package's flags, and
-each is timed with CUDA events (median of 10) at the flagship shapes
-through the kernel's C interface, so no wrapper's host work is in the
-times: K1 on the five RPN levels of an image pair at T = 8 with 15 readout
-channels, K5 on C2..C5 with 8-row and with 4-row tiles, K3 on x [2000,
-12544] at T = 12, K4 on cur6 [12, 2000, 1024] with 45 readout columns, K7's
-weight gradient alone (its C interface with only that phase) on random dc
-planes and period maps of the five levels at T = 8. A
-variant with the products or the A build switched off computes wrong
-numbers; only its time means anything.
+Shows what limits K1, K5, K3, K4, K7's weight gradient, K2 and K6. Each
+variant below replaces lines of ``csrc/rpn_head.cu`` (K1),
+``csrc/fpn_level.cu`` (K5), ``csrc/spike_gemm.cuh`` (the spike-code GEMM of
+K3 and K4), ``csrc/rpn_head_bwd.cu`` (K7), ``csrc/roi_align.cu`` (K2) or
+``csrc/stem.cu`` (K6) in a copy of ``csrc/`` in a temporary directory (the
+repository is never edited). All variants build at once, one ``nvcc`` each
+with the package's flags, and each is timed with CUDA events at the
+flagship shapes through the kernel's C interface, so no wrapper's host work
+is in the times (median of 10 single launches; K2 and K6, whose launches are
+shorter, per launch over runs of 20): K1 on the five RPN levels of an image
+pair at T = 8 with 15 readout channels, K5 on C2..C5 with 8-row and with
+4-row tiles, K3 on x [2000, 12544] at T = 12, K4 on cur6 [12, 2000, 1024]
+with 45 readout columns, K7's weight gradient alone (its C interface with
+only that phase) on random dc planes and period maps of the five levels at
+T = 8, K2 on 2 x 1000 boxes over P2..P5, K6 on a 2 x 768 x 1536 image pair.
+A variant with a part switched off computes wrong numbers; only its time
+means anything (the separable K2 computes RoIAlign, summed in another
+order).
+
+``K9`` alone replays ``chip_smoke.py``'s kernel phases to the input on
+which K9's check once failed and compares that row's per-step spike trains
+between K9 and its plain version (:func:`k9_flips`).
 """
 
 from __future__ import annotations
@@ -77,6 +85,127 @@ K7_NO_A_BUILD = [
     ("a[kk][2 * h + 1] = spike_pair(q[8], lo[j], hi[j]);",
      "a[kk][2 * h + 1] = (uint32_t)hi[j] + h;")]
 
+# K2: the corner loads replaced by their addresses; the stores skipped
+# (the sums stay live); every box on the finest level; and the separable
+# variant, which interpolates along x first and reuses a column that the
+# previous x-sample's high corner loaded (not bit-equal: other sums).
+K2_NO_GATHERS = [("  return __ldg(reinterpret_cast<const uint4*>(p));",
+                  "  return make_uint4((uint32_t)(uintptr_t)p, 0u, 0u, 0u);")]
+K2_NO_STORES = [("      float4* dst = reinterpret_cast<float4*>(o + (int64_t)px * c + ch);",
+                 "      if (acc[0] != -1.5e38f) continue;\n"
+                 "      float4* dst = reinterpret_cast<float4*>(o + (int64_t)px * c + ch);")]
+K2_LEVEL_0 = [("    const int lvl = (int)(k - (float)k_min);", "    const int lvl = 0;")]
+# Output stores marked evict-first, so that the 100 MB of output leaves
+# the L2 to the feature rows; corner loads that bypass L1.
+K2_STREAM_STORES = [
+    ("      dst[0] = make_float4(", "      __stcs(dst, make_float4("),
+    ("      dst[1] = make_float4(", "      __stcs(dst + 1, make_float4("),
+    ("acc[2] / 4.0f, acc[3] / 4.0f);", "acc[2] / 4.0f, acc[3] / 4.0f));"),
+    ("acc[6] / 4.0f, acc[7] / 4.0f);", "acc[6] / 4.0f, acc[7] / 4.0f));")]
+K2_NO_L1 = [("  return __ldg(reinterpret_cast<const uint4*>(p));",
+             "  return __ldcg(reinterpret_cast<const uint4*>(p));")]
+# Fewer registers for a fifth resident block (72 registers hold 4 blocks
+# of 7 warps an SM); two bins' loads in flight at once.
+K2_BLOCKS_5 = [("__launch_bounds__(kThreads)\n", "__launch_bounds__(kThreads, 5)\n")]
+K2_UNROLL_2 = [("#pragma unroll 1\n    for (int px = 0; px < kOut; ++px) {",
+                "#pragma unroll 2\n    for (int px = 0; px < kOut; ++px) {")]
+K2_SEPARABLE = [("""#pragma unroll 1
+    for (int px = 0; px < kOut; ++px) {
+      uint4 v[2][2][4];""", """    float acc2[kOut][8];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const Sample& y = tab[0][2 * py + a];
+      const int64_t r0 = (int64_t)y.lo * W, r1 = (int64_t)y.hi * W;
+      int cached = -1;
+      float c0[8], c1[8];
+#pragma unroll
+      for (int ix = 0; ix < kS; ++ix) {
+        const Sample& x = tab[1][ix];
+        float lo0[8], lo1[8], hi0[8], hi1[8];
+        if (x.lo == cached) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            lo0[j] = c0[j];
+            lo1[j] = c1[j];
+          }
+        } else {
+          unpack8(ld16(f + (r0 + x.lo) * c + ch), lo0);
+          unpack8(ld16(f + (r1 + x.lo) * c + ch), lo1);
+        }
+        unpack8(ld16(f + (r0 + x.hi) * c + ch), hi0);
+        unpack8(ld16(f + (r1 + x.hi) * c + ch), hi1);
+        cached = x.hi;
+        const float vm = y.valid * x.valid;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          c0[j] = hi0[j];
+          c1[j] = hi1[j];
+          const float sv = (y.h * (x.h * lo0[j] + x.l * hi0[j]) +
+                            y.l * (x.h * lo1[j] + x.l * hi1[j])) * vm;
+          acc2[ix / 2][j] = (a == 0 && ix % 2 == 0) ? sv : acc2[ix / 2][j] + sv;
+        }
+      }
+    }
+#pragma unroll
+    for (int px = 0; px < kOut; ++px) {
+      float4* dst2 = reinterpret_cast<float4*>(o + (int64_t)px * c + ch);
+      dst2[0] = make_float4(acc2[px][0] / 4.0f, acc2[px][1] / 4.0f, acc2[px][2] / 4.0f,
+                            acc2[px][3] / 4.0f);
+      dst2[1] = make_float4(acc2[px][4] / 4.0f, acc2[px][5] / 4.0f, acc2[px][6] / 4.0f,
+                            acc2[px][7] / 4.0f);
+    }
+#pragma unroll 1
+    for (int px = 0; px < 0; ++px) {
+      uint4 v[2][2][4];""")]
+
+# K6: the products replaced by a use of A and B; the window read from the
+# image by plain loads in the conversion pass (no TMA, the ring's barrier
+# completed by an arrival); the old 4-row tiles; the pool or the
+# conversion skipped; and, with none of those three, the A loads replaced
+# by constants, the epilogue's stores and the ring's wait skipped: what is
+# left is the tile loop itself (barriers, the epilogue's arithmetic,
+# the prologue).
+K6_NO_PRODUCTS = [("if (act[j]) wgmma_rs_n64(acc[j], a[h][j], db + h * 2);",
+                   "if (act[j]) acc[j][h] += __uint_as_float(a[h][j][0] ^ a[h][j][3]) + "
+                   "(float)(db & 1);")]
+K6_NO_TMA = [
+    ("""    mbar_expect_tx(&full[slot], kBoxBytes);
+    tma_load_3d(smem + kOffRing + slot * kStageBytes, &map_img, &full[slot],
+                3 * (4 * t.px0 - 5) - 1, 4 * t.py0 - 5, t.n);""",
+     """    (void)t;
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\\n" ::"r"(smem_u32(&full[slot]))
+                 : "memory");"""),
+    ("""      const float4 f0 = *reinterpret_cast<const float4*>(src);
+      const float4 f1 = *reinterpret_cast<const float4*>(src + 4);
+      const float4 f2 = *reinterpret_cast<const float4*>(src + 8);
+      const float v[12] = {f0.y, f0.z, f0.w, f1.x, f1.y, f1.z, f1.w, f2.x, f2.y, f2.z, f2.w,
+                           src[12]};""",
+     """      (void)src;
+      float v[12];
+#pragma unroll
+      for (int e = 0; e < 12; ++e) {
+        const int x = 3 * ix0 + 12 * j + e;
+        v[e] = (row_in && x >= 0 && x < 3 * W) ? img_g[((int64_t)t.n * H + iy) * 3 * W + x]
+                                               : 0.0f;
+      }"""),
+    ("stem_kernel(const __grid_constant__ CUtensorMap map_img,   // img [N, H, 3 W] f32",
+     "stem_kernel(const __grid_constant__ CUtensorMap map_img, const float* __restrict__ img_g,"),
+    ("      map, reinterpret_cast<const bf16*>(wk), bias,",
+     "      map, img, reinterpret_cast<const bf16*>(wk), bias,")]
+K6_4_ROWS = [("constexpr int kTP = 8;", "constexpr int kTP = 4;")]
+K6_NO_POOL = [("    for (int i = tid; i < kTP * kTQ * (kCo / 8); i += kThreads) {",
+               "    for (int i = tid; i < 0; i += kThreads) {")]
+K6_NO_CONVERT = [("    for (int q = tid; q < kIR * kGroups; q += kThreads) {",
+                  "    for (int q = tid; q < 0; q += kThreads) {")]
+K6_NO_A = [(f"a[h][j][{i}] = lds32({p});", f"a[h][j][{i}] = (uint32_t)(kk + {i});")
+           for i, p in enumerate(("a_lo[j] + kk", "a_hi[j] + kk", "a_lo[j] + kk + 8",
+                                  "a_hi[j] + kk + 8"))]
+K6_NO_EPILOGUE = [("            *reinterpret_cast<__nv_bfloat162*>(conv_s + m * kLdc + ch) =",
+                   "            if (c.x == -3.0f) "
+                   "*reinterpret_cast<__nv_bfloat162*>(conv_s + m * kLdc + ch) =")]
+K6_NO_WAIT = [("mbar_wait(&full[slot], (s / kStages) & 1);", "(void)full;")]
+
+
 # (kernel, variant, replacements)
 VARIANTS = [
     ("K1", "as built", []),
@@ -99,11 +228,31 @@ VARIANTS = [
     ("K7", "as built", []),
     ("K7", "no products", K7_NO_PRODUCTS),
     ("K7", "no A build", K7_NO_A_BUILD),
-    ("K7", "dc stream only", K7_NO_PRODUCTS + K7_NO_A_BUILD)]
+    ("K7", "dc stream only", K7_NO_PRODUCTS + K7_NO_A_BUILD),
+    ("K2", "as built", []),
+    ("K2", "no gathers", K2_NO_GATHERS),
+    ("K2", "no stores", K2_NO_STORES),
+    ("K2", "every box on level 0", K2_LEVEL_0),
+    ("K2", "separable", K2_SEPARABLE),
+    ("K2", "5 blocks an SM", K2_BLOCKS_5),
+    ("K2", "two bins in flight", K2_UNROLL_2),
+    ("K2", "evict-first output stores", K2_STREAM_STORES),
+    ("K2", "corner loads past L1", K2_NO_L1),
+    ("K6", "as built", []),
+    ("K6", "no products", K6_NO_PRODUCTS),
+    ("K6", "window load without TMA", K6_NO_TMA),
+    ("K6", "4-row tiles", K6_4_ROWS),
+    ("K6", "no pool", K6_NO_POOL),
+    ("K6", "no conversion", K6_NO_CONVERT),
+    ("K6", "no products, no pool, no conversion", K6_NO_PRODUCTS + K6_NO_POOL + K6_NO_CONVERT),
+    ("K6", "none of the three, no A loads", K6_NO_PRODUCTS + K6_NO_POOL + K6_NO_CONVERT + K6_NO_A),
+    ("K6", "none of the three, no A loads, no epilogue stores, no ring wait",
+     K6_NO_PRODUCTS + K6_NO_POOL + K6_NO_CONVERT + K6_NO_A + K6_NO_EPILOGUE + K6_NO_WAIT)]
 # (the file the replacements patch, the source built)
 SOURCE = {"K1": ("rpn_head.cu", "rpn_head.cu"), "K5": ("fpn_level.cu", "fpn_level.cu"),
           "K3": ("spike_gemm.cuh", "encoder_fc6.cu"), "K4": ("spike_gemm.cuh", "box_tail.cu"),
-          "K7": ("rpn_head_bwd.cu", "rpn_head_bwd.cu")}
+          "K7": ("rpn_head_bwd.cu", "rpn_head_bwd.cu"), "K2": ("roi_align.cu", "roi_align.cu"),
+          "K6": ("stem.cu", "stem.cu")}
 
 
 def build(tmp: Path, variants):
@@ -140,6 +289,136 @@ def build(tmp: Path, variants):
     return libs
 
 
+def _bind(lib, symbol, argtypes):
+    """``symbol`` of ``lib`` with its types set, once per library."""
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+    return fn
+
+
+def _plain_box_head_trains(x, w6, w7, wc, wb, t, s6_given=None, exact7=False):
+    """fastrcnn_snn_plain's steps, keeping every step's spikes: (fc6 spikes
+    [T, R, H], fc7 spikes [T, R, H], class logits, box deltas). With
+    ``s6_given`` fc7 runs on those fc6 spikes; with ``exact7`` each fc7
+    current is the f64 sum rounded once to f32 (another rounding only)."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.snn import functional as snnf
+
+    bf = torch.bfloat16
+    r, rep = x.shape[0], w6.shape[1]
+    periods = snnf.encoder_periods(x)
+    w6, w7, wc, wb = (w.to(bf).float() for w in (w6, w7, wc, wb))
+    l6 = snnf.zeros_lif_state((r, rep), device=x.device)
+    l7 = snnf.zeros_lif_state((r, rep), device=x.device)
+    li_c = snnf.zeros_li_state((r, wc.shape[1]), device=x.device)
+    li_b = snnf.zeros_li_state((r, wb.shape[1]), device=x.device)
+    s6s, s7s = [], []
+    for step in range(t):
+        z = snnf.encoder_spikes_at(periods, step)
+        s6, l6 = snnf.lif_feed_forward_step(torch.matmul(z, w6), l6)
+        if s6_given is not None:
+            s6 = s6_given[step]
+        cur7 = (torch.matmul(s6.double(), w7.double()).float() if exact7
+                else torch.matmul(s6, w7))
+        s7, l7 = snnf.lif_feed_forward_step(cur7, l7)
+        _, li_c = snnf.li_feed_forward_step(torch.matmul(s7, wc), li_c)
+        _, li_b = snnf.li_feed_forward_step(torch.matmul(s7, wb), li_b)
+        s6s.append(s6)
+        s7s.append(s7)
+    return torch.stack(s6s), torch.stack(s7s), li_c.v, li_b.v
+
+
+def k9_flips(dev) -> int:
+    """K9 on the inputs on which ``chip_smoke.check_box_head_fused`` once
+    failed: the kernel phases replayed with K2's two same-stride maps drawn
+    from the shared generator, as the K2 phase first drew them. For each
+    row with equal spike counts outside the check's bound, prints the
+    per-step fc6 spike trains of K9 (its fc6 scratch) against the plain
+    version's, the plain fc7 and readouts run on K9's own fc6 spikes, and
+    how many of the row's fc7 spikes move when only the rounding of the
+    fc7 sum changes. Returns 1 if the failure does not reproduce."""
+    import torch
+
+    import chip_smoke
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_kernels as k9
+    from snn_automotive_object_detection_tpu_torch.snn import functional as snnf
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+
+    cb.build_all()
+    results = []
+    g = torch.Generator(device=dev).manual_seed(1234)
+    for check in chip_smoke.KERNEL_CHECKS[:-1]:
+        check(dev, g, results)
+        if check is chip_smoke.check_roi_align:
+            for _ in range(2):
+                torch.randn((2, 24, 48, 256), generator=g, device=dev)
+    assert chip_smoke.KERNEL_CHECKS[-1] is chip_smoke.check_box_head_fused
+    x, w6, w7, wc, wb = chip_smoke.box_head_inputs(dev, g)
+    r, d = x.shape
+    rep, t, bf = 1024, 12, torch.bfloat16
+
+    # K9 through its C interface, keeping its fc6 spike scratch.
+    periods = snnf.encoder_periods(x).contiguous()
+    w6b, w7b = w6.to(bf).contiguous(), w7.to(bf).contiguous()
+    wro = torch.cat([wc, wb], 1).to(bf).contiguous()
+    s6 = torch.empty((t, -(-r // k9.ROW_TILE) * k9.ROW_TILE, rep), dtype=bf, device=dev)
+    out = torch.empty((r, 45), device=dev)
+    ints = torch.zeros(2 * r + 1, dtype=torch.int32, device=dev)
+    fn = cb.function(k9.NAME, "box_head_fused_bf16",
+                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    cb.check(fn(periods.data_ptr(), w6b.data_ptr(), w7b.data_ptr(), wro.data_ptr(),
+                s6.data_ptr(), out.data_ptr(), ints.data_ptr(), ints.data_ptr() + 8 * r, r, d,
+                t, 45, cb.stream_ptr(dev)), k9.NAME)
+    k_s6 = s6[:, :r].float()
+    k_counts = ints[:2 * r].reshape(r, 2).long()
+
+    p_s6, p_s7, p_cls, p_reg = _plain_box_head_trains(x, w6, w7, wc, wb, t)
+    want = k9.fastrcnn_snn_plain(x, w6, w7, wc, wb, t)
+    same = torch.equal(p_cls, want[0]) and torch.equal(p_reg, want[1])
+    p_counts = torch.stack([p_s6.sum((0, 2)), p_s7.sum((0, 2))], 1).long()
+    n6, n7 = int(p_counts[:, 0].sum()), int(p_counts[:, 1].sum())
+    flips = (k_counts - p_counts).abs().sum(0).tolist()
+    clean = (k_counts == p_counts).all(1)
+    got_l, want_l = out, torch.cat([p_cls, p_reg], 1)
+    excess = ((got_l - want_l).abs() / (1e-3 * (1.0 + want_l.abs()))).amax(1)
+    bad = torch.nonzero(clean & (excess > 1)).flatten().tolist()
+    print(f"K9 replay: the step-keeping plain version equals fastrcnn_snn_plain: {same}; "
+          f"flipped spikes (per-row count differences) fc6 {flips[0]} of {n6}, fc7 "
+          f"{flips[1]} of {n7}; {int(clean.sum())} of {r} rows with equal counts; rows "
+          f"with equal counts outside the bound: {bad}")
+    if not bad:
+        print("K9 replay: the failure did not reproduce")
+        return 1
+
+    # The plain tail on K9's own fc6 spikes, and the plain head with only
+    # the fc7 sum's rounding changed.
+    _, q_s7, q_cls, q_reg = _plain_box_head_trains(x, w6, w7, wc, wb, t, s6_given=k_s6)
+    _, e_s7, _, _ = _plain_box_head_trains(x, w6, w7, wc, wb, t, exact7=True)
+    q_l = torch.cat([q_cls, q_reg], 1)
+
+    def per_step(a, b, row):
+        up = (a[:, row] > b[:, row]).sum(1).tolist()
+        down = (a[:, row] < b[:, row]).sum(1).tolist()
+        return " ".join(f"{u}/{v}" for u, v in zip(up, down))
+
+    for row in bad[:4]:
+        ex_q = ((got_l[row] - q_l[row]).abs() / (1e-3 * (1.0 + q_l[row].abs()))).max().item()
+        print(f"K9 replay row {row}: {excess[row].item():.3g} of the bound; counts fc6 "
+              f"{k_counts[row, 0].item()} fc7 {k_counts[row, 1].item()} (plain the same)")
+        print(f"  fc6 spikes K9 over / under the plain version, per step: "
+              f"{per_step(k_s6, p_s6, row)}")
+        print(f"  fc7 spikes of the plain tail on K9's fc6 spikes over / under the plain "
+              f"version, per step: {per_step(q_s7, p_s7, row)}")
+        print(f"  K9's logits against the plain tail on K9's fc6 spikes: {ex_q:.3g} of the "
+              f"bound 1e-3 (1 + |want|)")
+        print(f"  fc7 spikes with the fc7 sum rounded once from f64, over / under the plain "
+              f"version, per step: {per_step(e_s7, p_s7, row)}")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -147,16 +426,22 @@ def main() -> int:
         print("chip_diagnose: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke
+
+    chip_smoke.reference_numerics()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    if sys.argv[1:] == ["K9"]:
+        return k9_flips(torch.device("cuda:0"))
+    from snn_automotive_object_detection_tpu_torch.models import transform
     from snn_automotive_object_detection_tpu_torch.ops import cuda_fpn as k5
+    from snn_automotive_object_detection_tpu_torch.ops import cuda_roi_align as k2
+    from snn_automotive_object_detection_tpu_torch.ops import cuda_stem as k6
     from snn_automotive_object_detection_tpu_torch.snn import cuda_fc6 as k3
     from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
     from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
 
     chosen = [v for v in VARIANTS if not sys.argv[1:] or v[0] in sys.argv[1:]]
 
-    chip_smoke.reference_numerics()
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
@@ -174,9 +459,8 @@ def main() -> int:
         n, h, w, _ = f.shape
         out = torch.empty((n, h, w, 15), device=dev)
         counts = torch.zeros((n, 2), dtype=torch.int64, device=dev)
-        fn = lib.rpn_level_bf16
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn = _bind(lib, "rpn_level_bf16", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
         cb.check(fn(f.data_ptr(), w9_t.data_ptr(), wout.data_ptr(), consts.data_ptr(),
                     out.data_ptr(), counts.data_ptr(), None, n, h, w, 8, 15, stream), "K1")
 
@@ -198,9 +482,8 @@ def main() -> int:
         wlat_t, blat, w9t, bout = ws[i]
         p = torch.empty((n, h, w, 256), dtype=bf, device=dev)
         m = torch.empty_like(p) if i > 0 else None
-        fn = lib.fpn_level_bf16
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn = _bind(lib, "fpn_level_bf16", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
         cb.check(fn(c.data_ptr(), None if nexts[i] is None else nexts[i].data_ptr(),
                     wlat_t.data_ptr(), blat.data_ptr(), w9t.data_ptr(), bout.data_ptr(),
                     p.data_ptr(), None if m is None else m.data_ptr(), n, h, w, cin, rows,
@@ -216,9 +499,8 @@ def main() -> int:
     x_codes = torch.empty((2000, 12544), dtype=torch.int16, device=dev)
 
     def k3_run(lib):
-        fn = lib.encoder_fc6_bf16
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn = _bind(lib, "encoder_fc6_bf16", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
         cb.check(fn(x.data_ptr(), w6.data_ptr(), thr.data_ptr(), cur6_f.data_ptr(),
                     enc_counts.data_ptr(), x_codes.data_ptr(), 2000, 12544, 1024, 12, stream),
                  "K3")
@@ -234,9 +516,8 @@ def main() -> int:
     codes = torch.empty((2, 2000, 1024), dtype=torch.int16, device=dev)
 
     def k4_run(lib):
-        fn = lib.box_tail_bf16
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn = _bind(lib, "box_tail_bf16", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
         cb.check(fn(cur6.data_ptr(), w7.data_ptr(), wro.data_ptr(), logits.data_ptr(),
                     tail_counts.data_ptr(), codes[0].data_ptr(), codes[1].data_ptr(), 2000, 12,
                     1024, 45, stream), "K4")
@@ -254,17 +535,51 @@ def main() -> int:
         s9 = k1._splits(n * h * (-(-w // 8)), k1.DW9_SPLITS)
         part9 = torch.empty((s9, 9, c, c), device=dev)
         counters = torch.zeros(18, dtype=torch.int32, device=dev)
-        fn = lib.rpn_level_bwd_bf16
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn = _bind(lib, "rpn_level_bwd_bf16", [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
         cb.check(fn(dcs[i].data_ptr(), pers[i].data_ptr(), None, wout.data_ptr(),
                     consts.data_ptr(), None, None, part9.data_ptr(), None,
                     counters.data_ptr(), dw9.data_ptr(), None, n, h, w, t, 15, s9, 1, 2,
                     stream), "K7")
 
+    # K2: 2 x 1000 boxes over P2..P5 as chip_smoke.check_roi_align draws
+    # them (without its border boxes).
+    pooled = [torch.randn((2, h, w, 256), generator=g, device=dev).to(bf) for h, w in levels[:4]]
+    ctr = torch.rand((2, 1000, 2), generator=g, device=dev) * torch.tensor([1536.0, 768.0],
+                                                                          device=dev)
+    wh = torch.rand((2, 1000, 2), generator=g, device=dev) * 400.0 + 4.0
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], dim=-1).contiguous()
+    roi_out = torch.empty((2, 1000, 7, 7, 256), device=dev)
+    geo = k2.geometry(tuple(levels[:4]), (768, 1536))
+    k2_args = ([f.data_ptr() for f in pooled] + [pooled[0].data_ptr(), ctypes.addressof(geo),
+                                                 boxes.data_ptr(), 2000, 1000, 256,
+                                                 roi_out.data_ptr(), stream])
+
+    def k2_run(lib):
+        cb.check(_bind(lib, "roi_align_bf16", k2._ARGTYPES)(*k2_args), "K2")
+
+    # K6: a flagship image pair, He-normal weights folded as the wrapper does.
+    images = torch.rand((2, 768, 1536, 3), generator=g, device=dev)
+    wf, sbias = k6.fold_stem_weights(
+        torch.randn((7, 7, 3, 64), generator=g, device=dev) * (2.0 / (49 * 64)) ** 0.5,
+        torch.rand(64, generator=g, device=dev) + 0.5,
+        torch.randn(64, generator=g, device=dev) * 0.2, transform.IMAGENET_MEAN,
+        transform.IMAGENET_STD)
+    wk, sbias = k6.kernel_weights(wf), sbias.contiguous()
+    stem_out = torch.empty((2, 192, 384, 64), dtype=bf, device=dev)
+
+    def k6_run(lib):
+        fn = _bind(lib, "stem_bf16", k6._ARGTYPES)
+        cb.check(fn(images.data_ptr(), wk.data_ptr(), sbias.data_ptr(), stem_out.data_ptr(),
+                    *transform.IMAGENET_MEAN, 2, 768, 1536, stream), "K6")
+
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(Path(tmp), chosen)
         for (kernel, variant, _), lib in zip(chosen, libs):
+            if kernel in ("K2", "K6"):
+                ms = chip_smoke._loop_ms(lambda: (k2_run if kernel == "K2" else k6_run)(lib))
+                print(f"{kernel} {variant}: {ms:.4f} ms a bare launch")
+                continue
             if kernel == "K7":
                 per = [chip_smoke._median_ms(lambda: k7_run(lib, i), 10)
                        for i in range(len(levels))]

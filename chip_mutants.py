@@ -34,8 +34,29 @@ MUTANTS = [
      "float v0 = __bfloat162float(blat[ch]), v1 = __bfloat162float(blat[ch + 1]);",
      "check_fpn", "fpn_level"),
     ("K6: zero in place of the mean on taps outside the image",
-     "stem.cu", "v = ch == 0 ? mean_b0 : (ch == 1 ? mean_b1 : mean_b2);", "v = zero_b;",
+     "stem.cu", "o[3 * p + ch] = in ? __float2bfloat16_rn(v[3 * p + ch]) : mean_b[ch];",
+     "o[3 * p + ch] = in ? __float2bfloat16_rn(v[3 * p + ch]) : __float2bfloat16_rn(0.0f);",
      "check_stem", "stem_kernel"),
+    ("K6: the mean substitution dropped at the right border (the TMA's zeros kept)",
+     "stem.cu", "const bool in = row_in && ix >= 0 && ix < W;",
+     "const bool in = row_in && ix >= 0;", "check_stem", "stem_kernel"),
+    ("K6: a window read from the other ring stage",
+     "stem.cu", "const float* st = ring + slot * (kStageBytes / 4);",
+     "const float* st = ring + ((slot + 1) % kStages) * (kStageBytes / 4);",
+     "check_stem", "stem_kernel"),
+    ("K2: the sub-bin offset 0.25 moved to 0.5",
+     "roi_align.cu", "const float sub = (i % 2 == 0) ? 0.25f : 0.75f;",
+     "const float sub = (i % 2 == 0) ? 0.5f : 0.75f;", "check_roi_align", "roi_align"),
+    ("K2: torchvision's validity mask dropped (samples past the border kept)",
+     "roi_align.cu", "s.valid = (c >= -1.0f && c <= (float)size) ? 1.0f : 0.0f;",
+     "s.valid = 1.0f;", "check_roi_align", "roi_align"),
+    ("K2: the level mapper rounding where it floors",
+     "roi_align.cu", "float k = floorf(4.0f + log2f(sqrtf(area) / 224.0f) + 1e-6f);",
+     "float k = rintf(4.0f + log2f(sqrtf(area) / 224.0f) + 1e-6f);", "check_roi_align",
+     "roi_align"),
+    ("K2: the level mapper's upper clamp one level low (only boxes of 448 pixels and up move)",
+     "roi_align.cu", "k = fminf(fmaxf(k, (float)k_min), (float)k_max);",
+     "k = fminf(fmaxf(k, (float)k_min), (float)(k_max - 1));", "check_roi_align", "roi_align"),
     ("K5: P rounded once (the conv sum not rounded before the bias add), even channels",
      "fpn_level.cu",
      "o.x = __float2bfloat16_rn(bf16_round(acc[4 * j + 2 * h]) + __bfloat162float(bout[ch]));",

@@ -50,7 +50,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
                held to its plain version at R = 2000 with the flipped fc6
                and fc7 spikes counted (rows with equal counts within 1e-3
                (1 + |want|), all rows within 0.25 (1 + |want|)), and timed
-               beside the two-kernel route on the same inputs.
+               beside the two-kernel route on the same inputs. The
+               RoIAlign (K2) is held to its plain version within 1e-5 (the
+               count of differing elements printed) on 2 x 1000 boxes with
+               boxes on the level mapper's borders among them, and on two
+               levels of one stride; one call must run one device kernel
+               and nothing else. K2 and the stem (K6) print the time of a
+               call (wrapper included) beside that of a bare launch
+               through the C interface (``bare_ms`` in the JSON line).
   4. main    - the flagship detector (ResNet-50-FPN, spiking RPN and box
                heads, bf16 GEMMs, f32 neuron states, random weights from a
                seed) on synthetic 2 x 768 x 1536 batches through
@@ -94,6 +101,7 @@ The line before last is a JSON object listing the kernels; the last line is
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -144,12 +152,16 @@ def _bound(n_bytes, tensor_ops, f32_ops=0.0):
 
 
 def _record(results, name, replaces, err, ms, pms, bound, library_ms=None,
-            product_only_ms=None):
+            product_only_ms=None, bare_ms=None):
     """One kernel's entry of the JSON line. ``library_ms`` is a PyTorch call
     that computes the kernel's whole function; ``product_only_ms``, where no
     call does, cuBLAS's time for the kernel's dense product alone on
-    materialised spikes (an extra key)."""
+    materialised spikes (an extra key); ``bare_ms``, the time of a bare
+    launch through the C interface beside ``ms``, the call's (an extra
+    key)."""
     extra = {} if product_only_ms is None else {"product_only_ms": product_only_ms}
+    if bare_ms is not None:
+        extra["bare_ms"] = bare_ms
     results.append(dict(
         name=name, route="cuda",
         source=f"snn_automotive_object_detection_tpu_torch/csrc/{name}.cu",
@@ -248,48 +260,116 @@ def check_rpn_head(dev, g, results):
                    10.0 * neurons))
 
 
+def _loop_ms(fn, reps=20, iters=5):
+    """Median over ``iters`` of the CUDA-event time of ``reps`` calls in a
+    row, per call: the device time of a bare launch, with the host's work
+    per call hidden behind the launches queued before it."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def _device_kernels(run):
+    """The names of the device kernels one ``run()`` launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def check_kernels(dev, results):
     import torch
 
-    from snn_automotive_object_detection_tpu_torch.ops import cuda_roi_align as k2
-    from snn_automotive_object_detection_tpu_torch.ops.roi_align import level_geometry
-
     g = torch.Generator(device=dev).manual_seed(1234)
-    bf = torch.bfloat16
-    levels = [(192, 384), (96, 192), (48, 96), (24, 48), (12, 24)]
-    check_rpn_head(dev, g, results)
+    for check in KERNEL_CHECKS:
+        check(dev, g, results)
 
-    # K2: RoIAlign of 2 x 1000 boxes over P2..P5.
+
+def check_roi_align(dev, g, results):
+    """K2: RoIAlign of 2 x 1000 boxes over P2..P5, with boxes on the level
+    mapper's borders among them; and two levels of one stride, as the
+    MobileNet route passes them."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.ops import cuda_roi_align as k2
+    from snn_automotive_object_detection_tpu_torch.ops.roi_align import (
+        assign_fpn_levels, level_geometry, rows_read)
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+    from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
+
+    bf = torch.bfloat16
+    size = (768, 1536)
+    levels = [(192, 384), (96, 192), (48, 96), (24, 48)]
     pooled_feats = [torch.randn((2, h, w, 256), generator=g, device=dev).to(bf)
-                    for h, w in levels[:4]]
+                    for h, w in levels]
     ctr = torch.rand((2, 1000, 2), generator=g, device=dev) * torch.tensor(
         [1536.0, 768.0], device=dev)
-    size = torch.rand((2, 1000, 2), generator=g, device=dev) * 400.0 + 4.0
-    boxes = torch.cat([ctr - size / 2, ctr + size / 2], dim=-1).contiguous()
-    got = k2._launch(pooled_feats, boxes, (768, 1536))
-    want = k2.plain(pooled_feats, boxes, (768, 1536))
-    err = (got - want).abs().max().item()
-    lv, _ = level_geometry(pooled_feats, boxes, (768, 1536))
-    print(f"K2 roi_align: max|diff| {err:.3g} (tol 1e-5) at max|out| "
-          f"{want.abs().max().item():.4g}; boxes per level "
-          f"{torch.bincount(lv.flatten().long(), minlength=4).tolist()}")
-    if err > 1e-5 or not torch.isfinite(got).all():
-        _fail("K2 disagrees with its plain version")
-    ms = _median_ms(lambda: k2._launch(pooled_feats, boxes, (768, 1536)), 10)
-    pms = _median_ms(lambda: k2.plain(pooled_feats, boxes, (768, 1536)), 5)
-    # Each output is the mean of 2 x 2 samples of 4 corners: about 8 x 4 f32
-    # operations.
-    _record(results, "roi_align", "ops/pallas_roi_align.py:309", err, ms, pms,
-            _bound(_nbytes(*pooled_feats, boxes, got), 0.0, 32.0 * got.numel()))
+    wh = torch.rand((2, 1000, 2), generator=g, device=dev) * 400.0 + 4.0
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], dim=-1)
+    border = kc.level_border_boxes(lambda b: assign_fpn_levels(b, 4), dev)
+    boxes[:, :border.shape[0]] = border
+    boxes = boxes.contiguous()
 
-    check_encoder_fc6(dev, g, results)
-    check_box_tail(dev, g, results)
-    check_fpn(dev, g, results)
-    check_stem(dev, g, results)
-    check_rpn_bwd(dev, g, results)
-    check_wide_readout(dev, g, results)
-    check_rpn_x2(dev, g, results)
-    check_box_head_fused(dev, g, results)
+    def hold(feats, bxs, what):
+        got = k2._launch(feats, bxs, size)
+        want = k2.plain(feats, bxs, size)
+        err = (got - want).abs().max().item()
+        diff = int((got != want).sum())
+        lv, _ = level_geometry(feats, bxs, size)
+        per_level = torch.bincount(lv.flatten().long(), minlength=len(feats)).tolist()
+        print(f"K2 roi_align {what}: max|diff| {err:.3g} (tol 1e-5) at max|out| "
+              f"{want.abs().max().item():.4g}, {diff} of {want.numel()} elements differ; "
+              f"boxes per level {per_level}")
+        if err > 1e-5 or not torch.isfinite(got).all():
+            _fail(f"K2 disagrees with its plain version ({what})")
+        return got, err
+
+    got, err = hold(pooled_feats, boxes, "P2..P5")
+    # The same-stride pair draws from a generator of its own, so that the
+    # phases after this one keep their inputs.
+    g2 = torch.Generator(device=dev).manual_seed(5)
+    top = [torch.randn((2, 24, 48, 256), generator=g2, device=dev).to(bf) for _ in range(2)]
+    hold(top, boxes, "two levels of stride 32")
+    kernels = _device_kernels(lambda: k2.roi_align(pooled_feats, boxes, size))
+    print(f"K2 roi_align: one call runs {kernels}")
+    if len(kernels) != 1:
+        _fail("a K2 call runs other device work than its one kernel")
+
+    geo = k2.geometry(tuple(levels), size)
+    out = torch.empty_like(got)
+    ptrs = [f.data_ptr() for f in pooled_feats] + [pooled_feats[0].data_ptr()]
+    fn = cb.function(k2.NAME, "roi_align_bf16", k2._ARGTYPES)
+    args = (*ptrs, ctypes.addressof(geo), boxes.data_ptr(), 2000, 1000, 256, out.data_ptr(),
+            cb.stream_ptr(dev))
+    bare = _loop_ms(lambda: cb.check(fn(*args), k2.NAME))
+    ms = _median_ms(lambda: k2._launch(pooled_feats, boxes, size), 10)
+    pms = _median_ms(lambda: k2.plain(pooled_feats, boxes, size), 5)
+    print(f"K2 roi_align: {ms:.4f} ms a call, {bare:.4f} ms a bare launch")
+    # The compulsory reads are the feature rows that this run's samples
+    # weight nonzero, each once, not the whole pooled maps. Each output is
+    # the mean of 2 x 2 samples of 4 corners: about 8 x 4 f32 operations.
+    rows = rows_read(pooled_feats, boxes, size)
+    total = sum(h * w for h, w in levels) * 2
+    print(f"K2 roi_align: the samples read {rows} of the {total} feature rows "
+          f"({rows / total:.3f}), {rows * 256 * 2 / 1e6:.1f} MB")
+    _record(results, "roi_align", "ops/pallas_roi_align.py:309", err, ms, pms,
+            _bound(rows * 256 * 2 + _nbytes(boxes, got), 0.0, 32.0 * got.numel()),
+            bare_ms=bare)
 
 
 def check_encoder_fc6(dev, g, results):
@@ -487,6 +567,7 @@ def check_stem(dev, g, results):
 
     from snn_automotive_object_detection_tpu_torch.models import resnet_fpn, transform
     from snn_automotive_object_detection_tpu_torch.ops import cuda_stem as k6
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
     from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
 
     mean, std = transform.IMAGENET_MEAN, transform.IMAGENET_STD
@@ -517,11 +598,18 @@ def check_stem(dev, g, results):
         x = transform.normalize_images(images, mean, std).to(torch.bfloat16)
         return resnet_fpn.stem_apply_unfused(stem, x)
 
+    out = torch.empty_like(got)
+    fn = cb.function(k6.NAME, "stem_bf16", k6._ARGTYPES)
+    args = (images.data_ptr(), wk.data_ptr(), bias.data_ptr(), out.data_ptr(), *mean,
+            2, 768, 1536, cb.stream_ptr(dev))
+    bare = _loop_ms(lambda: cb.check(fn(*args), k6.NAME))
     ms = _median_ms(lambda: k6._launch(images, wk, bias, mean), 10)
     pms = _median_ms(lambda: k6._folded_plain(images, wf, bias, mean), 5)
     lms = _median_ms(library, 10)
+    print(f"K6 stem: {ms:.4f} ms a call, {bare:.4f} ms a bare launch")
     _record(results, "stem", "ops/pallas_stem.py:347", err, ms, pms,
-            _bound(_nbytes(images, wk, bias, got), 2.0 * 147 * 64 * 2 * 384 * 768), lms)
+            _bound(_nbytes(images, wk, bias, got), 2.0 * 147 * 64 * 2 * 384 * 768), lms,
+            bare_ms=bare)
 
 
 def _hold_rpn_bwd(a, a2, own, b, fw, cot, cur_same):
@@ -829,6 +917,19 @@ def check_rpn_x2(dev, g, results):
                    10.0 * neurons))
 
 
+def box_head_inputs(dev, g):
+    """K9's inputs: x [2000, 12544] in the encoder's range, w6, w7 and the
+    readouts for 9 classes, drawn from ``g``."""
+    import torch
+
+    def uniform(shape, scale):
+        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) / scale
+
+    x = torch.rand((2000, 12544), generator=g, device=dev) * 2.5
+    return (x, uniform((12544, 1024), 112.0), uniform((1024, 1024), 32.0),
+            uniform((1024, 9), 32.0), uniform((1024, 36), 32.0))
+
+
 def check_box_head_fused(dev, g, results):
     """K9: the whole box head in one launch at R = 2000, K = 12544, H = 1024,
     9 classes, T = 12, against its plain version, and its time beside the
@@ -841,11 +942,7 @@ def check_box_head_fused(dev, g, results):
 
     r, d, rep, t = 2000, 12544, 1024, 12
     bf = torch.bfloat16
-    x = torch.rand((r, d), generator=g, device=dev) * 2.5
-    w6 = (torch.rand((d, rep), generator=g, device=dev) * 2 - 1) / 112.0
-    w7 = (torch.rand((rep, rep), generator=g, device=dev) * 2 - 1) / 32.0
-    wc = (torch.rand((rep, 9), generator=g, device=dev) * 2 - 1) / 32.0
-    wb = (torch.rand((rep, 36), generator=g, device=dev) * 2 - 1) / 32.0
+    x, w6, w7, wc, wb = box_head_inputs(dev, g)
     got = k9.fastrcnn_snn_cuda(x, w6, w7, wc, wb, t)
     torch.cuda.synchronize()
     want = k9.fastrcnn_snn_plain(x, w6, w7, wc, wb, t)
@@ -902,6 +999,12 @@ def check_box_head_fused(dev, g, results):
             _bound(_nbytes(periods, w6b, w7b, wro, *outs),
                    2.0 * enc * rep + 2.0 * n6 * rep + 2.0 * n7 * 45,
                    10.0 * t * r * (2 * rep + 45)))
+
+
+# The kernel phases in the order they draw from one generator.
+KERNEL_CHECKS = (check_rpn_head, check_roi_align, check_encoder_fc6, check_box_tail, check_fpn,
+                 check_stem, check_rpn_bwd, check_wide_readout, check_rpn_x2,
+                 check_box_head_fused)
 
 
 def _pre_nms_rows(cfg):

@@ -125,9 +125,8 @@ def _launch(c_feat: torch.Tensor, merged_next: Optional[torch.Tensor],
     out_p = torch.empty((n, h, w, c), dtype=BF, device=c_feat.device)
     out_m = torch.empty((n, h, w, c), dtype=BF, device=c_feat.device) \
         if store_merged else None
-    fn = cb.load(NAME).fpn_level_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = cb.function(NAME, "fpn_level_bf16",
+                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     code = fn(c_feat.data_ptr(),
               None if merged_next is None else merged_next.data_ptr(),
               wlat_t.data_ptr(), blat.data_ptr(), w9_t.data_ptr(), bout.data_ptr(),

@@ -40,6 +40,8 @@ from snn_automotive_object_detection_tpu_torch.utils.constants import device_con
 
 NAME = "stem"
 K_ROW = 32   # the kernel's k index is dy * K_ROW + dx * 3 + cin; 21 of 32 used
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_float] * 3 + [ctypes.c_int] * 3 \
+    + [ctypes.c_void_p]
 
 
 def fold_stem_weights(w: torch.Tensor, bn_scale: torch.Tensor,
@@ -122,10 +124,7 @@ def _launch(images: torch.Tensor, w_k: torch.Tensor, bias: torch.Tensor,
     cb.require(bias, "bias", torch.float32, (64,))
     out = torch.empty((n, h // 4, w // 4, 64), dtype=torch.bfloat16,
                       device=images.device)
-    fn = cb.load(NAME).stem_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_float] * 3 \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = cb.function(NAME, "stem_bf16", _ARGTYPES)
     code = fn(images.data_ptr(), w_k.data_ptr(), bias.data_ptr(),
               out.data_ptr(), *[float(m) for m in image_mean], n, h, w,
               cb.stream_ptr(images.device))

@@ -37,7 +37,11 @@ def assign_fpn_levels(boxes: torch.Tensor, num_levels: int,
     if k_max is None:
         k_max = k_min + num_levels - 1
     s = torch.sqrt(box_area(boxes))
-    lvl = torch.floor(canonical_level + torch.log2(s / canonical_scale) + eps)
+    # A 0-d tensor as divisor keeps this a true division on every device
+    # (PyTorch's CUDA division by a Python scalar multiplies by its
+    # reciprocal), so the level agrees with the JAX mapper and with K2's.
+    scale = device_constant(float(canonical_scale), boxes.dtype, boxes.device)
+    lvl = torch.floor(canonical_level + torch.log2(s / scale) + eps)
     lvl = torch.clamp(lvl, k_min, k_max)
     return (lvl - k_min).to(torch.int32)
 
@@ -55,30 +59,33 @@ def infer_scales(feature_shapes: Sequence[Tuple[int, int]],
     return scales
 
 
+def level_range(scales: Sequence[float]) -> Tuple[int, int]:
+    """(k_min, k_max) of the level mapper for the pooled levels' scales:
+    the finest and the coarsest level's log2 stride."""
+    return int(-math.log2(scales[0])), int(-math.log2(scales[-1]))
+
+
 def level_geometry(features: Sequence[torch.Tensor], boxes: torch.Tensor,
                    image_size: Tuple[int, int], canonical_scale: float = 224.0,
                    canonical_level: float = 4.0):
     """(levels [N, R] int32, scales [L] float) for the pooled levels."""
     shapes = [(f.shape[1], f.shape[2]) for f in features]
     scales = infer_scales(shapes, image_size)
-    levels = assign_fpn_levels(
-        boxes, len(features), canonical_scale, canonical_level,
-        k_min=int(-math.log2(scales[0])), k_max=int(-math.log2(scales[-1])))
+    k_min, k_max = level_range(scales)
+    levels = assign_fpn_levels(boxes, len(features), canonical_scale,
+                               canonical_level, k_min=k_min, k_max=k_max)
     return levels, scales
 
 
-def multiscale_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
-                         image_size: Tuple[int, int],
-                         canonical_scale: float = 224.0,
-                         canonical_level: float = 4.0) -> torch.Tensor:
-    """Multi-level RoIAlign over FPN features.
-
-    features: list of [N, H_l, W_l, C]; boxes: [N, R, 4] xyxy in padded
-    input coordinates. Returns float32 [N, R, 7, 7, C]; bf16 features are
-    interpolated in float32.
-    """
+def _sample_corners(features: Sequence[torch.Tensor], boxes: torch.Tensor,
+                    image_size: Tuple[int, int], canonical_scale: float,
+                    canonical_level: float):
+    """The bilinear corners of every sample point. Yields, for each of the
+    2 x 2 sub-samples of a bin (row-major), the four corners (y_low, x_low),
+    (y_low, x_high), (y_high, x_low), (y_high, x_high) as (row index
+    [N, R, 7, 7] into the levels' rows concatenated per image, weight
+    [N, R, 7, 7] f32, zero for a sample outside the map)."""
     n, r, _ = boxes.shape
-    c = features[0].shape[-1]
     dev = boxes.device
     levels, scales = level_geometry(features, boxes, image_size,
                                     canonical_scale, canonical_level)
@@ -87,7 +94,6 @@ def multiscale_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     offs = [0]
     for sz in sizes[:-1]:
         offs.append(offs[-1] + sz)
-    buf = torch.cat([f.reshape(n, -1, c) for f in features], dim=1)
     lvl_scale = device_constant(tuple(scales), boxes.dtype, dev)[lv]
     lvl_h = device_constant(tuple(f.shape[1] for f in features), torch.int64, dev)[lv]
     lvl_w = device_constant(tuple(f.shape[2] for f in features), torch.int64, dev)[lv]
@@ -117,11 +123,6 @@ def multiscale_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
     hf, wf = hh.to(boxes.dtype), ww.to(boxes.dtype)
     zero = torch.zeros((), dtype=boxes.dtype, device=dev)
 
-    def corner(yi, xi):
-        idx = (off + yi * ww + xi).reshape(n, -1, 1).expand(-1, -1, c)
-        return torch.gather(buf, 1, idx).reshape(n, r, os_, os_, c).float()
-
-    acc = None
     for a in range(sr):
         for b in range(sr):
             y = ys[..., :, None, a].expand(n, r, os_, os_)
@@ -140,11 +141,51 @@ def multiscale_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
             hy = 1.0 - ly
             hx = 1.0 - lx
             vm = valid.to(torch.float32)
-            w00 = (hy * hx * vm)[..., None]
-            w01 = (hy * lx * vm)[..., None]
-            w10 = (ly * hx * vm)[..., None]
-            w11 = (ly * lx * vm)[..., None]
-            v = ((w00 * corner(y_low, x_low) + w01 * corner(y_low, x_high))
-                 + (w10 * corner(y_high, x_low) + w11 * corner(y_high, x_high)))
-            acc = v if acc is None else acc + v
-    return acc / (sr * sr)
+            yield ((off + y_low * ww + x_low, hy * hx * vm),
+                   (off + y_low * ww + x_high, hy * lx * vm),
+                   (off + y_high * ww + x_low, ly * hx * vm),
+                   (off + y_high * ww + x_high, ly * lx * vm))
+
+
+def multiscale_roi_align(features: Sequence[torch.Tensor], boxes: torch.Tensor,
+                         image_size: Tuple[int, int],
+                         canonical_scale: float = 224.0,
+                         canonical_level: float = 4.0) -> torch.Tensor:
+    """Multi-level RoIAlign over FPN features.
+
+    features: list of [N, H_l, W_l, C]; boxes: [N, R, 4] xyxy in padded
+    input coordinates. Returns float32 [N, R, 7, 7, C]; bf16 features are
+    interpolated in float32.
+    """
+    n, r, _ = boxes.shape
+    c = features[0].shape[-1]
+    os_ = OUTPUT_SIZE
+    buf = torch.cat([f.reshape(n, -1, c) for f in features], dim=1)
+
+    def corner(idx):
+        idx = idx.reshape(n, -1, 1).expand(-1, -1, c)
+        return torch.gather(buf, 1, idx).reshape(n, r, os_, os_, c).float()
+
+    acc = None
+    for (i00, w00), (i01, w01), (i10, w10), (i11, w11) in _sample_corners(
+            features, boxes, image_size, canonical_scale, canonical_level):
+        v = ((w00[..., None] * corner(i00) + w01[..., None] * corner(i01))
+             + (w10[..., None] * corner(i10) + w11[..., None] * corner(i11)))
+        acc = v if acc is None else acc + v
+    return acc / (SAMPLING_RATIO * SAMPLING_RATIO)
+
+
+def rows_read(features: Sequence[torch.Tensor], boxes: torch.Tensor,
+              image_size: Tuple[int, int], canonical_scale: float = 224.0,
+              canonical_level: float = 4.0) -> int:
+    """How many distinct feature rows (image, level, y, x; C values each)
+    the RoIAlign of ``boxes`` reads with a nonzero weight: the least any
+    implementation must read from the pooled levels."""
+    n = boxes.shape[0]
+    per_image = sum(f.shape[1] * f.shape[2] for f in features)
+    base = torch.arange(n, device=boxes.device).view(n, 1, 1, 1) * per_image
+    ids = [(idx + base)[wt != 0]
+           for corners in _sample_corners(features, boxes, image_size,
+                                          canonical_scale, canonical_level)
+           for idx, wt in corners]
+    return int(torch.unique(torch.cat(ids)).numel())

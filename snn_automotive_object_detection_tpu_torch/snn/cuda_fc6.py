@@ -72,9 +72,8 @@ def _launch(x: torch.Tensor, w6: torch.Tensor, num_steps: int):
     cur6 = torch.empty((num_steps, r, rep), dtype=torch.float32, device=x.device)
     counts = torch.empty(r, dtype=torch.int32, device=x.device)   # one store per row
     codes = torch.empty((r, d), dtype=torch.int16, device=x.device)
-    fn = cb.load(NAME).encoder_fc6_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = cb.function(NAME, "encoder_fc6_bf16",
+                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     code = fn(x.data_ptr(), w6.data_ptr(), thr.data_ptr(), cur6.data_ptr(),
               counts.data_ptr(), codes.data_ptr(), r, d, rep, num_steps,
               cb.stream_ptr(x.device))

@@ -83,9 +83,8 @@ def _launch(periods: torch.Tensor, w6: torch.Tensor, w7: torch.Tensor,
     out = torch.empty((r, n_out), dtype=torch.float32, device=dev)
     # Spike counts [R, 2], then the grid barrier's counter.
     ints = torch.zeros(2 * r + 1, dtype=torch.int32, device=dev)
-    fn = cb.load(NAME).box_head_fused_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = cb.function(NAME, "box_head_fused_bf16",
+                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     code = fn(periods.data_ptr(), w6.data_ptr(), w7.data_ptr(), wro.data_ptr(),
               s6.data_ptr(), out.data_ptr(), ints.data_ptr(),
               ints.data_ptr() + 8 * r, r, d, num_steps, n_out, cb.stream_ptr(dev))

@@ -203,17 +203,13 @@ def _launch(feat: torch.Tensor, w9_t: torch.Tensor, w_out: torch.Tensor,
             if spike_sum or save else None)
     args = [feat.data_ptr(), w9_t.data_ptr(), w_out.data_ptr(), consts.data_ptr(),
             out.data_ptr(), counts.data_ptr(), None if ssum is None else ssum.data_ptr()]
-    lib = cb.load(NAME)
     saved = None
     if save:
         saved = Saved(torch.empty((n, h, w, num_steps, c), dtype=torch.bfloat16, device=dev),
                       torch.empty((n, h, w, c), dtype=torch.uint8, device=dev), ssum)
-        fn = lib.rpn_level_save_bf16
         args += [saved.cur.data_ptr(), saved.per.data_ptr()]
-    else:
-        fn = lib.rpn_level_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * len(args) + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = cb.function(NAME, "rpn_level_save_bf16" if save else "rpn_level_bf16",
+                     [ctypes.c_void_p] * len(args) + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     code = fn(*args, n, h, w, num_steps, n_out, cb.stream_ptr(dev))
     cb.check(code, NAME)
     cb.LAUNCHES[NAME] += 1
@@ -232,9 +228,8 @@ def _launch_x2(feat: torch.Tensor, w9: torch.Tensor, w_out: torch.Tensor,
     out = torch.empty((n, h, w, n_out), dtype=torch.float32, device=feat.device)
     ssum = (torch.empty((n, h, w, c), dtype=torch.float32, device=feat.device)
             if spike_sum else None)
-    fn = cb.load(X2_NAME).rpn_level_x2_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = cb.function(X2_NAME, "rpn_level_x2_bf16",
+                     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     code = fn(feat.data_ptr(), w9.data_ptr(), w_out.data_ptr(), consts.data_ptr(),
               out.data_ptr(), None if ssum is None else ssum.data_ptr(), n, h, w,
               num_steps, n_out, cb.stream_ptr(feat.device))
@@ -421,9 +416,8 @@ def _launch_bwd(saved: Saved, w_out: torch.Tensor, g: torch.Tensor, num_steps: i
     dw_out = torch.empty((c, n_out), dtype=f32, device=dev)
     swept = torch.empty((n, h, w, c), dtype=f32, device=dev) if spike_sum else None
     consts = _constants(num_steps, dev)
-    fn = cb.load(BWD_NAME).rpn_level_bwd_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn = cb.function(BWD_NAME, "rpn_level_bwd_bf16",
+                     [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     code = fn(saved.cur.data_ptr(), saved.per.data_ptr(), saved.ssum.data_ptr(),
               w_out.data_ptr(), consts.data_ptr(), g.data_ptr(),
               None if swept is None else swept.data_ptr(), part9.data_ptr(),

@@ -129,9 +129,8 @@ def _launch(cur6: torch.Tensor, w7: torch.Tensor, wro: torch.Tensor,
     out = torch.empty((r, n_out), dtype=torch.float32, device=cur6.device)
     counts = torch.zeros((r, 2), dtype=torch.int32, device=cur6.device)
     codes = torch.empty((2, r, rep), dtype=torch.int16, device=cur6.device)
-    fn = cb.load(NAME).box_tail_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn = cb.function(NAME, "box_tail_bf16",
+                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     code = fn(cur6.data_ptr(), w7.data_ptr(), wro.data_ptr(), out.data_ptr(),
               counts.data_ptr(), codes[0].data_ptr(), codes[1].data_ptr(), r, t, rep,
               n_out, cb.stream_ptr(cur6.device))

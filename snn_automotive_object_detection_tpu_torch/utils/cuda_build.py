@@ -23,7 +23,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 import torch
 
@@ -42,6 +42,7 @@ NVCC_FLAGS = [
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 PLAIN_CUDA_CALLS: Dict[str, int] = {k: 0 for k in KERNELS}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def reset_counts() -> None:
@@ -111,8 +112,24 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """``symbol`` of the library for ``name``, its argument and result
+    types set once per process: a wrapper that looks it up here does no
+    ctypes set-up on its calls."""
+    fn = _FUNCS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        _FUNCS[(name, symbol)] = fn
+    return fn
+
+
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream's handle on the CUDA ``device``, without making
+    a stream object: a plain integer from PyTorch's C layer."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(code: int, name: str) -> None:

@@ -85,3 +85,50 @@ def grad_excess(got: torch.Tensor, want: torch.Tensor, rel: float = GRAD_REL) ->
     if top == 0.0:
         return 0.0 if float(got.abs().max()) == 0.0 else float("inf")
     return float((got - want).abs().max()) / (rel * top)
+
+
+# sqrt(area) at which torchvision's level mapper (canonical 224 at level 4)
+# moves from one FPN level to the next.
+LEVEL_BORDERS = (112.0, 224.0, 448.0)
+
+
+def _f32_step(x: float, up: bool) -> float:
+    """The neighbouring float32 value of ``x`` (x > 0) above or below."""
+    import numpy as np
+
+    return float(np.nextafter(np.float32(x), np.float32(np.inf if up else 0.0)))
+
+
+def level_border_boxes(mapper, device, x0: float = 64.0, y0: float = 32.0) -> torch.Tensor:
+    """Boxes on the level mapper's borders, [K, 4] float32 on ``device``.
+
+    For each of :data:`LEVEL_BORDERS` s: the square boxes at the origin of
+    side s and of the float32 value below s; and the two boxes
+    [x0, y0, x0 + w, y0 + 64] of neighbouring float32 widths w between which
+    ``mapper`` (boxes [K, 4] -> levels [K]) moves to the next level, found by
+    bisection over the float32 widths on ``device``. A mapper that computes
+    the level in other float operations puts some of these boxes on the
+    other side of a border."""
+    rows = []
+    for s in LEVEL_BORDERS:
+        for side in (s, _f32_step(s, up=False)):
+            rows.append([0.0, 0.0, side, side])
+
+        def box(w):
+            return torch.tensor([[x0, y0, x0 + w, y0 + 64.0]], dtype=torch.float32,
+                                device=device)
+
+        lo, hi = s * s / 64.0 * 0.99, s * s / 64.0 * 1.01
+        lv_lo = int(mapper(box(lo))[0])
+        if int(mapper(box(hi))[0]) == lv_lo:
+            raise ValueError(f"no level border between widths {lo} and {hi}")
+        while _f32_step(lo, up=True) < hi:
+            mid = float(torch.tensor((lo + hi) / 2.0, dtype=torch.float32))
+            if mid in (lo, hi):
+                mid = _f32_step(lo, up=True)
+            if int(mapper(box(mid))[0]) == lv_lo:
+                lo = mid
+            else:
+                hi = mid
+        rows += box(lo).tolist() + box(hi).tolist()
+    return torch.tensor(rows, dtype=torch.float32, device=device)

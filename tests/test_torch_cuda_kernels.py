@@ -24,7 +24,8 @@ Tolerances, on identical bf16 inputs:
     product of the kernel's own spike sums. The same for the training
     forward;
   * K2: 1e-5 absolute on N(0, 1) features (the same f32 operations on the
-    same bf16 values; measured bit-equal on an H100);
+    same bf16 values, the level mapper's too; measured bit-equal on an
+    H100), boxes on the mapper's level borders included;
   * K3: 1e-3 absolute (sums of 0/1 x bf16 weights in another order);
   * K5 merged map and P, K6: ``kernel_checks.chain_excess``: a product sum
     taken in another order may round one bf16 ulp apart, by 2^-7 of its own
@@ -160,6 +161,60 @@ def test_roi_align_kernel_matches_plain(dev):
     assert float((out - want).abs().max()) <= 1e-5
 
 
+def _roi_boxes(g, dev, n, r, size, lo, hi):
+    h, w = size
+    ctr = torch.rand((n, r, 2), generator=g, device=dev) * torch.tensor(
+        [float(w), float(h)], device=dev)
+    wh = torch.rand((n, r, 2), generator=g, device=dev) * (hi - lo) + lo
+    return torch.cat([ctr - wh / 2, ctr + wh / 2], -1)
+
+
+def _hold_roi_align(feats, boxes, size):
+    """K2 against its plain version: 1e-5 absolute; prints how many
+    elements differ at all."""
+    before = cb.LAUNCHES[k2.NAME]
+    out = k2.roi_align(feats, boxes, size)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES[k2.NAME] == before + 1
+    want = k2.plain(feats, boxes, size)
+    assert out.shape == want.shape and out.dtype == torch.float32
+    err = float((out - want).abs().max())
+    print(f"K2: max |diff| {err:.3g}, {int((out != want).sum())} of {want.numel()} "
+          f"elements differ")
+    assert err <= 1e-5 and bool(torch.isfinite(out).all())
+
+
+# Boxes on the level mapper's borders (sqrt(area) 112, 224 and 448, the
+# float32 below, and the neighbouring widths between which the mapper on
+# this device moves a level), two levels of one stride (the MobileNet
+# route: every box on the first), one RoI and 1000 RoIs per image.
+@pytest.mark.parametrize("case", ["level_borders", "same_stride", "one_roi", "r1000"])
+def test_roi_align_kernel_cases(dev, case):
+    from snn_automotive_object_detection_tpu_torch.ops.roi_align import assign_fpn_levels
+
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    size = (512, 1024)
+    shapes = [(128, 256), (64, 128), (32, 64), (16, 32)]
+    if case == "same_stride":
+        shapes = [(16, 32), (16, 32)]
+    feats = [torch.randn((2, a, b, 256), generator=g, device=dev).to(BF) for a, b in shapes]
+    r = {"one_roi": 1, "r1000": 1000}.get(case, 40)
+    boxes = _roi_boxes(g, dev, 2, r, size, 2.0, 500.0)
+    if case == "level_borders":
+        border = kc.level_border_boxes(lambda b: assign_fpn_levels(b, 4), dev)
+        boxes[0, :border.shape[0]] = border
+        boxes[1, :border.shape[0]] = border + 37.0
+    _hold_roi_align(feats, boxes.contiguous(), size)
+
+
+def test_roi_align_kernel_refuses_channels_not_a_multiple_of_8(dev):
+    feats = [torch.zeros((1, 8, 16, 258), device=dev, dtype=BF)]
+    boxes = torch.zeros((1, 3, 4), device=dev)
+    boxes[..., 2:] = 16.0
+    with pytest.raises(ValueError, match="multiple of 8"):
+        k2.roi_align(feats, boxes, (32, 64))
+
+
 # K3 and K4 run 16 RoI rows per block and pair consecutive row tiles in a
 # cluster: R at a tile's edges (1, 15, 16, 17), odd counts of row tiles (1,
 # 3 and 125 tiles: the last cluster's partner is a padded tile), T from 1 to
@@ -246,9 +301,12 @@ def test_fpn_level_kernel_matches_plain(dev, n, shapes, cins):
         merged = want_m
 
 
-@pytest.mark.parametrize("n,h,w", [(1, 68, 132), (3, 36, 76), (2, 64, 256), (1, 4, 4)])
+@pytest.mark.parametrize("n,h,w", [(1, 68, 132), (3, 36, 76), (2, 64, 256), (1, 4, 4),
+                                   (3, 100, 200), (2, 768, 1536)])
 def test_stem_kernel_matches_plain(dev, n, h, w):
-    """H and W multiples of 4 but not of 8 or 256; bucket-padding zeros."""
+    """H and W multiples of 4 but not of 8 or 256; bucket-padding zeros;
+    last tiles of 8 x 16 pooled pixels cut in both directions (68 x 132,
+    100 x 200), three images, and the flagship bucket."""
     g = torch.Generator(device=dev).manual_seed(h + w)
     mean, std = (0.2869, 0.3251, 0.2839), (0.1870, 0.1902, 0.1872)
     images = torch.rand((n, h, w, 3), generator=g, device=dev)
