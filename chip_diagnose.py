@@ -2,15 +2,16 @@
 """Time the redesigned kernels with parts of them switched off, on one
 NVIDIA GPU.
 
-    python3 chip_diagnose.py            # K1, K5, K3, K4, K7, K2 and K6
+    python3 chip_diagnose.py            # K1, K5, K3, K4, K7, K2, K6, K8 and K9
     python3 chip_diagnose.py K2 K6      # only those kernels' variants
-    python3 chip_diagnose.py K9         # K9's check on the input where it failed
+    python3 chip_diagnose.py K9         # also K9's check on the input where it once failed
 
-Shows what limits K1, K5, K3, K4, K7's weight gradient, K2 and K6. Each
-variant below replaces lines of ``csrc/rpn_head.cu`` (K1),
-``csrc/fpn_level.cu`` (K5), ``csrc/spike_gemm.cuh`` (the spike-code GEMM of
-K3 and K4), ``csrc/rpn_head_bwd.cu`` (K7), ``csrc/roi_align.cu`` (K2) or
-``csrc/stem.cu`` (K6) in a copy of ``csrc/`` in a temporary directory (the
+Shows what limits K1, K5, K3, K4, K7's weight gradient, K2, K6, K8 and K9.
+Each variant below replaces lines of ``csrc/rpn_head.cu`` (K1 and its pair
+instance K8), ``csrc/fpn_level.cu`` (K5), ``csrc/spike_gemm.cuh`` (the
+spike-code GEMM of K3, K4 and K9), ``csrc/rpn_head_bwd.cu`` (K7),
+``csrc/roi_align.cu`` (K2) or ``csrc/stem.cu`` (K6) in a copy of ``csrc/``
+in a temporary directory (the
 repository is never edited). All variants build at once, one ``nvcc`` each
 with the package's flags, and each is timed with CUDA events at the
 flagship shapes through the kernel's C interface, so no wrapper's host work
@@ -20,14 +21,18 @@ pair at T = 8 with 15 readout channels, K5 on C2..C5 with 8-row and with
 4-row tiles, K3 on x [2000, 12544] at T = 12, K4 on cur6 [12, 2000, 1024]
 with 45 readout columns, K7's weight gradient alone (its C interface with
 only that phase) on random dc planes and period maps of the five levels at
-T = 8, K2 on 2 x 1000 boxes over P2..P5, K6 on a 2 x 768 x 1536 image pair.
-A variant with a part switched off computes wrong numbers; only its time
-means anything (the separable K2 computes RoIAlign, summed in another
-order).
+T = 8, K2 on 2 x 1000 boxes over P2..P5, K6 on a 2 x 768 x 1536 image pair,
+K8 on K1's five levels, K9 on the periods of K3's x with w6, K4's w7 and
+readout. A variant with a part switched off computes wrong numbers; only
+its time means anything (the separable K2 computes RoIAlign, summed in
+another order).
 
-``K9`` alone replays ``chip_smoke.py``'s kernel phases to the input on
-which K9's check once failed and compares that row's per-step spike trains
-between K9 and its plain version (:func:`k9_flips`).
+With ``K9`` named (or nothing), the script first draws again the input on
+which K9's old count-based check failed (``kernel_checks.k9_failure_input``:
+the generator state that ``chip_smoke.py``'s K9 phase drew it from, and its
+plain fc6 spike count as a fingerprint) and holds K9 to its plain version
+there spike by spike, as ``chip_smoke.py`` does; for the rows whose fc7
+trains differ it prints the flips per step.
 """
 
 from __future__ import annotations
@@ -73,6 +78,16 @@ SG_NO_A_BUILD = [
      "a[0][kk][i] = (uint32_t)(t0 + kk + i);"),
     ("if constexpr (kMt == 2) a[kMt - 1][kk][i] = ((pair[i] >> t1) & 0x10001u) * 0x3F80u;",
      "if constexpr (kMt == 2) a[kMt - 1][kk][i] = (uint32_t)(t1 + kk + i);")]
+
+# K8 (the pair instance of K1's kernel, the same source): also the LIF
+# recurrence over the staged currents skipped.
+K1_NO_RECURRENCE = [("for (int sl = 0; sl < steps; ++sl) {", "for (int sl = 0; sl < 0; ++sl) {")]
+# K9's f32 epilogues: the LIF and LI scans over the staged sums skipped.
+SG_NO_F32_SCANS = [
+    ("for (int t = 0; t < c.T; ++t) {\n      const float4 lo",
+     "for (int t = 0; t < 0; ++t) {\n      const float4 lo"),
+    ("for (int t = 0; t < c.T; ++t) {\n        const float ij",
+     "for (int t = 0; t < 0; ++t) {\n        const float ij")]
 
 # K7's weight gradient: products replaced by a use of A and the
 # descriptor; A built from the step masks, not the period bytes.
@@ -247,12 +262,23 @@ VARIANTS = [
     ("K6", "no products, no pool, no conversion", K6_NO_PRODUCTS + K6_NO_POOL + K6_NO_CONVERT),
     ("K6", "none of the three, no A loads", K6_NO_PRODUCTS + K6_NO_POOL + K6_NO_CONVERT + K6_NO_A),
     ("K6", "none of the three, no A loads, no epilogue stores, no ring wait",
-     K6_NO_PRODUCTS + K6_NO_POOL + K6_NO_CONVERT + K6_NO_A + K6_NO_EPILOGUE + K6_NO_WAIT)]
+     K6_NO_PRODUCTS + K6_NO_POOL + K6_NO_CONVERT + K6_NO_A + K6_NO_EPILOGUE + K6_NO_WAIT),
+    ("K8", "as built", []),
+    ("K8", "no products", K1_NO_PRODUCTS),
+    ("K8", "no A build", K1_NO_A_BUILD),
+    ("K8", "no LIF recurrence", K1_NO_RECURRENCE),
+    ("K8", "weight stream only", K1_NO_PRODUCTS + K1_NO_A_BUILD + K1_NO_RECURRENCE),
+    ("K9", "as built", []),
+    ("K9", "no products", SG_NO_PRODUCTS),
+    ("K9", "no A build", SG_NO_A_BUILD),
+    ("K9", "no f32 scans", SG_NO_F32_SCANS),
+    ("K9", "weight and code stream only", SG_NO_PRODUCTS + SG_NO_A_BUILD + SG_NO_F32_SCANS)]
 # (the file the replacements patch, the source built)
 SOURCE = {"K1": ("rpn_head.cu", "rpn_head.cu"), "K5": ("fpn_level.cu", "fpn_level.cu"),
           "K3": ("spike_gemm.cuh", "encoder_fc6.cu"), "K4": ("spike_gemm.cuh", "box_tail.cu"),
           "K7": ("rpn_head_bwd.cu", "rpn_head_bwd.cu"), "K2": ("roi_align.cu", "roi_align.cu"),
-          "K6": ("stem.cu", "stem.cu")}
+          "K6": ("stem.cu", "stem.cu"), "K8": ("rpn_head.cu", "rpn_head.cu"),
+          "K9": ("spike_gemm.cuh", "box_head_fused.cu")}
 
 
 def build(tmp: Path, variants):
@@ -298,125 +324,40 @@ def _bind(lib, symbol, argtypes):
     return fn
 
 
-def _plain_box_head_trains(x, w6, w7, wc, wb, t, s6_given=None, exact7=False):
-    """fastrcnn_snn_plain's steps, keeping every step's spikes: (fc6 spikes
-    [T, R, H], fc7 spikes [T, R, H], class logits, box deltas). With
-    ``s6_given`` fc7 runs on those fc6 spikes; with ``exact7`` each fc7
-    current is the f64 sum rounded once to f32 (another rounding only)."""
+def k9_replay(dev) -> None:
+    """K9 on the input on which ``chip_smoke.check_box_head_fused`` failed
+    with its old count-based check (``kernel_checks.k9_failure_input``),
+    held to its plain version spike by spike as ``chip_smoke.py`` holds it;
+    exits when the check fails or the input is not that one (its plain fc6
+    spike count). For up to four rows whose fc7 trains differ from the
+    plain tail's on K9's own fc6 spikes, the bits over and under per step."""
     import torch
 
-    from snn_automotive_object_detection_tpu_torch.snn import functional as snnf
-
-    bf = torch.bfloat16
-    r, rep = x.shape[0], w6.shape[1]
-    periods = snnf.encoder_periods(x)
-    w6, w7, wc, wb = (w.to(bf).float() for w in (w6, w7, wc, wb))
-    l6 = snnf.zeros_lif_state((r, rep), device=x.device)
-    l7 = snnf.zeros_lif_state((r, rep), device=x.device)
-    li_c = snnf.zeros_li_state((r, wc.shape[1]), device=x.device)
-    li_b = snnf.zeros_li_state((r, wb.shape[1]), device=x.device)
-    s6s, s7s = [], []
-    for step in range(t):
-        z = snnf.encoder_spikes_at(periods, step)
-        s6, l6 = snnf.lif_feed_forward_step(torch.matmul(z, w6), l6)
-        if s6_given is not None:
-            s6 = s6_given[step]
-        cur7 = (torch.matmul(s6.double(), w7.double()).float() if exact7
-                else torch.matmul(s6, w7))
-        s7, l7 = snnf.lif_feed_forward_step(cur7, l7)
-        _, li_c = snnf.li_feed_forward_step(torch.matmul(s7, wc), li_c)
-        _, li_b = snnf.li_feed_forward_step(torch.matmul(s7, wb), li_b)
-        s6s.append(s6)
-        s7s.append(s7)
-    return torch.stack(s6s), torch.stack(s7s), li_c.v, li_b.v
-
-
-def k9_flips(dev) -> int:
-    """K9 on the inputs on which ``chip_smoke.check_box_head_fused`` once
-    failed: the kernel phases replayed with K2's two same-stride maps drawn
-    from the shared generator, as the K2 phase first drew them. For each
-    row with equal spike counts outside the check's bound, prints the
-    per-step fc6 spike trains of K9 (its fc6 scratch) against the plain
-    version's, the plain fc7 and readouts run on K9's own fc6 spikes, and
-    how many of the row's fc7 spikes move when only the rounding of the
-    fc7 sum changes. Returns 1 if the failure does not reproduce."""
-    import torch
-
-    import chip_smoke
     from snn_automotive_object_detection_tpu_torch.snn import cuda_kernels as k9
-    from snn_automotive_object_detection_tpu_torch.snn import functional as snnf
     from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+    from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
 
     cb.build_all()
-    results = []
-    g = torch.Generator(device=dev).manual_seed(1234)
-    for check in chip_smoke.KERNEL_CHECKS[:-1]:
-        check(dev, g, results)
-        if check is chip_smoke.check_roi_align:
-            for _ in range(2):
-                torch.randn((2, 24, 48, 256), generator=g, device=dev)
-    assert chip_smoke.KERNEL_CHECKS[-1] is chip_smoke.check_box_head_fused
-    x, w6, w7, wc, wb = chip_smoke.box_head_inputs(dev, g)
-    r, d = x.shape
-    rep, t, bf = 1024, 12, torch.bfloat16
-
-    # K9 through its C interface, keeping its fc6 spike scratch.
-    periods = snnf.encoder_periods(x).contiguous()
-    w6b, w7b = w6.to(bf).contiguous(), w7.to(bf).contiguous()
-    wro = torch.cat([wc, wb], 1).to(bf).contiguous()
-    s6 = torch.empty((t, -(-r // k9.ROW_TILE) * k9.ROW_TILE, rep), dtype=bf, device=dev)
-    out = torch.empty((r, 45), device=dev)
-    ints = torch.zeros(2 * r + 1, dtype=torch.int32, device=dev)
-    fn = cb.function(k9.NAME, "box_head_fused_bf16",
-                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    cb.check(fn(periods.data_ptr(), w6b.data_ptr(), w7b.data_ptr(), wro.data_ptr(),
-                s6.data_ptr(), out.data_ptr(), ints.data_ptr(), ints.data_ptr() + 8 * r, r, d,
-                t, 45, cb.stream_ptr(dev)), k9.NAME)
-    k_s6 = s6[:, :r].float()
-    k_counts = ints[:2 * r].reshape(r, 2).long()
-
-    p_s6, p_s7, p_cls, p_reg = _plain_box_head_trains(x, w6, w7, wc, wb, t)
-    want = k9.fastrcnn_snn_plain(x, w6, w7, wc, wb, t)
-    same = torch.equal(p_cls, want[0]) and torch.equal(p_reg, want[1])
-    p_counts = torch.stack([p_s6.sum((0, 2)), p_s7.sum((0, 2))], 1).long()
-    n6, n7 = int(p_counts[:, 0].sum()), int(p_counts[:, 1].sum())
-    flips = (k_counts - p_counts).abs().sum(0).tolist()
-    clean = (k_counts == p_counts).all(1)
-    got_l, want_l = out, torch.cat([p_cls, p_reg], 1)
-    excess = ((got_l - want_l).abs() / (1e-3 * (1.0 + want_l.abs()))).amax(1)
-    bad = torch.nonzero(clean & (excess > 1)).flatten().tolist()
-    print(f"K9 replay: the step-keeping plain version equals fastrcnn_snn_plain: {same}; "
-          f"flipped spikes (per-row count differences) fc6 {flips[0]} of {n6}, fc7 "
-          f"{flips[1]} of {n7}; {int(clean.sum())} of {r} rows with equal counts; rows "
-          f"with equal counts outside the bound: {bad}")
-    if not bad:
-        print("K9 replay: the failure did not reproduce")
-        return 1
-
-    # The plain tail on K9's own fc6 spikes, and the plain head with only
-    # the fc7 sum's rounding changed.
-    _, q_s7, q_cls, q_reg = _plain_box_head_trains(x, w6, w7, wc, wb, t, s6_given=k_s6)
-    _, e_s7, _, _ = _plain_box_head_trains(x, w6, w7, wc, wb, t, exact7=True)
-    q_l = torch.cat([q_cls, q_reg], 1)
-
-    def per_step(a, b, row):
-        up = (a[:, row] > b[:, row]).sum(1).tolist()
-        down = (a[:, row] < b[:, row]).sum(1).tolist()
-        return " ".join(f"{u}/{v}" for u, v in zip(up, down))
-
-    for row in bad[:4]:
-        ex_q = ((got_l[row] - q_l[row]).abs() / (1e-3 * (1.0 + q_l[row].abs()))).max().item()
-        print(f"K9 replay row {row}: {excess[row].item():.3g} of the bound; counts fc6 "
-              f"{k_counts[row, 0].item()} fc7 {k_counts[row, 1].item()} (plain the same)")
-        print(f"  fc6 spikes K9 over / under the plain version, per step: "
-              f"{per_step(k_s6, p_s6, row)}")
-        print(f"  fc7 spikes of the plain tail on K9's fc6 spikes over / under the plain "
-              f"version, per step: {per_step(q_s7, p_s7, row)}")
-        print(f"  K9's logits against the plain tail on K9's fc6 spikes: {ex_q:.3g} of the "
-              f"bound 1e-3 (1 + |want|)")
-        print(f"  fc7 spikes with the fc7 sum rounded once from f64, over / under the plain "
-              f"version, per step: {per_step(e_s7, p_s7, row)}")
-    return 0
+    x, w6, w7, wc, wb = kc.k9_failure_input(dev)
+    t = 12
+    rep = kc.box_head_fused_hold(x, w6, w7, wc, wb, t)
+    print(f"K9 box_head_fused on the input its old check failed on: "
+          f"{kc.box_head_fused_line(rep)}")
+    if rep.get("n6") != kc.K9_FAILURE_FC6_SPIKES:
+        sys.exit(f"chip_diagnose: FAILED: the replayed input has {rep.get('n6')} plain fc6 "
+                 f"spikes, not {kc.K9_FAILURE_FC6_SPIKES}")
+    if not rep["ok"]:
+        sys.exit("chip_diagnose: FAILED: K9 disagrees with its plain version on the input its "
+                 "old check failed on")
+    _, _, _, _, code6, code7 = k9._launch(*k9.launch_args(x, w6, w7, wc, wb), t, codes=True)
+    own7 = k9.box_tail_f32_plain(k9.trains_of(code6, t), w7, wc, wb)[2]
+    got7 = k9.trains_of(code7, t)
+    rows = torch.nonzero((got7 != own7).any(dim=(0, 2))).flatten().tolist()
+    for row in rows[:4]:
+        up = (got7[:, row] > own7[:, row]).sum(1).tolist()
+        down = (got7[:, row] < own7[:, row]).sum(1).tolist()
+        print(f"K9 replay row {row}: fc7 spikes of K9 over / under the plain tail on K9's fc6 "
+              f"spikes, per step: " + " ".join(f"{u}/{v}" for u, v in zip(up, down)))
 
 
 def main() -> int:
@@ -430,14 +371,16 @@ def main() -> int:
     chip_smoke.reference_numerics()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    if sys.argv[1:] == ["K9"]:
-        return k9_flips(torch.device("cuda:0"))
+    if not sys.argv[1:] or "K9" in sys.argv[1:]:
+        k9_replay(torch.device("cuda:0"))
     from snn_automotive_object_detection_tpu_torch.models import transform
     from snn_automotive_object_detection_tpu_torch.ops import cuda_fpn as k5
     from snn_automotive_object_detection_tpu_torch.ops import cuda_roi_align as k2
     from snn_automotive_object_detection_tpu_torch.ops import cuda_stem as k6
     from snn_automotive_object_detection_tpu_torch.snn import cuda_fc6 as k3
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_kernels as k9
     from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
+    from snn_automotive_object_detection_tpu_torch.snn import functional as snnf
     from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
 
     chosen = [v for v in VARIANTS if not sys.argv[1:] or v[0] in sys.argv[1:]]
@@ -573,9 +516,40 @@ def main() -> int:
         cb.check(fn(images.data_ptr(), wk.data_ptr(), sbias.data_ptr(), stem_out.data_ptr(),
                     *transform.IMAGENET_MEAN, 2, 768, 1536, stream), "K6")
 
+    # K8: K1's levels and weights. K9: the periods of K3's x, w6, K4's w7
+    # and readout.
+    def k8_run(lib, f):
+        n, h, w, _ = f.shape
+        out = torch.empty((n, h, w, 15), device=dev)
+        fn = _bind(lib, "rpn_level_x2_bf16", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+        cb.check(fn(f.data_ptr(), w9_t.data_ptr(), wout.data_ptr(), consts.data_ptr(),
+                    out.data_ptr(), None, n, h, w, 8, 15, stream), "K8")
+
+    periods = snnf.encoder_periods(x).contiguous()
+    k9_out = torch.empty((2000, 45), device=dev)
+    k9_counts = torch.zeros((2000, 2), dtype=torch.int32, device=dev)
+    k9_codes = [torch.empty(shape, dtype=torch.int16, device=dev)
+                for shape in ((2000, 12544), (2000, 1024), (2000, 1024))]
+
+    def k9_run(lib):
+        fn = _bind(lib, "box_head_fused_bf16", k9._ARGTYPES)
+        cb.check(fn(periods.data_ptr(), w6.data_ptr(), w7.data_ptr(), wro.data_ptr(),
+                    k9_out.data_ptr(), k9_counts.data_ptr(), *[c.data_ptr() for c in k9_codes],
+                    2000, 12544, 12, 45, stream), "K9")
+
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(Path(tmp), chosen)
         for (kernel, variant, _), lib in zip(chosen, libs):
+            if kernel == "K8":
+                per = [chip_smoke._median_ms(lambda: k8_run(lib, f), 10) for f in feats]
+                print(f"K8 {variant}: P2..P6 " + " / ".join(f"{x:.3f}" for x in per)
+                      + f" ms, five levels {sum(per):.3f} ms")
+                continue
+            if kernel == "K9":
+                ms = chip_smoke._median_ms(lambda: k9_run(lib), 10)
+                print(f"K9 {variant}: {ms:.3f} ms")
+                continue
             if kernel in ("K2", "K6"):
                 ms = chip_smoke._loop_ms(lambda: (k2_run if kernel == "K2" else k6_run)(lib))
                 print(f"{kernel} {variant}: {ms:.4f} ms a bare launch")

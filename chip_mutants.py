@@ -105,19 +105,36 @@ MUTANTS = [
      "rpn_head.cu", "* T + chunk * kChunk + sl) * kC +",
      "* T + chunk * kChunk + (sl + 1) % steps) * kC +",
      "check_rpn_bwd", K7_TESTS + " or rpn_head_kernel_matches_plain"),
-    ("K8: the second image's spikes taken from the first image's halo",
-     "rpn_head_x2.cu", "const int col0 = img * G::kHw;", "const int col0 = 0;",
+    ("K8: a block's quarter of a weight stage loaded from output channel rank x 32, not "
+     "rank x 64 (the pair instance only)",
+     "rpn_head.cu", "(c / 4) * kC + rank * (kC / kCl));",
+     "(c / 4) * kC + rank * (kCl == 4 ? 32 : kC / kCl));", "check_rpn_x2", "rpn_head_x2"),
+    ("K8: the pair's second image reading the first image's periods (the pair instance only)",
+     "rpn_head.cu", "feat + (((int64_t)n * H + gy) * W + gx) * kC + ch);",
+     "feat + (((int64_t)(kCl == 4 ? n & ~1 : n) * H + gy) * W + gx) * kC + ch);",
      "check_rpn_x2", "rpn_head_x2"),
-    ("K8: a tap-weight stage read one trip of the ring late",
-     "rpn_head_common.cuh", "sm.ring + (st % kStages) * (kStageRows * kLdw) + cg * 32;",
-     "sm.ring + ((st + kStages - 1) % kStages) * (kStageRows * kLdw) + cg * 32;",
-     "check_rpn_x2", "rpn_head_x2"),
-    ("K9: the last step left out of the second phase",
-     "box_head_fused.cu", "    for (int t = 0; t < T; ++t) {", "    for (int t = 0; t < T - 1; ++t) {",
+    ("K8: a block's quarter multicast into the ring slot after its own (the pair instance "
+     "only)",
+     "rpn_head.cu",
+     "tma_load_2d_multicast(ring + slot * kSlotBytes + rank * (kSlotBytes / kCl), &map_w9,",
+     "tma_load_2d_multicast(ring + (kCl == 4 ? (slot + 1) % kStages : slot) * kSlotBytes"
+     " + rank * (kSlotBytes / kCl), &map_w9,", "check_rpn_x2", "rpn_head_x2"),
+    ("K9: the f32 epilogue's sums rounded to bf16 before the LIF and LI scans",
+     "spike_gemm.cuh",
+     "s.x = acc[j][4 * q + 2 * h];\n          s.y = acc[j][4 * q + 2 * h + 1];",
+     "s.x = __bfloat162float(__float2bfloat16_rn(acc[j][4 * q + 2 * h]));\n"
+     "          s.y = __bfloat162float(__float2bfloat16_rn(acc[j][4 * q + 2 * h + 1]));",
      "check_box_head_fused", "box_head_fused"),
-    ("K9: the fc6 current rounded to bf16 before LIF6",
-     "box_head_fused.cu", "lif_step(v[j], cu[j], stage[lane + 32 * j]);",
-     "lif_step(v[j], cu[j], __bfloat162float(__float2bfloat16_rn(stage[lane + 32 * j])));",
+    ("K9: the last step left out of the f32 LIF scan (fc6 and fc7)",
+     "spike_gemm.cuh", "for (int t = 0; t < c.T; ++t) {\n      const float4 lo",
+     "for (int t = 0; t < c.T - 1; ++t) {\n      const float4 lo",
+     "check_box_head_fused", "box_head_fused"),
+    ("K9: one code bit shifted (the encoder's spikes at t + 1 = p, 2p, ... moved to t + 2)",
+     "box_head_fused.cu", "bits |= 1u << (k - 1);", "bits |= 1u << k;",
+     "check_box_head_fused", "box_head_fused"),
+    ("K9: the last step left out of the f32 LI readout scan",
+     "spike_gemm.cuh", "for (int t = 0; t < c.T; ++t) {\n        const float ij",
+     "for (int t = 0; t < c.T - 1; ++t) {\n        const float ij",
      "check_box_head_fused", "box_head_fused"),
     ("K3: a w6 stage read from the ring slot before its own (the spike-code GEMM)",
      "spike_gemm.cuh", "const uint64_t db = desc_mn_sw128(base, RingT::kChunkBytes);",
@@ -149,6 +166,18 @@ chip_smoke.{phase}(dev, torch.Generator(device=dev).manual_seed(1234), [])
 """
 
 
+def _run(cmd, cwd, timeout=600):
+    """``cmd`` in ``cwd``; a run past ``timeout`` seconds is killed and
+    reported as exit code -9 with what it printed so far."""
+    try:
+        return subprocess.run(cmd, cwd=cwd, capture_output=True, text=True, timeout=timeout)
+    except subprocess.TimeoutExpired as e:
+        def text(b):
+            return b.decode(errors="replace") if isinstance(b, bytes) else (b or "")
+        return subprocess.CompletedProcess(cmd, -9, text(e.stdout), text(e.stderr)
+                                           + f"\nkilled after {timeout} s")
+
+
 def main() -> int:
     import torch
 
@@ -168,12 +197,9 @@ def main() -> int:
                 print(f"chip_mutants: {src}: the line to break is not there once")
                 return 1
             path.write_text(text.replace(old, new))
-            smoke = subprocess.run([sys.executable, "-c", PHASE.format(phase=phase)],
-                                   cwd=tree, capture_output=True, text=True)
-            card = subprocess.run(
-                [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider",
-                 "-q", "tests/test_torch_cuda_kernels.py", "-k", tests],
-                cwd=tree, capture_output=True, text=True)
+            smoke = _run([sys.executable, "-c", PHASE.format(phase=phase)], tree)
+            card = _run([sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider",
+                         "-q", "tests/test_torch_cuda_kernels.py", "-k", tests], tree)
         print(f"mutant {name}")
         for line in (smoke.stdout + smoke.stderr).strip().splitlines()[-6:]:
             print(f"  smoke: {line}")

@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
   1. device  - a CUDA device must be present; prints its name and power
                limit as nvidia-smi reports them.
   2. build   - compiles the nine hand-written kernels (the nine TPU
-               kernels' counterparts) from
+               kernels' counterparts; K8 is an instance of K1's kernel in
+               K1's source) from
                snn_automotive_object_detection_tpu_torch/csrc (one nvcc per
                source, all started together).
   3. kernels - at the flagship shapes (768x1536 bucket, batch 2, 1000
@@ -44,13 +45,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
                by neuron, the same bits on a second run; its sweep and
                weight gradient are timed apart. K1 and K7 also run at 75 readout
                channels on one [2, 24, 48, 256] level. The paired RPN head
-               is held to its plain version on the five levels and on a
-               batch of four (its spike trains' differences from K1's
-               printed), and timed in turns with K1. The fused box head is
-               held to its plain version at R = 2000 with the flipped fc6
-               and fc7 spikes counted (rows with equal counts within 1e-3
-               (1 + |want|), all rows within 0.25 (1 + |want|)), and timed
-               beside the two-kernel route on the same inputs. The
+               (K8) must give K1's readout and spike sums bit for bit and
+               is held to its plain version on the five levels, on a batch
+               of four and on MobileNet's three levels at 75 channels, and
+               timed in turns with K1 on the flagship's and MobileNet's
+               levels. The fused box head (K9) is held to its plain
+               version at R = 2000 spike by spike: its fc6 spike trains
+               against the plain version's and, on its own fc6 spikes, the
+               plain tail's fc7 trains against its own (flipped bits at
+               most 1e-3 of the spikes), every row whose fc7 trains agree
+               within 1e-3 (1 + |want|) of that tail, all rows within 0.25
+               (1 + |want|) of the whole plain head; it is timed in turns
+               with the two-kernel route (K3 then K4) on the same inputs.
+               The
                RoIAlign (K2) is held to its plain version within 1e-5 (the
                count of differing elements printed) on 2 x 1000 boxes with
                boxes on the level mapper's borders among them, and on two
@@ -84,12 +91,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
                MobileNetV3-Large-FPN (9 classes, T_rpn=8, T_det=12) at 2 x
                768 x 1536: with the pairing switch on the paired RPN kernel
                runs on every level and the per-image kernel never, with it
-               off the other way round, and at most 1% of any output's
-               elements differ (the two sum the conv in other orders); the
-               MobileNet backbone launches neither the fused stem nor the
-               fused FPN. Prints images/s of each.
+               off the other way round, and every output the same bits
+               either way (K8 gives K1's bits); the MobileNet backbone
+               launches neither the fused stem nor the fused FPN. Prints
+               images/s of each.
   7. fused   - the fused box head's own entry point on 2000 RoI rows: one
-               launch for all 12 steps.
+               launch of its wrapper for all 12 steps, which runs the
+               kernel's four passes on the device.
   8. float32 - detector_apply(training=False) with float32 on one
                flagship batch: the reference's scans and the gather
                RoIAlign, no kernel launched, outputs finite and well
@@ -152,19 +160,23 @@ def _bound(n_bytes, tensor_ops, f32_ops=0.0):
 
 
 def _record(results, name, replaces, err, ms, pms, bound, library_ms=None,
-            product_only_ms=None, bare_ms=None):
+            product_only_ms=None, bare_ms=None, **extra):
     """One kernel's entry of the JSON line. ``library_ms`` is a PyTorch call
     that computes the kernel's whole function; ``product_only_ms``, where no
     call does, cuBLAS's time for the kernel's dense product alone on
     materialised spikes (an extra key); ``bare_ms``, the time of a bare
     launch through the C interface beside ``ms``, the call's (an extra
-    key)."""
-    extra = {} if product_only_ms is None else {"product_only_ms": product_only_ms}
+    key); ``extra``, further keys as they are (times in turns with another
+    route, flip counts)."""
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+
+    if product_only_ms is not None:
+        extra["product_only_ms"] = product_only_ms
     if bare_ms is not None:
         extra["bare_ms"] = bare_ms
     results.append(dict(
         name=name, route="cuda",
-        source=f"snn_automotive_object_detection_tpu_torch/csrc/{name}.cu",
+        source=f"snn_automotive_object_detection_tpu_torch/csrc/{cb.SOURCE[name]}.cu",
         replaces=f"snn_automotive_object_detection_tpu/{replaces}",
         max_abs_err=err, ms=ms, plain_ms=pms, library_ms=library_ms, **bound, **extra))
     lib = "" if library_ms is None else f", {library_ms:.3f} ms unfused cuDNN chain in bf16"
@@ -281,15 +293,22 @@ def _loop_ms(fn, reps=20, iters=5):
 
 
 def _device_kernels(run):
-    """The names of the device kernels one ``run()`` launches."""
+    """The names of the device kernels one ``run()`` launches. The tracer
+    has once returned no device event at all for a short run that launched
+    kernels; such an empty trace is taken again, up to twice."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+        print(f"profile: no device event in trace {attempt + 1} of 3")
+    return names
 
 
 def check_kernels(dev, results):
@@ -852,11 +871,35 @@ def check_wide_readout(dev, g, results):
     _hold_rpn_bwd(a, a2, own, b, tr[3], cot, cur_same)
 
 
+def _max_clusters(pair):
+    """How many clusters of K1's evaluation instance (two blocks) or of its
+    pair instance K8 (four blocks) the card holds at once."""
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+
+    out = ctypes.c_int(0)
+    fn = cb.function(k1.NAME, "rpn_level_max_clusters", [ctypes.c_int, ctypes.c_void_p])
+    cb.check(fn(int(pair), ctypes.addressof(out)), k1.X2_NAME)
+    return out.value
+
+
+def _turns(first, second, iters=10):
+    """Median times of ``first`` and ``second`` in turns (first, second,
+    second, first), so that both see the same clocks: ([a1, a2], [b1, b2])."""
+    a = [_median_ms(first, iters), 0.0]
+    b = [_median_ms(second, iters), _median_ms(second, iters)]
+    a[1] = _median_ms(first, iters)
+    return a, b
+
+
 def check_rpn_x2(dev, g, results):
-    """K8: the paired RPN head on the five flagship levels (N = 2) and on
-    one level with two pairs, against its plain version, with its spike
-    trains' differences from K1's printed; K8's and K1's times in turns,
-    the measurement that sets ``cuda_rpn.PAIR_IMAGES``."""
+    """K8, the paired RPN head (K1's kernel with the two images of a pair in
+    one cluster of four), on the five flagship levels (N = 2), on one level
+    with two pairs and on the three MobileNet levels at 75 readout channels:
+    its readout and spike sums equal to K1's bit for bit, and held to the
+    plain version with flipped spikes counted; timed in turns with K1 on
+    the flagship levels and on MobileNet's, which is the measurement that
+    would set ``cuda_rpn.PAIR_IMAGES``."""
     import torch
 
     from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
@@ -868,137 +911,125 @@ def check_rpn_x2(dev, g, results):
     feats4 = torch.rand((4, 48, 96, 256), generator=g, device=dev).mul(2.0).to(bf)
     w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.01
     w_out = torch.randn((256, 15), generator=g, device=dev) * 0.01
-    w9, w9t, wo = k1._taps(w_shared), k1._taps_t(w_shared), w_out.to(bf).contiguous()
+    w9t, wo = k1._taps_t(w_shared), w_out.to(bf).contiguous()
+    # MobileNet's levels at 768 x 1536 (strides 32, 32, 64), 15 anchors, from
+    # a generator of their own, so that the phases after this one keep the
+    # inputs they had before these were added.
+    g_m = torch.Generator(device=dev).manual_seed(8)
+    m_levels = [(24, 48), (24, 48), (12, 24)]
+    m_feats = [torch.rand((2, h, w, 256), generator=g_m, device=dev).mul(2.0).to(bf)
+               for h, w in m_levels]
+    m_out = torch.randn((256, 75), generator=g_m, device=dev) * 0.01
+    m_wo = m_out.to(bf).contiguous()
 
     err = 0.0
-    enc = 0
-    for f in feats + [feats4]:
-        shape = list(f.shape)
-        out, ssum = k1._launch_x2(f, w9, wo, 8, True)
-        one = k1._launch(f, w9t, wo, 8, True)
-        p_out, p_ssum = k1.rpn_level_x2_plain(f, w_shared, w_out, 8, True)
-        e, _, _, _ = _hold_rpn_eval([(out, None, None, ssum)], [(p_out, None, None, p_ssum)],
-                                    wo, f"{shape}", label="K8 rpn_head_x2")
-        print(f"K8 rpn_head_x2 {shape}: neurons whose spike train differs from K1's "
-              f"{int((ssum != one[3]).sum())}")
-        if f is not feats4:
+    enc = flips = spiked = 0
+    cases = ([(f, w_out, wo, True) for f in feats] + [(feats4, w_out, wo, False)]
+             + [(f, m_out, m_wo, False) for f in m_feats])
+    for f, o, wf, flagship in cases:
+        shape = f"{list(f.shape)} x {o.shape[1]}"
+        out, ssum = k1._launch_x2(f, w9t, wf, 8, True)
+        one = k1._launch(f, w9t, wf, 8, True)
+        equal = bool(torch.equal(out, one[0]) and torch.equal(ssum, one[3]))
+        p_out, p_ssum = k1.rpn_level_x2_plain(f, w_shared, o, 8, True)
+        e, _, f_flips, f_spiked = _hold_rpn_eval(
+            [(out, None, None, ssum)], [(p_out, None, None, p_ssum)], wf, shape,
+            label="K8 rpn_head_x2")
+        print(f"K8 rpn_head_x2 {shape}: readout and spike sums equal to K1's bit for bit "
+              f"{equal}")
+        if not equal:
+            _fail(f"K8 differs from K1 on {shape}")
+        for pair in (False, True):
+            if k1.launch_dims_on_card(f.shape, pair) != k1.level_grid(f.shape, pair):
+                _fail(f"cuda_rpn.level_grid on {shape} (pair {pair}) is not the launch's "
+                      f"{k1.launch_dims_on_card(f.shape, pair)}")
+        if flagship:
             err = max(err, e)
             enc += int(one[1].sum())
-    def paired():
-        return [k1._launch_x2(f, w9, wo, 8) for f in feats]
+            flips, spiked = flips + f_flips, spiked + f_spiked
+    k1c, k8c = _max_clusters(False), _max_clusters(True)
+    print(f"K8 rpn_head_x2: the card holds {k8c} clusters of four at once ({132 - 4 * k8c} "
+          f"of 132 SMs idle); K1: {k1c} clusters of two ({132 - 2 * k1c} idle)")
 
-    def single():
-        return [k1._launch(f, w9t, wo, 8) for f in feats]
+    def paired(fs, wf):
+        return lambda: [k1._launch_x2(f, w9t, wf, 8) for f in fs]
 
-    def plain():
-        return [k1.rpn_level_x2_plain(f, w_shared, w_out, 8) for f in feats]
+    def single(fs, wf):
+        return lambda: [k1._launch(f, w9t, wf, 8) for f in fs]
 
-    # In turns, so that both see the same clocks: K1, K8, K8, K1.
-    t1 = [_median_ms(single, 10), 0.0]
-    t8 = [_median_ms(paired, 10), _median_ms(paired, 10)]
-    t1[1] = _median_ms(single, 10)
+    t1, t8 = _turns(single(feats, wo), paired(feats, wo))
+    m1, m8 = _turns(single(m_feats, m_wo), paired(m_feats, m_wo))
     spread = max(abs(t1[0] - t1[1]), abs(t8[0] - t8[1]))
     gain = min(t1) - max(t8)
     print(f"K8 against K1, five flagship levels, T = 8: K1 {t1[0]:.3f} and {t1[1]:.3f} ms, "
           f"K8 {t8[0]:.3f} and {t8[1]:.3f} ms; spread of the repeats {spread:.3f} ms; "
           f"pairing is {'faster' if gain > spread else 'not faster'} by more than the "
           f"spread (default {'on' if k1.PAIR_IMAGES else 'off'})")
-
+    print(f"K8 against K1, MobileNet's three levels x 75, T = 8: K1 {m1[0]:.3f} and "
+          f"{m1[1]:.3f} ms, K8 {m8[0]:.3f} and {m8[1]:.3f} ms")
     for (h, w), f in zip(levels, feats):
-        l1 = _median_ms(lambda: k1._launch(f, w9t, wo, 8), 10)
-        l8 = _median_ms(lambda: k1._launch_x2(f, w9, wo, 8), 10)
-        print(f"K8 against K1 on [2, {h}, {w}, 256]: K1 {l1:.3f} ms, K8 {l8:.3f} ms")
+        l1, l8 = _turns(single([f], wo), paired([f], wo))
+        print(f"K8 against K1 on [2, {h}, {w}, 256]: K1 {min(l1):.3f} ms, K8 {min(l8):.3f} ms")
     neurons = sum(2 * h * w * 256 * 8 for h, w in levels)
-    outs = paired()
+    outs = paired(feats, wo)()
     _record(results, "rpn_head_x2", "snn/pallas_rpn.py:710", err, min(t8),
-            _median_ms(plain, 5),
-            _bound(_nbytes(*feats, w9, wo, *outs),
+            _median_ms(lambda: [k1.rpn_level_x2_plain(f, w_shared, w_out, 8) for f in feats], 5),
+            _bound(_nbytes(*feats, w9t, wo, *outs),
                    2.0 * enc * 9 * 256 + sum(2.0 * 2 * h * w * 256 * 15 for h, w in levels),
-                   10.0 * neurons))
-
-
-def box_head_inputs(dev, g):
-    """K9's inputs: x [2000, 12544] in the encoder's range, w6, w7 and the
-    readouts for 9 classes, drawn from ``g``."""
-    import torch
-
-    def uniform(shape, scale):
-        return (torch.rand(shape, generator=g, device=dev) * 2 - 1) / scale
-
-    x = torch.rand((2000, 12544), generator=g, device=dev) * 2.5
-    return (x, uniform((12544, 1024), 112.0), uniform((1024, 1024), 32.0),
-            uniform((1024, 9), 32.0), uniform((1024, 36), 32.0))
+                   10.0 * neurons),
+            turns_ms={"K1": t1, "K8": t8, "K1 MobileNet": m1, "K8 MobileNet": m8},
+            clusters={"K8": k8c, "K1": k1c}, flips={"neurons": flips, "spiked": spiked})
 
 
 def check_box_head_fused(dev, g, results):
-    """K9: the whole box head in one launch at R = 2000, K = 12544, H = 1024,
-    9 classes, T = 12, against its plain version, and its time beside the
-    two-kernel route's (K3 then K4) on the same inputs."""
+    """K9: the whole box head in one call at R = 2000, K = 12544, H = 1024,
+    9 classes, T = 12, held to its plain version spike by spike, and its
+    time in turns with the two-kernel route's (K3 then K4) on the same
+    inputs."""
     import torch
 
     from snn_automotive_object_detection_tpu_torch.models import heads
     from snn_automotive_object_detection_tpu_torch.snn import cuda_kernels as k9
-    from snn_automotive_object_detection_tpu_torch.snn import functional as snnf
+    from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
 
-    r, d, rep, t = 2000, 12544, 1024, 12
+    r, rep, t = 2000, 1024, 12
     bf = torch.bfloat16
-    x, w6, w7, wc, wb = box_head_inputs(dev, g)
-    got = k9.fastrcnn_snn_cuda(x, w6, w7, wc, wb, t)
-    torch.cuda.synchronize()
-    want = k9.fastrcnn_snn_plain(x, w6, w7, wc, wb, t)
-    for a, shp in zip(got, ((r, 9), (r, 36), (r,), (r,))):
-        if tuple(a.shape) != shp or a.dtype != torch.float32 or not torch.isfinite(a).all():
-            _fail(f"K9 output of shape {tuple(a.shape)}, expected finite f32 {shp}")
-    # Per-row spike counts: a row's |difference| counts its flipped spikes.
-    d6 = (got[2] - want[2]).abs() * (t * rep)
-    d7 = (got[3] - want[3]).abs() * (t * rep)
-    n6, n7 = want[2].sum().item() * t * rep, want[3].sum().item() * t * rep
-    clean = (d6.round() == 0) & (d7.round() == 0)
-    tol_clean, tol_any = 1e-3, 0.25
-
-    def excess(a, b, rows, tol):
-        return ((a[rows] - b[rows]).abs() / (tol * (1.0 + b[rows].abs()))).max().item() \
-            if rows.any() else 0.0
-
-    ex_clean = max(excess(got[0], want[0], clean, tol_clean),
-                   excess(got[1], want[1], clean, tol_clean))
-    every = torch.ones_like(clean)
-    ex_any = max(excess(got[0], want[0], every, tol_any),
-                 excess(got[1], want[1], every, tol_any))
-    err = max((got[0] - want[0]).abs().max().item(), (got[1] - want[1]).abs().max().item())
-    print(f"K9 box_head_fused: rates fc6 {want[2].mean().item():.4f} fc7 "
-          f"{want[3].mean().item():.4f}; flipped spikes (per-row count differences) fc6 "
-          f"{d6.sum().item():.0f} of {n6:.0f}, fc7 {d7.sum().item():.0f} of {n7:.0f}; "
-          f"{int(clean.sum())} of {r} rows with equal counts, there max|diff| "
-          f"{ex_clean:.3g} of the bound {tol_clean} (1 + |want|); all rows max|diff| "
-          f"{err:.3g} at max|logit| {want[0].abs().max().item():.4g}, {ex_any:.3g} of "
-          f"the bound {tol_any} (1 + |want|)")
-    if n6 == 0 or n7 == 0 or d6.sum().item() > 1e-3 * n6 or d7.sum().item() > 1e-3 * n7 \
-            or ex_clean > 1 or ex_any > 1 or int(clean.sum()) < 0.99 * r:
-        _fail("K9 disagrees with its plain version")
-
-    periods = snnf.encoder_periods(x).contiguous()
-    w6b, w7b = w6.to(bf).contiguous(), w7.to(bf).contiguous()
-    wro = torch.cat([wc, wb], 1).to(bf).contiguous()
-    params = {"fc6": {"w": w6b}, "fc7": {"w": w7b}, "cls_score": {"w": wc},
+    x, w6, w7, wc, wb = kc.box_head_inputs(dev, g)
+    flips = kc.box_head_fused_hold(x, w6, w7, wc, wb, t)
+    print(f"K9 box_head_fused at R = 2000, T = 12: {kc.box_head_fused_line(flips)}")
+    if not flips["ok"]:
+        _fail("K9 disagrees with its plain version at R = 2000, T = 12")
+    args = k9.launch_args(x, w6, w7, wc, wb) + (t,)
+    smem = k9.smem_on_card()
+    print(f"K9 box_head_fused: shared memory per block, staging in the drained ring: fc6 and "
+          f"fc7 {smem[0]} bytes, readout {smem[1]} (beside the ring: "
+          f"{k9.smem_bytes(128, 8, False)}, over the {k9.SMEM_LIMIT} a block may have)")
+    if smem != (k9.smem_bytes(128, 8, True), k9.smem_bytes(64, 8, True)):
+        _fail(f"K9 launches with {smem} bytes of shared memory, cuda_kernels.smem_bytes says "
+              f"{(k9.smem_bytes(128, 8, True), k9.smem_bytes(64, 8, True))}")
+    periods = args[0]
+    params = {"fc6": {"w": args[1]}, "fc7": {"w": args[2]}, "cls_score": {"w": wc},
               "bbox_pred": {"w": wb}}
     xb = x.to(bf)
-    ms = _median_ms(lambda: k9._launch(periods, w6b, w7b, wro, 9, t), 10)
-    whole = _median_ms(lambda: k9.fastrcnn_snn_cuda(x, w6b, w7b, wc, wb, t), 10)
-    two = _median_ms(lambda: heads.fastrcnn_snn_apply(params, xb, t), 10)
+    k9_ms, two = _turns(lambda: k9._launch(*args), lambda: heads.fastrcnn_snn_apply(params, xb, t))
+    whole = _median_ms(lambda: k9.fastrcnn_snn_cuda(x, args[1], args[2], wc, wb, t), 10)
     pms = _median_ms(lambda: k9.fastrcnn_snn_plain(x, w6, w7, wc, wb, t), 3)
-    print(f"K9 against K3 + K4 on the same inputs: K9 {ms:.3f} ms on the periods "
-          f"({whole:.3f} ms with the period map, a PyTorch pointwise pass over f32 x); "
-          f"K3 then K4 through fastrcnn_snn_apply {two:.3f} ms")
+    print(f"K9 against K3 + K4 on the same inputs, in turns: K9 {k9_ms[0]:.3f} and "
+          f"{k9_ms[1]:.3f} ms on the periods ({whole:.3f} ms with the period map, a PyTorch "
+          f"pointwise pass over f32 x); K3 then K4 through fastrcnn_snn_apply {two[0]:.3f} and "
+          f"{two[1]:.3f} ms")
     # The encoder spikes within T steps: floor(T / p) per element. fc6 adds
     # a 1024-wide row per encoder spike, fc7 one per fc6 spike, the readout
     # a 45-wide row per fc7 spike; about 10 f32 operations per neuron and step.
     enc = (t // periods.int()).sum().item()
-    outs = k9._launch(periods, w6b, w7b, wro, 9, t)
-    _record(results, "box_head_fused", "snn/pallas_kernels.py:212", err, ms, pms,
-            _bound(_nbytes(periods, w6b, w7b, wro, *outs),
-                   2.0 * enc * rep + 2.0 * n6 * rep + 2.0 * n7 * 45,
-                   10.0 * t * r * (2 * rep + 45)))
+    outs = k9._launch(*args)
+    _record(results, "box_head_fused", "snn/pallas_kernels.py:212", flips["err"], min(k9_ms),
+            pms,
+            _bound(_nbytes(periods, *args[1:4], *outs),
+                   2.0 * enc * rep + 2.0 * flips["n6"] * rep + 2.0 * flips["n7"] * 45,
+                   10.0 * t * r * (2 * rep + 45)),
+            turns_ms={"K9": k9_ms, "K3 + K4": two},
+            flips={k: flips[k] for k in ("flips6", "n6", "flips7", "n7", "rows7")})
 
 
 # The kernel phases in the order they draw from one generator.
@@ -1126,10 +1157,8 @@ def eval_path(dev, backbone, iters=3):
     """The plain evaluation call, ``detector_apply(training=False,
     collect_rates=False)``, on one backbone at 2 x 768 x 1536, full width
     and depth: in turns with the RPN head's pairing switch on (K8 on every
-    level) and off (K1). The two kernels sum the conv in other orders, so
-    a rare LIF spike may differ between them (``check_rpn_x2`` and
-    ``check_rpn_head`` hold each to the plain version neuron by neuron):
-    here at most 1% of the elements of any output may differ. Returns the
+    level) and off (K1). K8 gives K1's bits per image (``check_rpn_x2``),
+    so every output must be the same with the switch on and off. Returns the
     launches of its last counted run with the switch on and its last with
     it off, summed: K8 serves this path only through the switch."""
     import torch
@@ -1198,9 +1227,8 @@ def eval_path(dev, backbone, iters=3):
           f"{rate[True][1]:.3f}, off {rate[False][0]:.3f} and {rate[False][1]:.3f}")
     differ = {k: int((v != runs[False][0][k]).sum()) for k, v in runs[True][0].items()}
     print(f"{backbone}, rates off: elements that differ between pairing on and off {differ}")
-    for k, v in runs[True][0].items():
-        if differ[k] > 0.01 * v.numel():
-            _fail(f"{backbone}: {k} differs between pairing on and off")
+    if any(differ.values()):
+        _fail(f"{backbone}: the outputs differ between pairing on and off")
     out = runs[False][0]
     # Outside the counted runs: the same batch once more with rates on, for
     # the spike rates the kernels worked at.
@@ -1259,7 +1287,8 @@ def float32_eval_path(dev):
 def fused_head_path(dev):
     """The fused box head's own entry point, ``fastrcnn_snn_cuda``, on the
     flagship box head's weights and 2 x 1000 RoI feature rows: one launch
-    for all 12 steps. Returns the launches."""
+    of its wrapper for all 12 steps, whose call runs the kernel's four
+    passes on the device. Returns the launches."""
     import torch
 
     from snn_automotive_object_detection_tpu_torch.models.factory import (
@@ -1274,6 +1303,11 @@ def fused_head_path(dev):
     weights = [head[k]["w"] for k in ("fc6", "fc7", "cls_score", "bbox_pred")]
     fastrcnn_snn_cuda(x, *weights, cfg.t_det)                       # warm-up
     torch.cuda.synchronize()
+    kernels = [k for k in _device_kernels(lambda: fastrcnn_snn_cuda(x, *weights, cfg.t_det))
+               if "period_code" in k or "spike_gemm" in k]
+    print(f"fused box head: one call runs the kernel's passes {kernels}")
+    if len(kernels) != 4:
+        _fail("the fused box head's call does not run its four passes")
     cb.reset_counts()
     t0 = time.perf_counter()
     cls, reg, r6, r7 = fastrcnn_snn_cuda(x, *weights, cfg.t_det)

@@ -1,7 +1,7 @@
 // Hopper building blocks shared by the kernels written for warpgroup
 // matrix multiplies (fpn_level.cu, rpn_head.cu, rpn_head_bwd.cu, and
-// through spike_gemm.cuh encoder_fc6.cu and box_tail.cu) and by the stem's
-// TMA ring (stem.cu): mbarriers, TMA tile loads
+// through spike_gemm.cuh encoder_fc6.cu, box_tail.cu and box_head_fused.cu)
+// and by the stem's TMA ring (stem.cu): mbarriers, TMA tile loads
 // (multicast to a thread-block cluster too), the wgmma descriptors and
 // instructions, register reallocation between warpgroups, named and
 // cluster barriers, and on the host the encoding of a tensor map and the
@@ -363,11 +363,11 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
 // ---- host: tensor maps and cluster launches
 namespace hopper_host {
 
-// Launches `kernel` with clusters of `cluster_x` x `cluster_y` blocks.
+// Launches `kernel` with clusters of cluster.x x cluster.y x cluster.z blocks
+// (the grid a multiple of them in each dimension).
 template <typename... Params, typename... Args>
-cudaError_t launch_clustered_xy(void (*kernel)(Params...), dim3 grid, int threads, int smem,
-                                int cluster_x, int cluster_y, cudaStream_t stream,
-                                Args... args) {
+cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid, dim3 cluster, int threads,
+                            int smem, cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(threads, 1, 1);
@@ -375,9 +375,9 @@ cudaError_t launch_clustered_xy(void (*kernel)(Params...), dim3 grid, int thread
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster_x;
-  attr[0].val.clusterDim.y = cluster_y;
-  attr[0].val.clusterDim.z = 1;
+  attr[0].val.clusterDim.x = cluster.x;
+  attr[0].val.clusterDim.y = cluster.y;
+  attr[0].val.clusterDim.z = cluster.z;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, args...);
@@ -387,7 +387,7 @@ cudaError_t launch_clustered_xy(void (*kernel)(Params...), dim3 grid, int thread
 template <typename... Params, typename... Args>
 cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid, int threads, int smem,
                              int cluster_y, cudaStream_t stream, Args... args) {
-  return launch_clustered_xy(kernel, grid, threads, smem, 1, cluster_y, stream, args...);
+  return launch_clusters(kernel, grid, dim3(1, cluster_y, 1), threads, smem, stream, args...);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -1,11 +1,13 @@
 // Spiking RPN head, one FPN level, all T steps, for Hopper (bf16 planes,
-// f32 neuron states): the evaluation route, and in a training instance the
-// forward of the training route.
+// f32 neuron states): the evaluation route, in a training instance the
+// forward of the training route, and in a pair instance the paired-image
+// head (K8).
 //
-// Replaces the TPU kernel snn/pallas_rpn.py (_rpn_level_kernel, launched by
+// Replaces the TPU kernels snn/pallas_rpn.py _rpn_level_kernel (launched by
 // _run_level for rpn_head_snn_pallas_apply and, as the forward of the
-// custom VJP _level_train, for rpn_head_snn_pallas_train_apply). Per level
-// and step t:
+// custom VJP _level_train, for rpn_head_snn_pallas_train_apply) and
+// _rpn_x2_kernel (launched by _run_level_x2, two images per instance, no
+// spike counters). Per level and step t:
 //   z_t   = encoder spikes, from the closed-form period
 //           p = 1 + sum_m [x * (1 - a^m) <= 0.25]: z_t = ((t + 1) % p == 0)
 //   cur_t = bf16(conv3x3(z_t, w9))            (bias-free, zero padding)
@@ -57,6 +59,18 @@
 // per [N, H, W, 256] uint8 and the spike sums. Its readout, counts and
 // spike sums are the evaluation instance's bits.
 //
+// Pair instance (cluster size 4, C entry rpn_level_x2_bf16): on the TPU
+// the pair shared one copy of the weights in VMEM; here the blocks of both
+// images share each weight stage. A cluster is two rows x the two images
+// of a pair (cluster dims (1, 2, 2) over a grid of (W / 16, H padded to
+// even, N)); each block loads a quarter of a stage's output channels and
+// multicasts it into all four, so the L2 weight reads halve again, and a
+// slot is refilled once the consumers of all four have released it. A
+// block cannot hold both images' rows: 8 steps x 16 pixels x 256 channels
+// of f32 accumulators already fill its consumers' registers. Per image the
+// pair instance computes K1's sums in K1's order, so its readout and spike
+// sums are K1's bits; it writes no spike counts.
+//
 // The plain version sums the conv in another order, so a current can
 // round to the neighbouring bf16 value and, rarely, flip a spike: the
 // checks count such neurons through the spike-sum output.
@@ -85,6 +99,7 @@ constexpr int kLdc = kC + 8;             // staged current row stride (bf16)
 constexpr int kMaxT = rpn::kMaxT;
 constexpr int kMaxOut = rpn::kMaxOut;
 constexpr int kCluster = 2;              // blocks (consecutive rows) sharing each weight stage
+constexpr int kPairCluster = 4;          // the pair instance: two rows x two images
 
 constexpr int kRingOff = 0;
 constexpr int kStageOff = kRingOff + kStages * kSlotBytes;
@@ -112,7 +127,14 @@ __device__ __forceinline__ uint32_t spike_pair(uint32_t pp, unsigned long long m
   return b0 * 0x3F80u | b1 * 0x3F800000u;
 }
 
-template <bool kSave>
+// A cluster of kCl blocks: up to two consecutive rows (y), then the two
+// images of a pair (z).
+template <int kCl>
+dim3 cluster_dims() {
+  return dim3(1, kCl < 2 ? kCl : 2, kCl < 2 ? 1 : kCl / 2);
+}
+
+template <bool kSave, int kCl>
 __global__ void __launch_bounds__(kThreads, 1)
 rpn_level_kernel(const __grid_constant__ CUtensorMap map_w9,  // w9 [9 * 256 out, 256 in]
                  const bf16* __restrict__ feat,     // [N, H, W, C]
@@ -140,14 +162,14 @@ rpn_level_kernel(const __grid_constant__ CUtensorMap map_w9,  // w9 [9 * 256 out
   const int wg = tid >> 7;
   const int x0 = blockIdx.x * kPx;
   const int y = blockIdx.y;          // rows from H on pad the grid to whole clusters
-  const int n = blockIdx.z;
+  const int n = blockIdx.z;          // the pair instance: images 2p, 2p + 1 in one cluster
   const int n_chunks = (T + kChunk - 1) / kChunk;
   const int n_stages = n_chunks * kTapStages;
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8 * kCluster);   // one arrival per consumer warp of the cluster
+      mbar_init(&empty[s], 8 * kCl);   // one arrival per consumer warp of the cluster
     }
     fence_barrier_init();
   }
@@ -155,7 +177,7 @@ rpn_level_kernel(const __grid_constant__ CUtensorMap map_w9,  // w9 [9 * 256 out
 
   if (wg == 2) {
     // ---- Producer: 36 stages per chunk, chunk after chunk. Block r of the
-    // cluster loads output channels r * 256 / kCluster .. of each stage into
+    // cluster loads output channels r * 256 / kCl .. of each stage into
     // every block of the cluster; a slot is refilled once all of them have
     // released it.
     reg_dealloc<40>();
@@ -167,9 +189,9 @@ rpn_level_kernel(const __grid_constant__ CUtensorMap map_w9,  // w9 [9 * 256 out
         mbar_wait(&empty[slot], ((s / kStages) & 1) ^ 1);
         if (s >= n_stages) continue;    // the tail: every remote release has landed
         mbar_expect_tx(&full[slot], kSlotBytes);
-        tma_load_2d_multicast(ring + slot * kSlotBytes + rank * (kSlotBytes / kCluster),
-                              &map_w9, &full[slot], (uint16_t)((1 << kCluster) - 1),
-                              (c % 4) * kK, (c / 4) * kC + rank * (kC / kCluster));
+        tma_load_2d_multicast(ring + slot * kSlotBytes + rank * (kSlotBytes / kCl), &map_w9,
+                              &full[slot], (uint16_t)((1 << kCl) - 1), (c % 4) * kK,
+                              (c / 4) * kC + rank * (kC / kCl));
       }
     }
   } else {
@@ -269,7 +291,7 @@ rpn_level_kernel(const __grid_constant__ CUtensorMap map_w9,  // w9 [9 * 256 out
           mbar_wait(&full[slot], (s / kStages) & 1);
         }
         if (lane == 0) {
-          for (int r = 0; r < kCluster; ++r) mbar_arrive_cluster(&empty[slot], r);
+          for (int r = 0; r < kCl; ++r) mbar_arrive_cluster(&empty[slot], r);
         }
       }
 
@@ -351,27 +373,36 @@ rpn_level_kernel(const __grid_constant__ CUtensorMap map_w9,  // w9 [9 * 256 out
   }
 }
 
-template <bool kSave>
+// The grid of a level [N, H, W, 256]: a block per 16 pixels of a row, the
+// rows padded to the cluster's (padded rows store nothing).
+template <int kCl>
+dim3 level_grid(int N, int H, int W) {
+  const dim3 cluster = cluster_dims<kCl>();
+  return dim3((W + kPx - 1) / kPx, (H + cluster.y - 1) / cluster.y * cluster.y, N);
+}
+
+template <bool kSave, int kCl>
 int launch_level(const void* feat, const void* w9_t, const void* wout, const float* consts,
                  float* out, void* counts, float* ssum, void* cur, void* per, int N, int H,
                  int W, int T, int n_out, void* stream) {
+  const dim3 cluster = cluster_dims<kCl>();
   if (N <= 0 || H <= 0 || W <= 0 || T < 1 || T > kMaxT || n_out < 1 ||
-      n_out > kMaxOut || H > 65535 || N > 65535 || (kSave && ssum == nullptr)) {
+      n_out > kMaxOut || H > 65534 || N > 65535 || N % cluster.z != 0 ||
+      (kSave && ssum == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   CUtensorMap map;
   const uint64_t dims[2] = {(uint64_t)kC, (uint64_t)9 * kC};
-  const uint32_t box[2] = {kK, kC / kCluster};
+  const uint32_t box[2] = {kK, kC / kCl};
   if (!hopper_host::bf16_map(&map, w9_t, 2, dims, box, CU_TENSOR_MAP_SWIZZLE_128B)) {
     return (int)cudaErrorInvalidValue;
   }
-  auto kernel = rpn_level_kernel<kSave>;
+  auto kernel = rpn_level_kernel<kSave, kCl>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + kPx - 1) / kPx, (H + kCluster - 1) / kCluster * kCluster, N);
-  err = hopper_host::launch_clustered(
-      kernel, grid, kThreads, kSmem, kCluster, (cudaStream_t)stream, map,
+  err = hopper_host::launch_clusters(
+      kernel, level_grid<kCl>(N, H, W), cluster, kThreads, kSmem, (cudaStream_t)stream, map,
       reinterpret_cast<const bf16*>(feat), reinterpret_cast<const bf16*>(wout), consts, out,
       reinterpret_cast<unsigned long long*>(counts), ssum, reinterpret_cast<bf16*>(cur),
       reinterpret_cast<uint8_t*>(per), H, W, T, n_out);
@@ -390,8 +421,8 @@ int launch_level(const void* feat, const void* w9_t, const void* wout, const flo
 extern "C" int rpn_level_bf16(const void* feat, const void* w9_t, const void* wout,
                               const float* consts, float* out, void* counts, float* ssum,
                               int N, int H, int W, int T, int n_out, void* stream) {
-  return launch_level<false>(feat, w9_t, wout, consts, out, counts, ssum, nullptr, nullptr, N,
-                             H, W, T, n_out, stream);
+  return launch_level<false, kCluster>(feat, w9_t, wout, consts, out, counts, ssum, nullptr,
+                                       nullptr, N, H, W, T, n_out, stream);
 }
 
 // The training instance: the same arguments (ssum required), and in
@@ -401,6 +432,47 @@ extern "C" int rpn_level_save_bf16(const void* feat, const void* w9_t, const voi
                                    const float* consts, float* out, void* counts, float* ssum,
                                    void* cur, void* per, int N, int H, int W, int T, int n_out,
                                    void* stream) {
-  return launch_level<true>(feat, w9_t, wout, consts, out, counts, ssum, cur, per, N, H, W, T,
-                            n_out, stream);
+  return launch_level<true, kCluster>(feat, w9_t, wout, consts, out, counts, ssum, cur, per, N,
+                                      H, W, T, n_out, stream);
+}
+
+// The pair instance (K8): the arguments of rpn_level_bf16 with N even and
+// no spike counts; the readout and ssum (may be null) are K1's bits.
+extern "C" int rpn_level_x2_bf16(const void* feat, const void* w9_t, const void* wout,
+                                 const float* consts, float* out, float* ssum, int N, int H,
+                                 int W, int T, int n_out, void* stream) {
+  return launch_level<false, kPairCluster>(feat, w9_t, wout, consts, out, nullptr, ssum,
+                                           nullptr, nullptr, N, H, W, T, n_out, stream);
+}
+
+// The grid and the cluster dims that the evaluation instance (pair = 0) or
+// the pair instance (pair = 1) launches on a level [N, H, W, 256], into
+// dims[0..2] (grid x, y, z) and dims[3..5] (cluster x, y, z).
+extern "C" int rpn_level_launch_dims(int pair, int N, int H, int W, int* dims) {
+  const dim3 grid = pair ? level_grid<kPairCluster>(N, H, W) : level_grid<kCluster>(N, H, W);
+  const dim3 cluster = pair ? cluster_dims<kPairCluster>() : cluster_dims<kCluster>();
+  const unsigned v[6] = {grid.x, grid.y, grid.z, cluster.x, cluster.y, cluster.z};
+  for (int i = 0; i < 6; ++i) dims[i] = (int)v[i];
+  return 0;
+}
+
+// How many clusters of the evaluation instance (pair = 0) or of the pair
+// instance (pair = 1) the card holds at once, into *clusters.
+extern "C" int rpn_level_max_clusters(int pair, int* clusters) {
+  auto kernel = pair ? rpn_level_kernel<false, kPairCluster> : rpn_level_kernel<false, kCluster>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = pair ? cluster_dims<kPairCluster>() : cluster_dims<kCluster>();
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = kSmem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cfg.gridDim.x;
+  attr[0].val.clusterDim.y = cfg.gridDim.y;
+  attr[0].val.clusterDim.z = cfg.gridDim.z;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, (void*)kernel, &cfg);
 }

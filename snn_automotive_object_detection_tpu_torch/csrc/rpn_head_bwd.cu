@@ -424,9 +424,9 @@ cudaError_t launch_wgrad(const void* dc, const void* per, float* part9, int* cou
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGSmem);
   if (err != cudaSuccess) return err;
-  err = hopper_host::launch_clustered_xy(kernel, dim3(kCluster, 9, S), kGThreads, kGSmem,
-                                         kCluster, 1, stream, map_dc, map_per, part9, counters,
-                                         dw9, N, H, W, T, S);
+  err = hopper_host::launch_clusters(kernel, dim3(kCluster, 9, S), dim3(kCluster, 1, 1),
+                                     kGThreads, kGSmem, stream, map_dc, map_per, part9, counters,
+                                     dw9, N, H, W, T, S);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

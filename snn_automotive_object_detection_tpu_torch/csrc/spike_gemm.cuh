@@ -1,6 +1,7 @@
 // Spike-code GEMM for Hopper, shared by the box head's kernels
-// encoder_fc6.cu (K3: the encoder's spikes times w6) and box_tail.cu (K4:
-// LIF6's spikes times w7, LIF7's times the cls|bbox readout):
+// encoder_fc6.cu (K3: the encoder's spikes times w6), box_tail.cu (K4:
+// LIF6's spikes times w7, LIF7's times the cls|bbox readout) and
+// box_head_fused.cu (K9: all three, with f32 epilogues):
 //
 //   C[(t, r), n] = sum_k z_t[r, k] W[k, n]   for every step t < T,
 //
@@ -29,9 +30,14 @@
 // the bf16 pair of two elements is ((code pair >> t) & 0x10001) * 0x3F80,
 // three integer operations, then wgmma m64nNk16 with A from registers.
 //
-// The epilogue is a template parameter: store the f32 sums (K3), or round
+// The epilogue is a template parameter: store the f32 sums (K3); round
 // them to bf16, stage them in shared memory and run the LIF (K4's fc7) or
-// LI (K4's readout) scan over t per (row, column).
+// LI (K4's readout) scan over t per (row, column); or stage them as they
+// are, in f32, and run the same scans (K9). The f32 staging of 16 rows x
+// 16 steps x 128 columns (139 KB) does not fit beside an 8-stage ring (147
+// KB), so it overlays the ring once every consumer has passed the last
+// full barrier: by then every stage, the partner block's multicast shares
+// included, has landed and been read, and nothing writes the ring again.
 //
 // Grid: x = row tiles (padded to whole clusters; a padded tile computes on
 // zero codes and stores nothing), y = column tiles. Blocks start x-major,
@@ -158,8 +164,9 @@ spike_gemm_kernel(const __grid_constant__ CUtensorMap map_w,     // W [K, N] bf1
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* stage = ring + RingT::kBytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(stage + Epi::kStageBytes);
+  unsigned char* stage = Epi::kInRing ? ring : ring + RingT::kBytes;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + RingT::kBytes + (Epi::kInRing ? 0 : Epi::kStageBytes));
   uint64_t* empty = full + kStages;
 
   const int tid = threadIdx.x;
@@ -256,6 +263,7 @@ struct StoreF32 {
     int n_total;
   };
   static constexpr int kStageBytes = 0;
+  static constexpr bool kInRing = false;
 
   template <int kN>
   static __device__ __forceinline__ void run(const float (&acc)[2][kN / 2], int mine,
@@ -291,6 +299,7 @@ struct LifCodes {
   };
   static constexpr int kLd = 128 + 8;   // staged row stride (bf16): conflict-free pair writes
   static constexpr int kStageBytes = kMaxT * kRows * kLd * 2;
+  static constexpr bool kInRing = false;
 
   template <int kN>
   static __device__ __forceinline__ void run(const float (&acc)[2][kN / 2], int mine,
@@ -344,6 +353,7 @@ struct LiOut {
   };
   static constexpr int kLd = 64 + 8;
   static constexpr int kStageBytes = kMaxT * kRows * kLd * 2;
+  static constexpr bool kInRing = false;
 
   template <int kN>
   static __device__ __forceinline__ void run(const float (&acc)[2][kN / 2], int mine,
@@ -369,9 +379,140 @@ struct LiOut {
   }
 };
 
+// Stores this thread's f32 sums of its m-tiles, unrounded, into the
+// staging plane [step][row][kLd] (floats) that overlays the drained ring,
+// then synchronises the consumers. kLd % 32 == 8 keeps the float2 writes
+// of a half-warp on distinct banks.
+template <int kN, int kLd>
+__device__ __forceinline__ void stage_f32(const float (&acc)[2][kN / 2], int mine,
+                                          const Ctx& c, float* st) {
+  static_assert(kLd % 32 == 8, "conflict-free staging writes");
+  named_bar(1, kConsumers);   // every consumer is past the last stage of the ring
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int t = c.step(j);
+    if (j < mine && t < c.T) {
+#pragma unroll
+      for (int q = 0; q < kN / 8; ++q) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float2 s;
+          s.x = acc[j][4 * q + 2 * h];
+          s.y = acc[j][4 * q + 2 * h + 1];
+          *reinterpret_cast<float2*>(st + (t * kRows + c.g + 8 * h) * kLd + 8 * q + 2 * c.t4) = s;
+        }
+      }
+    }
+  }
+  named_bar(1, kConsumers);
+}
+
+// K9's fc6 and fc7: the LIF scan over t on the f32 sums as they are; emits
+// the spike codes [R, n_total] uint16 and adds the spikes of each row to
+// counts[2 r] (the caller offsets counts by the layer's column).
+struct LifF32Codes {
+  struct Params {
+    uint16_t* code;
+    int* counts;
+    int n_total;
+  };
+  static constexpr int kLd = 128 + 8;
+  static constexpr int kStageBytes = kMaxT * kRows * kLd * 4;
+  static constexpr bool kInRing = true;
+
+  template <int kN>
+  static __device__ __forceinline__ void run(const float (&acc)[2][kN / 2], int mine,
+                                             const Ctx& c, unsigned char* stage,
+                                             const Params& p) {
+    static_assert(kN == 128, "16 threads x 8 columns per row");
+    const float* st = reinterpret_cast<const float*>(stage);
+    stage_f32<kN, kLd>(acc, mine, c, reinterpret_cast<float*>(stage));
+    // Thread tid runs columns c4 .. c4 + 3 and 64 + c4 .. 64 + c4 + 3 of row
+    // tid / 16: a quarter-warp reads 128 contiguous bytes.
+    const int tid = threadIdx.x;
+    const int r = tid >> 4;
+    const int c4 = (tid & 15) * 4;
+    float v[8], i[8];
+    uint32_t code[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      v[e] = i[e] = 0.0f;
+      code[e] = 0u;
+    }
+    int cnt = 0;
+    for (int t = 0; t < c.T; ++t) {
+      const float4 lo = *reinterpret_cast<const float4*>(st + (t * kRows + r) * kLd + c4);
+      const float4 hi = *reinterpret_cast<const float4*>(st + (t * kRows + r) * kLd + 64 + c4);
+      const float cur[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const bool z = lif_step(v[e], i[e], cur[e]) > 0.0f;
+        code[e] |= (z ? 1u : 0u) << t;
+        cnt += z ? 1 : 0;
+      }
+    }
+    const int row = c.row0 + r;
+    if (row < c.R) {
+      uint16_t* o = p.code + (int64_t)row * p.n_total + c.col0 + c4;
+      *reinterpret_cast<uint2*>(o) = make_uint2(code[0] | code[1] << 16, code[2] | code[3] << 16);
+      *reinterpret_cast<uint2*>(o + 64) =
+          make_uint2(code[4] | code[5] << 16, code[6] | code[7] << 16);
+    }
+    for (int off = 8; off > 0; off >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
+    if ((tid & 15) == 0 && row < c.R && cnt != 0) atomicAdd(p.counts + 2 * row, cnt);
+  }
+};
+
+// K9's readout: the LI scan on the f32 sums of each column as they are;
+// the final membranes to out [R, n_out].
+struct LiOutF32 {
+  struct Params {
+    float* out;
+    int n_out;
+  };
+  static constexpr int kLd = 64 + 8;
+  static constexpr int kStageBytes = kMaxT * kRows * kLd * 4;
+  static constexpr bool kInRing = true;
+
+  template <int kN>
+  static __device__ __forceinline__ void run(const float (&acc)[2][kN / 2], int mine,
+                                             const Ctx& c, unsigned char* stage,
+                                             const Params& p) {
+    static_assert(kN + 8 == kLd, "staged row stride");
+    const float* st = reinterpret_cast<const float*>(stage);
+    stage_f32<kN, kLd>(acc, mine, c, reinterpret_cast<float*>(stage));
+    for (int e = threadIdx.x; e < kRows * kN; e += kConsumers) {
+      const int r = e / kN;
+      const int col = c.col0 + e % kN;
+      const int row = c.row0 + r;
+      if (row >= c.R || col >= p.n_out) continue;
+      float v = 0.0f, i = 0.0f;
+      for (int t = 0; t < c.T; ++t) {
+        const float ij = i + st[(t * kRows + r) * kLd + e % kN];
+        v = v + 0.1f * ((0.0f - v) + ij);
+        i = ij + (-0.2f) * ij;
+      }
+      p.out[(int64_t)row * p.n_out + col] = v;
+    }
+  }
+};
+
 }  // namespace sgemm
 
 namespace sgemm_host {
+
+// Shared memory of one block: the alignment slack, the ring, the epilogue's
+// staging unless it lies in the drained ring, the full and empty barriers.
+template <int kN, int kStages, class Epi>
+constexpr int smem_bytes() {
+  using namespace sgemm;
+  static_assert(!Epi::kInRing || Epi::kStageBytes <= Ring<kN, kStages>::kBytes,
+                "the staging fits in the drained ring");
+  constexpr int kExtra = Epi::kInRing ? 0 : Epi::kStageBytes;
+  constexpr int kBytes = 1024 + Ring<kN, kStages>::kBytes + kExtra + 2 * kStages * 8;
+  static_assert(kBytes <= 232448, "shared memory of one block");
+  return kBytes;
+}
 
 // C = spike codes [R, K] (uint16) x W [K, n_total] bf16, through the
 // epilogue Epi. Requires K % 64 == 0, n_total % 8 == 0 (16-byte rows for
@@ -395,17 +536,15 @@ int launch(const void* w, int n_total, const void* codes, int R, int K, int T,
     return (int)cudaErrorInvalidValue;
   }
   auto kernel = spike_gemm_kernel<kN, kStages, Epi>;
-  const int smem = 1024 + Ring<kN, kStages>::kBytes + Epi::kStageBytes + 2 * kStages * 8;
-  static_assert(1024 + Ring<kN, kStages>::kBytes + Epi::kStageBytes + 2 * kStages * 8 <= 232448,
-                "shared memory of one block");
+  constexpr int smem = smem_bytes<kN, kStages, Epi>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (R + kRows - 1) / kRows;
   const dim3 grid((tiles + kCluster - 1) / kCluster * kCluster, (n_total + kN - 1) / kN);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  err = hopper_host::launch_clustered_xy(kernel, grid, kThreads, smem, kCluster, 1, stream,
-                                         map_w, map_code, R, K, T, ep);
+  err = hopper_host::launch_clusters(kernel, grid, dim3(kCluster, 1, 1), kThreads, smem, stream,
+                                     map_w, map_code, R, K, T, ep);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -63,8 +63,8 @@ def rpn_head_snn_apply(params: Dict, features: List[torch.Tensor],
 
     A level takes the paired kernel (K8), which keeps no spike counts, when
     ``cuda_rpn.PAIR_IMAGES`` is on, no rates are collected and the level can
-    pair (an even batch); else the per-image kernel (K1). The two sum the
-    conv in other orders, so a rare spike may differ between them."""
+    pair (an even batch); else the per-image kernel (K1). Per image the two
+    give the same bits."""
     w_out, a = _fused_readout(params)
     w_shared = params["shared_conv"]["w"]
     logits, bbox_reg, enc_rates, shared_rates = [], [], [], []

@@ -1,12 +1,13 @@
 """Spiking RPN head through the hand-written CUDA kernels: the forward of
 one FPN level (K1, with a training instance that saves what the backward
-needs), the forward for a pair of images (K8) and the backward for the
+needs, and a pair instance for two images, K8) and the backward for the
 weights (K7).
 
 Replaces ``snn/pallas_rpn.py``: ``rpn_head_snn_pallas_apply`` with its
 per-level ``_run_level`` (K1, ``csrc/rpn_head.cu``: one pass over the tap
 weights for a chunk of 8 steps, ``wgmma``, TMA) and its paired
-``_run_level_x2`` (K8, ``csrc/rpn_head_x2.cu``), and
+``_run_level_x2`` (K8: K1's kernel with the blocks of both images of a pair
+in one cluster of four, sharing each weight stage; per image K1's bits), and
 ``rpn_head_snn_pallas_train_apply``, whose custom VJP ``_level_train`` runs
 ``_run_level`` forward and ``_run_level_bwd`` backward (K7,
 ``csrc/rpn_head_bwd.cu``). Here the training forward is K1 too: its
@@ -49,8 +50,8 @@ X2_NAME = "rpn_head_x2"
 # Whether the head outside training takes the paired kernel for the levels
 # that can pair (see :func:`x2_feasible`) when no rates are collected.
 # ``chip_smoke.check_rpn_x2`` times K8 against K1 in turns on the five
-# flagship levels in every run. Off: on an H100 K1 takes 5.7-5.8 ms for
-# them and K8 20.8 ms (PERF.md).
+# flagship levels in every run. Off: K8 gives K1's bits but takes 6.8-6.9
+# ms for them on an H100 against K1's 5.6-5.8 (PERF.md).
 PAIR_IMAGES = False
 # Split counts of K7's pixel range: the weight gradient's 18 blocks per
 # split (9 taps x 2 input-channel tiles) times 7 are one wave on 132 SMs;
@@ -80,17 +81,10 @@ def _constants(num_steps: int, device) -> torch.Tensor:
                            torch.float32, device)
 
 
-def _taps(w_shared: torch.Tensor) -> torch.Tensor:
-    """[3, 3, C, C] HWIO -> [9, C, C] bf16, dy-major, [input, output]
-    channels per tap, as K8 takes it."""
-    c = w_shared.shape[2]
-    return w_shared.reshape(9, c, c).to(torch.bfloat16).contiguous()
-
-
 def _taps_t(w_shared: torch.Tensor) -> torch.Tensor:
     """[3, 3, C, C] HWIO -> [9, C, C] bf16, dy-major, [output, input]
-    channels per tap: K1 reads each tap's rows by TMA as the K-major B of
-    its products. One copy, as the cast to bf16 alone would be."""
+    channels per tap: K1 and K8 read each tap's rows by TMA as the K-major
+    B of their products. One copy, as the cast to bf16 alone would be."""
     c = w_shared.shape[2]
     return w_shared.reshape(9, c, c).transpose(1, 2).to(torch.bfloat16).contiguous()
 
@@ -150,12 +144,34 @@ def rpn_level_plain(feat: torch.Tensor, w_shared: torch.Tensor,
     return _returns(_level_steps(feat, w_shared, w_out, num_steps, save), spike_sum, save)
 
 
+def level_grid(feat_shape, pair: bool = False):
+    """The launch of K1 (or with ``pair`` its pair instance, K8) on a level
+    [N, H, W, C], as ``level_grid`` in csrc/rpn_head.cu makes it
+    (:func:`launch_dims_on_card` asks the C side): (grid, cluster dims),
+    each (x, y, z). A block owns 16 pixels of a row; a
+    cluster is two consecutive rows, and for the pair also the two images
+    2p and 2p + 1, so the rows are padded to an even count (padded rows
+    store nothing) and the pair needs an even batch."""
+    n, h, w, _ = feat_shape
+    cluster = (1, 2, 2 if pair else 1)
+    return (-(-w // 16), -(-h // 2) * 2, n), cluster
+
+
+def launch_dims_on_card(feat_shape, pair: bool = False):
+    """:func:`level_grid` as the C side computes it for its launch."""
+    n, h, w, _ = feat_shape
+    dims = (ctypes.c_int * 6)()
+    fn = cb.function(NAME, "rpn_level_launch_dims", [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    cb.check(fn(int(pair), n, h, w, ctypes.addressof(dims)), NAME)
+    return tuple(dims[:3]), tuple(dims[3:])
+
+
 def x2_feasible(feat_shape) -> bool:
-    """Whether a level [N, H, W, C] can take the paired kernel: an even
-    batch of 256-channel planes whose pairs fit the grid. The kernel's
-    shared memory (190 KB) does not depend on the level."""
-    n, _, _, c = feat_shape
-    return n > 0 and n % 2 == 0 and n // 2 <= 65535 and c == 256
+    """Whether a level [N, H, W, C] can take the paired kernel: 256-channel
+    planes of an even batch, whose grid (:func:`level_grid`) the card can
+    launch. The kernel's shared memory does not depend on the level."""
+    (_, gy, gz), (_, _, cz) = level_grid(feat_shape, pair=True)
+    return feat_shape[3] == 256 and gz > 0 and gz % cz == 0 and gy <= 65535 and gz <= 65535
 
 
 def rpn_level_x2_plain(feat: torch.Tensor, w_shared: torch.Tensor,
@@ -216,12 +232,13 @@ def _launch(feat: torch.Tensor, w9_t: torch.Tensor, w_out: torch.Tensor,
     return _returns((out, counts[:, 0], counts[:, 1], ssum, saved), spike_sum, save)
 
 
-def _launch_x2(feat: torch.Tensor, w9: torch.Tensor, w_out: torch.Tensor,
+def _launch_x2(feat: torch.Tensor, w9_t: torch.Tensor, w_out: torch.Tensor,
                num_steps: int, spike_sum: bool = False):
-    """K8 on one level. Same returns as :func:`rpn_level_x2_plain`."""
+    """K8 on one level; ``w9_t`` from :func:`_taps_t`. Same returns as
+    :func:`rpn_level_x2_plain`."""
     n, h, w, c = feat.shape
     n_out = w_out.shape[1]
-    _check_level(X2_NAME, feat, w9, w_out, num_steps)
+    _check_level(X2_NAME, feat, w9_t, w_out, num_steps)
     if not x2_feasible(feat.shape):
         raise ValueError(f"{X2_NAME} kernel takes an even batch, got {n}")
     consts = _constants(num_steps, feat.device)
@@ -230,7 +247,7 @@ def _launch_x2(feat: torch.Tensor, w9: torch.Tensor, w_out: torch.Tensor,
             if spike_sum else None)
     fn = cb.function(X2_NAME, "rpn_level_x2_bf16",
                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    code = fn(feat.data_ptr(), w9.data_ptr(), w_out.data_ptr(), consts.data_ptr(),
+    code = fn(feat.data_ptr(), w9_t.data_ptr(), w_out.data_ptr(), consts.data_ptr(),
               out.data_ptr(), None if ssum is None else ssum.data_ptr(), n, h, w,
               num_steps, n_out, cb.stream_ptr(feat.device))
     cb.check(code, X2_NAME)
@@ -253,7 +270,7 @@ def rpn_level_x2(feat: torch.Tensor, w_shared: torch.Tensor, w_out: torch.Tensor
     """One level pair by pair through the paired kernel (CUDA) or its plain
     version (CPU). Same returns as :func:`rpn_level_x2_plain`."""
     if cb.dispatch_device(feat, X2_NAME):
-        return _launch_x2(feat, _taps(w_shared), w_out.to(torch.bfloat16).contiguous(),
+        return _launch_x2(feat, _taps_t(w_shared), w_out.to(torch.bfloat16).contiguous(),
                           num_steps, spike_sum)
     return rpn_level_x2_plain(feat, w_shared, w_out, num_steps, spike_sum)
 

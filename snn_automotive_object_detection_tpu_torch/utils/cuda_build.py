@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels, and count their launches.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-for ``sm_90a`` into its own shared library, loaded with ``ctypes``. The
+Each ``csrc/<source>.cu`` has a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into its own shared library, loaded with ``ctypes``
+(:data:`SOURCE` names each kernel's source; K8 shares K1's). The
 build happens at first use (or all at once, in parallel, through
 :func:`build_all`) into ``_build/`` beside this package's sources, which
 ``.gitignore`` lists. A library is rebuilt when its source, or a header
@@ -33,6 +34,9 @@ BUILD_DIR = PKG_DIR / "_build"
 
 KERNELS = ("rpn_head", "roi_align", "encoder_fc6", "box_tail", "fpn_level",
            "stem", "rpn_head_bwd", "rpn_head_x2", "box_head_fused")
+# The source csrc/<source>.cu, and library, of each kernel: the paired RPN
+# head (K8) is an instance of K1's kernel and lives in K1's source.
+SOURCE = {**{k: k for k in KERNELS}, "rpn_head_x2": "rpn_head"}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -62,8 +66,9 @@ def _nvcc() -> str:
 
 
 def _paths(name: str):
-    return CSRC_DIR / f"{name}.cu", BUILD_DIR / f"lib{name}.so", \
-        BUILD_DIR / f"{name}.ptxas.log"
+    src = SOURCE[name]
+    return CSRC_DIR / f"{src}.cu", BUILD_DIR / f"lib{src}.so", \
+        BUILD_DIR / f"{src}.ptxas.log"
 
 
 def _stale(name: str) -> bool:
@@ -73,12 +78,13 @@ def _stale(name: str) -> bool:
 
 
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
-    """Compile every stale kernel library, one ``nvcc`` per source, all
-    started together. Returns {name: ptxas report}; raises on failure."""
+    """Compile the stale libraries of the kernels ``names``, one ``nvcc``
+    per source, all started together. Returns {source: ptxas report};
+    raises on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
-    for name in names:
+    for name in dict.fromkeys(SOURCE[n] for n in names):
         src, lib, log = _paths(name)
         if not _stale(name):
             continue
@@ -97,12 +103,13 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return {n: _paths(n)[2].read_text() for n in names
+    return {n: _paths(n)[2].read_text() for n in dict.fromkeys(SOURCE[n] for n in names)
             if _paths(n)[2].exists()}
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``name``, building it first if needed."""
+    """The loaded library of kernel ``name``, building it first if needed."""
+    name = SOURCE[name]
     lib = _LIBS.get(name)
     if lib is None:
         if _stale(name):
@@ -116,12 +123,12 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """``symbol`` of the library for ``name``, its argument and result
     types set once per process: a wrapper that looks it up here does no
     ctypes set-up on its calls."""
-    fn = _FUNCS.get((name, symbol))
+    fn = _FUNCS.get((SOURCE[name], symbol))
     if fn is None:
         fn = getattr(load(name), symbol)
         fn.restype = ctypes.c_int
         fn.argtypes = list(argtypes)
-        _FUNCS[(name, symbol)] = fn
+        _FUNCS[(SOURCE[name], symbol)] = fn
     return fn
 
 

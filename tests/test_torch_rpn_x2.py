@@ -14,7 +14,8 @@ pairing rule of the head, and the widened readout of K1 and K7.
     tests/test_torch_rpn_head.py. Both sides are seen to take the paired
     route.
   * The rule: an odd batch, rate collection or the constant off take the
-    per-image level.
+    per-image level; the launch's grid and cluster (``level_grid``): rows
+    padded to whole clusters of two, the pair's two images in one cluster.
   * 75 readout channels (15 anchors per location, the MobileNet families'
     head): the plain versions of K1 and K7 against the JAX kernels
     ``_run_level`` and ``_run_level_bwd`` in interpret mode, f32: the
@@ -126,6 +127,22 @@ def test_pairing_rule(monkeypatch, n, rates, on, paired):
         with pytest.raises(ValueError):
             cuda_rpn.rpn_level_x2_plain(torch.from_numpy(feats[1]),
                                         tparams["shared_conv"]["w"], torch.zeros(256, 15), 4)
+
+
+@pytest.mark.parametrize("shape,pair,grid,cluster,feasible", [
+    ((2, 5, 45, 256), True, (3, 6, 2), (1, 2, 2), True),
+    ((2, 5, 45, 256), False, (3, 6, 2), (1, 2, 1), True),
+    ((4, 12, 16, 256), True, (1, 12, 4), (1, 2, 2), True),
+    ((3, 1, 7, 256), True, (1, 2, 3), (1, 2, 2), False),
+    ((2, 65535, 16, 256), True, (1, 65536, 2), (1, 2, 2), False),
+    ((2, 4, 4, 128), True, (1, 4, 2), (1, 2, 2), False)])
+def test_level_grid_pads_rows_and_pairs_images(shape, pair, grid, cluster, feasible):
+    """K1's and K8's launch: a block per 16 pixels of a row, rows padded to
+    an even count (a cluster is two rows), K8's cluster also the two images
+    of a pair, so its batch must be even; the kernels take 256 channels."""
+    assert cuda_rpn.level_grid(shape, pair) == (grid, cluster)
+    if pair:
+        assert cuda_rpn.x2_feasible(shape) == feasible
 
 
 def test_constant_is_a_python_bool_and_the_module_reads_no_environment():
