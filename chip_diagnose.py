@@ -5,6 +5,7 @@ NVIDIA GPU.
     python3 chip_diagnose.py            # K1, K5, K3, K4, K7, K2, K6, K8 and K9
     python3 chip_diagnose.py K2 K6      # only those kernels' variants
     python3 chip_diagnose.py K9         # also K9's check on the input where it once failed
+    python3 chip_diagnose.py ptxas DIR  # ptxas figures of K3, K4, K9 against DIR's csrc/
 
 Shows what limits K1, K5, K3, K4, K7's weight gradient, K2, K6, K8 and K9.
 Each variant below replaces lines of ``csrc/rpn_head.cu`` (K1 and its pair
@@ -33,6 +34,16 @@ the generator state that ``chip_smoke.py``'s K9 phase drew it from, and its
 plain fc6 spike count as a fingerprint) and holds K9 to its plain version
 there spike by spike, as ``chip_smoke.py`` does; for the rows whose fc7
 trains differ it prints the flips per step.
+
+``ptxas DIR`` builds no variant and needs no card, only ``nvcc``: it
+compiles the spike-code GEMM's three sources (``encoder_fc6.cu``,
+``box_tail.cu``, ``box_head_fused.cu``) from this tree's ``csrc/`` and from
+``DIR`` (another checkout's ``csrc/``) with the package's flags, and prints
+each entry function's registers, barriers and spill bytes side by side. An
+instance that ``DIR`` has under the same name (the T <= 16 instances: an
+epilogue template at kWhole = 0 and a code pass at one plane are named as
+the untemplated ones before them) must show the same figures, or the
+script exits non-zero.
 """
 
 from __future__ import annotations
@@ -360,9 +371,76 @@ def k9_replay(dev) -> None:
               f"spikes, per step: " + " ".join(f"{u}/{v}" for u, v in zip(up, down)))
 
 
+PTXAS_SOURCES = ("encoder_fc6.cu", "box_tail.cu", "box_head_fused.cu")
+
+
+def ptxas_entries(report: str) -> dict:
+    """{demangled entry function: (registers, barriers, spill stores, spill
+    loads)} from an ``nvcc -Xptxas -v`` report, the T <= 16 instances under
+    the names of their untemplated predecessors (without a return type)."""
+    import re
+
+    raw, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            raw[name] = [0, 0, 0, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            raw[name][2:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers(?:, used (\d+) barriers)?", line)
+        if m and name:
+            raw[name][:2] = [int(m.group(1)), int(m.group(2) or 0)]
+    names = subprocess.run(["c++filt"], input="\n".join(raw), capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    out = {}
+    for mangled, pretty in zip(raw, names):
+        pretty = re.sub(r"(\w+)T<0>", r"\1", pretty)
+        pretty = re.sub(r"(encoder_code_kernel|lif6_kernel|period_code_kernel)<1>", r"\1", pretty)
+        # A function template's name demangles with its return type.
+        pretty = re.sub(r"^void ", "", re.sub(r"\s+>", ">", pretty))
+        out[pretty] = tuple(raw[mangled])
+    return out
+
+
+def ptxas_compare(other: Path) -> int:
+    """This tree's ptxas figures of K3, K4 and K9 against ``other``'s."""
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+
+    def reports(csrc: Path):
+        with tempfile.TemporaryDirectory() as tmp:
+            procs = [subprocess.Popen([cb._nvcc(), *cb.NVCC_FLAGS, "-o", f"{tmp}/{i}.so",
+                                       str(csrc / src)], stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for i, src in enumerate(PTXAS_SOURCES)]
+            outs = [p.communicate()[0] for p in procs]
+        if any(p.returncode for p in procs):
+            raise SystemExit(f"chip_diagnose: {csrc} does not build:\n" + "\n".join(outs))
+        return [ptxas_entries(o) for o in outs]
+
+    differ = 0
+    for src, new, old in zip(PTXAS_SOURCES, reports(cb.CSRC_DIR), reports(other)):
+        for fn, fig in new.items():
+            was = old.get(fn)
+            same = "new" if was is None else ("same" if was == fig else "DIFFERENT")
+            differ += same == "DIFFERENT"
+            print(f"ptxas {src}: {fig[0]} registers, {fig[1]} barriers, spill stores "
+                  f"{fig[2]} loads {fig[3]}" + ("" if was is None else f" (was {was})")
+                  + f" {same}: {fn[:150]}")
+        for fn in set(old) - set(new):
+            differ += 1
+            print(f"ptxas {src}: GONE {fn[:150]}")
+    print(f"ptxas: {differ} entries differ from {other}")
+    return 1 if differ else 0
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["ptxas"]:
+        return ptxas_compare(Path(sys.argv[2]))
     if not torch.cuda.is_available():
         print("chip_diagnose: no CUDA device", file=sys.stderr)
         return 1
@@ -459,11 +537,11 @@ def main() -> int:
     codes = torch.empty((2, 2000, 1024), dtype=torch.int16, device=dev)
 
     def k4_run(lib):
-        fn = _bind(lib, "box_tail_bf16", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+        fn = _bind(lib, "box_tail_bf16", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
         cb.check(fn(cur6.data_ptr(), w7.data_ptr(), wro.data_ptr(), logits.data_ptr(),
-                    tail_counts.data_ptr(), codes[0].data_ptr(), codes[1].data_ptr(), 2000, 12,
-                    1024, 45, stream), "K4")
+                    tail_counts.data_ptr(), codes[0].data_ptr(), codes[1].data_ptr(), None,
+                    2000, 12, 1024, 45, stream), "K4")
 
     # K7's weight gradient: dc planes of the size K1 saves at T = 8 and
     # period maps of 1 .. T + 1, five levels.
@@ -536,7 +614,7 @@ def main() -> int:
         fn = _bind(lib, "box_head_fused_bf16", k9._ARGTYPES)
         cb.check(fn(periods.data_ptr(), w6.data_ptr(), w7.data_ptr(), wro.data_ptr(),
                     k9_out.data_ptr(), k9_counts.data_ptr(), *[c.data_ptr() for c in k9_codes],
-                    2000, 12544, 12, 45, stream), "K9")
+                    None, 2000, 12544, 12, 45, stream), "K9")
 
     with tempfile.TemporaryDirectory() as tmp:
         libs = build(Path(tmp), chosen)

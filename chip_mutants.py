@@ -144,8 +144,8 @@ MUTANTS = [
      "encoder_fc6.cu", "for (int k = p; k <= T; k += p) bits |= 1u << (k - 1);",
      "for (int k = p; k <= T; k += p) bits |= 1u << k;", "check_encoder_fc6", "encoder_fc6"),
     ("K4: LIF6's last step left out of the scan",
-     "box_tail.cu", "      if (t < T) {\n        const bf16* cv",
-     "      if (t < T - 1) {\n        const bf16* cv", "check_box_tail", "box_tail"),
+     "box_tail.cu", "        if (t0 + t < T) {\n          const bf16* cv",
+     "        if (t0 + t < T - 1) {\n          const bf16* cv", "check_box_tail", "box_tail"),
     ("K4: LIF7's last step left out of the fc7 epilogue",
      "spike_gemm.cuh", "for (int t = 0; t < c.T; ++t) {\n      const uint4 raw",
      "for (int t = 0; t < c.T - 1; ++t) {\n      const uint4 raw", "check_box_tail", "box_tail"),
@@ -153,7 +153,18 @@ MUTANTS = [
      "spike_gemm.cuh", "for (int t = 0; t < c.T; ++t) {\n        const float cur",
      "for (int t = 0; t < c.T - 1; ++t) {\n        const float cur", "check_box_tail",
      "box_tail"),
-]
+] + [(f"{k}: code bits 16-31 dropped (the second GEMM pass reads the first code plane)",
+      "spike_gemm.cuh",
+      "const void* upper = static_cast<const uint16_t*>(codes) + (int64_t)R * K;",
+      "const void* upper = codes;", phase, tests)
+     for k, phase, tests in (("K3", "check_encoder_fc6", "encoder_fc6"),
+                             ("K4", "check_box_tail", "box_tail"),
+                             ("K9", "check_box_head_fused", "box_head_fused"))] + [
+    (f"{k}: the LIF states of steps 0-15 not carried (the second half starts from zero)",
+     "spike_gemm.cuh", "const float* si) {\n#pragma unroll",
+     "const float* si) {\n  return;\n#pragma unroll", phase, tests)
+    for k, phase, tests in (("K4", "check_box_tail", "box_tail"),
+                            ("K9", "check_box_head_fused", "box_head_fused"))]
 
 # The mutants to run can be named by the kernel their description begins
 # with (``python3 chip_mutants.py K8 K9``); none named means all.

@@ -30,7 +30,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
                (K7), which no single call computes, cuBLAS's time for the
                dense product alone on materialised spikes (the T R encoder
                spikes by w6, the fc6 spikes by w7, per tap the shifted
-               encoder spikes by dc), and K3's dense TFLOP/s. The RPN head
+               encoder spikes by dc), and K3's dense TFLOP/s; K3 and K4 are
+               held and timed again at T = 20 and 32 (two code planes, two
+               GEMM passes), K9 at T = 32. The RPN head
                (K1) is held to the plain version with flipped LIF spikes
                counted neuron by neuron, timed level by level and with the
                dense TFLOP/s it reaches; its training instance must give
@@ -102,6 +104,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
                flagship batch: the reference's scans and the gather
                RoIAlign, no kernel launched, outputs finite and well
                formed.
+  9. dataset_eval - a COCO-format dataset of 8 seeded 1024 x 2048 images
+               through the port's host side and the flagship evaluation:
+               CocoDataset, DetectionLoader (batch 2, 768 x 1536, 4
+               workers), to_device_batch, detector_apply (rates off),
+               CocoEvaluator; launches per batch, the loader's batch equal
+               bit for bit to one built without it, GT as detections giving
+               AP 1.0, a checkpoint round trip giving the same detections,
+               12 finite stats; prints images/s with loading (host clock)
+               and one loader batch's host synchronisations.
 
 The line before last is a JSON object listing the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -391,10 +402,39 @@ def check_roi_align(dev, g, results):
             bare_ms=bare)
 
 
+# Steps past one 16-bit code plane, held and timed beside T = 12 in the
+# K3, K4 and K9 phases: the kernels run such trains as two GEMM passes.
+LONG_T = (20, 32)
+
+
+def _encoder_fc6_at(x, w6, t):
+    """K3 at ``t`` steps on (x, w6) held to its plain version as at T = 12;
+    returns the numbers of the JSON line's ``long_t`` entry."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_fc6 as k3
+
+    got, cnt_k = k3._launch(x, w6, t)
+    want, cnt_p = k3.encoder_fc6_plain(x, w6, t)
+    err = (got - want).abs().max().item()
+    same = bool(torch.equal(cnt_k, cnt_p))
+    rate = cnt_p.sum().item() / (x.shape[0] * x.shape[1] * t)
+    ms = _median_ms(lambda: k3._launch(x, w6, t), 10)
+    pms = _median_ms(lambda: k3.encoder_fc6_plain(x, w6, t), 3)
+    bound = _bound(_nbytes(x, w6, got, cnt_k), 2.0 * cnt_p.sum().item() * w6.shape[1])
+    print(f"K3 encoder_fc6 at T = {t}: max|cur6 diff| {err:.3g} (tol 1e-3) at max|cur6| "
+          f"{want.abs().max().item():.4g}; encoder counts equal {same}; encoder rate "
+          f"{rate:.4f}; {ms:.3f} ms kernel, {pms:.3f} ms plain; bound "
+          f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} ({ms / bound['bound_ms']:.1f}x)")
+    if err > 1e-3 or not same or rate == 0:
+        _fail(f"K3 disagrees with its plain version at T = {t}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, **bound)
+
+
 def check_encoder_fc6(dev, g, results):
     """K3: encoder + fc6 on R = 2000 rows of 7*7*256, T = 12, against its
     plain version; timed beside cuBLAS's product alone on materialised
-    spikes."""
+    spikes. Then the same inputs at T = 20 and 32 (``LONG_T``)."""
     import torch
 
     from snn_automotive_object_detection_tpu_torch.snn import cuda_fc6 as k3
@@ -425,19 +465,59 @@ def check_encoder_fc6(dev, g, results):
     print(f"K3 encoder_fc6: {dense / ms / 1e9:.1f} dense TFLOP/s; cuBLAS product only "
           f"(materialised spikes x w6, bf16) {product_ms:.3f} ms")
     # A sparse product adds one 1024-wide w6 row for each encoder spike.
-    _record(results, "encoder_fc6", "snn/pallas_fc6.py:227", err, ms, pms,
-            _bound(_nbytes(x, w6, got, cnt_k), 2.0 * cnt_p.sum().item() * 1024),
-            product_only_ms=product_ms)
+    bound = _bound(_nbytes(x, w6, got, cnt_k), 2.0 * cnt_p.sum().item() * 1024)
+    del got, want
+    long_t = {t: _encoder_fc6_at(x, w6, t) for t in LONG_T}
+    _record(results, "encoder_fc6", "snn/pallas_fc6.py:227", err, ms, pms, bound,
+            product_only_ms=product_ms, long_t=long_t)
+
+
+def _hold_box_tail(cur6, w7, wc, wb, w7b, wro):
+    """K4 on (cur6, w7b, wro) held to its plain version: logits within
+    ``kc.excess``'s bound, fc6 counts equal, fc7 counts within 1e-3 of the
+    spikes. Returns (err, kernel outputs, plain outputs)."""
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_tail as k4
+    from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
+
+    t, r, rep = cur6.shape
+    got = k4._launch(cur6, w7b, wro, wc.shape[1])
+    want = k4.box_tail_plain(cur6, w7, wc, wb)
+    err = max((got[0] - want[0]).abs().max().item(),
+              (got[1] - want[1]).abs().max().item())
+    worst = max(kc.excess(got[0], want[0]), kc.excess(got[1], want[1]))
+    top = max(want[0].abs().max().item(), want[1].abs().max().item())
+    d6 = (got[2] - want[2]).abs().sum().item()
+    d7 = (got[3] - want[3]).abs().sum().item()
+    r6 = want[2].sum().item() / (r * rep * t)
+    r7 = want[3].sum().item() / (r * rep * t)
+    print(f"K4 box_tail at T = {t}: max|logit diff| {err:.3g} at max|logit| {top:.4g}, "
+          f"{worst:.3g} of the bound 2^-7|want| + {kc.ATOL}; spike-count diffs "
+          f"per row fc6 {d6} fc7 {d7}; rates fc6 {r6:.4f} fc7 {r7:.4f}")
+    if worst > 1 or d6 != 0 or d7 > 1e-3 * want[3].sum().item() or r7 == 0:
+        _fail(f"K4 disagrees with its plain version at T = {t}")
+    return err, got, want
+
+
+def _box_tail_bound(cur6, w7b, wro, got, want):
+    """fc7 adds one 1024-wide row for each fc6 spike and the readout one
+    45-wide row for each fc7 spike; two LIF layers and the LI readout take
+    about 10 f32 operations per neuron and step."""
+    t, r, rep = cur6.shape
+    n_out = wro.shape[1]
+    return _bound(_nbytes(cur6, w7b, wro, *got),
+                  2.0 * want[2].sum().item() * rep + 2.0 * want[3].sum().item() * n_out,
+                  10.0 * t * r * (2 * rep + n_out))
 
 
 def check_box_tail(dev, g, results):
     """K4: the box-head tail on bf16 fc6 currents around the LIF threshold,
     R = 2000, T = 12, 9 classes, against its plain version; timed beside
-    cuBLAS's fc7 product alone on materialised fc6 spikes."""
+    cuBLAS's fc7 product alone on materialised fc6 spikes. Then T = 20 and
+    32 (``LONG_T``) on currents of their own generator, so that the phases
+    after this one keep their inputs."""
     import torch
 
     from snn_automotive_object_detection_tpu_torch.snn import cuda_tail as k4
-    from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
 
     bf = torch.bfloat16
     cur6 = (torch.randn((12, 2000, 1024), generator=g, device=dev) * 0.15).to(bf)
@@ -446,21 +526,7 @@ def check_box_tail(dev, g, results):
     wb = ((torch.rand((1024, 36), generator=g, device=dev) * 2 - 1) / 32.0)
     w7b = w7.to(bf).contiguous()
     wro = torch.cat([wc, wb], 1).to(bf).contiguous()
-    got = k4._launch(cur6, w7b, wro, 9)
-    want = k4.box_tail_plain(cur6, w7, wc, wb)
-    err = max((got[0] - want[0]).abs().max().item(),
-              (got[1] - want[1]).abs().max().item())
-    worst = max(kc.excess(got[0], want[0]), kc.excess(got[1], want[1]))
-    top = max(want[0].abs().max().item(), want[1].abs().max().item())
-    d6 = (got[2] - want[2]).abs().sum().item()
-    d7 = (got[3] - want[3]).abs().sum().item()
-    r6 = want[2].sum().item() / (2000 * 1024 * 12)
-    r7 = want[3].sum().item() / (2000 * 1024 * 12)
-    print(f"K4 box_tail: max|logit diff| {err:.3g} at max|logit| {top:.4g}, "
-          f"{worst:.3g} of the bound 2^-7|want| + {kc.ATOL}; spike-count diffs "
-          f"per row fc6 {d6} fc7 {d7}; rates fc6 {r6:.4f} fc7 {r7:.4f}")
-    if worst > 1 or d6 != 0 or d7 > 1e-3 * want[3].sum().item() or r7 == 0:
-        _fail("K4 disagrees with its plain version")
+    err, got, want = _hold_box_tail(cur6, w7, wc, wb, w7b, wro)
     ms = _median_ms(lambda: k4._launch(cur6, w7b, wro, 9), 10)
     pms = _median_ms(lambda: k4.box_tail_plain(cur6, w7, wc, wb), 5)
     codes6, _ = k4.lif6_codes_plain(cur6)
@@ -468,14 +534,21 @@ def check_box_tail(dev, g, results):
     product_ms = _median_ms(lambda: torch.matmul(s6, w7b), 10)
     print(f"K4 box_tail: cuBLAS product only (materialised fc6 spikes x w7, bf16) "
           f"{product_ms:.3f} ms")
-    # fc7 adds one 1024-wide row for each fc6 spike and the readout one
-    # 45-wide row for each fc7 spike; two LIF layers and the LI readout take
-    # about 10 f32 operations per neuron and step.
-    _record(results, "box_tail", "snn/pallas_tail.py:241", err, ms, pms,
-            _bound(_nbytes(cur6, w7b, wro, *got),
-                   2.0 * want[2].sum().item() * 1024 + 2.0 * want[3].sum().item() * 45,
-                   10.0 * 12 * 2000 * (2 * 1024 + 45)),
-            product_only_ms=product_ms)
+    bound = _box_tail_bound(cur6, w7b, wro, got, want)
+    long_t = {}
+    for t in LONG_T:
+        gt = torch.Generator(device=dev).manual_seed(t)
+        cur_t = (torch.randn((t, 2000, 1024), generator=gt, device=dev) * 0.15).to(bf)
+        err_t, got_t, want_t = _hold_box_tail(cur_t, w7, wc, wb, w7b, wro)
+        ms_t = _median_ms(lambda: k4._launch(cur_t, w7b, wro, 9), 10)
+        pms_t = _median_ms(lambda: k4.box_tail_plain(cur_t, w7, wc, wb), 3)
+        bound_t = _box_tail_bound(cur_t, w7b, wro, got_t, want_t)
+        print(f"K4 box_tail at T = {t}: {ms_t:.3f} ms kernel, {pms_t:.3f} ms plain; bound "
+              f"{bound_t['bound_ms']:.4f} ms by {bound_t['bound_by']} "
+              f"({ms_t / bound_t['bound_ms']:.1f}x)")
+        long_t[t] = dict(max_abs_err=err_t, ms=ms_t, plain_ms=pms_t, **bound_t)
+    _record(results, "box_tail", "snn/pallas_tail.py:241", err, ms, pms, bound,
+            product_only_ms=product_ms, long_t=long_t)
 
 
 def check_fpn(dev, g, results):
@@ -1021,15 +1094,33 @@ def check_box_head_fused(dev, g, results):
     # The encoder spikes within T steps: floor(T / p) per element. fc6 adds
     # a 1024-wide row per encoder spike, fc7 one per fc6 spike, the readout
     # a 45-wide row per fc7 spike; about 10 f32 operations per neuron and step.
-    enc = (t // periods.int()).sum().item()
-    outs = k9._launch(*args)
+    def bound_at(steps, rep_t):
+        enc = (steps // periods.int()).sum().item()
+        outs = k9._launch(*args[:-1], steps)
+        return _bound(_nbytes(periods, *args[1:4], *outs),
+                      2.0 * enc * rep + 2.0 * rep_t["n6"] * rep + 2.0 * rep_t["n7"] * 45,
+                      10.0 * steps * r * (2 * rep + 45))
+
+    bound = bound_at(t, flips)
+    # The same inputs at T = 32: two passes of each GEMM, the states carried.
+    t_long = LONG_T[-1]
+    held = kc.box_head_fused_hold(x, w6, w7, wc, wb, t_long)
+    print(f"K9 box_head_fused at R = 2000, T = {t_long}: {kc.box_head_fused_line(held)}")
+    if not held["ok"]:
+        _fail(f"K9 disagrees with its plain version at R = 2000, T = {t_long}")
+    args_long = args[:-1] + (t_long,)
+    ms_long = _median_ms(lambda: k9._launch(*args_long), 10)
+    pms_long = _median_ms(lambda: k9.fastrcnn_snn_plain(x, w6, w7, wc, wb, t_long), 3)
+    bound_long = bound_at(t_long, held)
+    print(f"K9 box_head_fused at T = {t_long}: {ms_long:.3f} ms kernel on the periods, "
+          f"{pms_long:.3f} ms plain; bound {bound_long['bound_ms']:.4f} ms by "
+          f"{bound_long['bound_by']} ({ms_long / bound_long['bound_ms']:.1f}x)")
     _record(results, "box_head_fused", "snn/pallas_kernels.py:212", flips["err"], min(k9_ms),
-            pms,
-            _bound(_nbytes(periods, *args[1:4], *outs),
-                   2.0 * enc * rep + 2.0 * flips["n6"] * rep + 2.0 * flips["n7"] * 45,
-                   10.0 * t * r * (2 * rep + 45)),
-            turns_ms={"K9": k9_ms, "K3 + K4": two},
-            flips={k: flips[k] for k in ("flips6", "n6", "flips7", "n7", "rows7")})
+            pms, bound, turns_ms={"K9": k9_ms, "K3 + K4": two},
+            flips={k: flips[k] for k in ("flips6", "n6", "flips7", "n7", "rows7")},
+            long_t={t_long: dict(max_abs_err=held["err"], ms=ms_long, plain_ms=pms_long,
+                                 flips={k: held[k] for k in ("flips6", "n6", "flips7", "n7",
+                                                             "rows7")}, **bound_long)})
 
 
 # The kernel phases in the order they draw from one generator.
@@ -1098,6 +1189,7 @@ def _profile(run, what="batch"):
         print(f"profile: {us / 1e3:10.3f} ms {100 * us / busy:5.1f}% x{count:<4d} {key[:90]}")
     for us, count, key in host[:10]:
         print(f"profile host: {us / 1e3:10.3f} ms self x{count:<5d} {key[:80]}")
+    return syncs
 
 
 def main_path(dev, iters=3):
@@ -1329,6 +1421,259 @@ def fused_head_path(dev):
     return launches
 
 
+def _smi():
+    """The card's name and power limit as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def _synthetic_coco(n_images, hw, n_classes, seed):
+    """A COCO dict of ``n_images`` seeded images of ``hw`` with 2-6 seeded
+    boxes each over classes 1..n_classes, and their uint8 RGB pixels by
+    image id."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    images, anns, pixels = [], [], {}
+    for i in range(1, n_images + 1):
+        pixels[i] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        images.append({"id": i, "file_name": f"{i}.png", "height": h, "width": w})
+        for _ in range(int(rng.integers(2, 7))):
+            bw, bh = float(rng.uniform(16, w / 4)), float(rng.uniform(16, h / 4))
+            x, y = float(rng.uniform(0, w - bw)), float(rng.uniform(0, h - bh))
+            anns.append({"id": len(anns) + 1, "image_id": i, "bbox": [x, y, bw, bh],
+                         "category_id": int(rng.integers(1, n_classes + 1)),
+                         "area": bw * bh, "iscrowd": 0})
+    cats = [{"id": c, "name": f"class{c}"} for c in range(1, n_classes + 1)]
+    return {"images": images, "annotations": anns, "categories": cats}, pixels
+
+
+def _detections_equal(a, b):
+    import torch
+
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def dataset_eval_path(dev, n_images=8, image_hw=(1024, 2048), batch_size=2, workers=4):
+    """A COCO-format dataset evaluated on the card through the port's host
+    side: 8 seeded uint8 images at Cityscapes' size (1024 x 2048) with 2-6
+    seeded boxes each over 8 classes, indexed by the port's ``CocoIndex``
+    from an in-memory COCO dict and served by a ``CocoDataset`` whose
+    ``load_image`` returns the arrays; the port's ``DetectionLoader`` (batch
+    2, bucket 768 x 1536, a 0.75x resize, 4 workers), ``to_device_batch``,
+    the flagship ``detector_apply`` evaluation (bf16, seed-0 weights, rates
+    off) and the port's ``CocoEvaluator``. Checks: per batch the rates-off
+    launches (K6 x1, K5 x4, K1 x5, K2, K3, K4 x1) and no plain version on
+    the GPU; the first batch's detections equal, bit for bit, to those of
+    the same batch built without the loader; the GT boxes fed back as
+    detections (score 1) give AP@[.5:.95] = 1.0; params, AdamW state and
+    scheduler saved with ``save_checkpoint`` and loaded with
+    ``map_location=dev`` (``cuda:0``) give the same detections; the 12 stats
+    finite.
+    Prints images/s with loading (host clock), one profiled loader batch's
+    host synchronisations and the stats. Returns the launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.data.coco import (
+        CocoDataset, target_from_annotations)
+    from snn_automotive_object_detection_tpu_torch.data.loader import (
+        DetectionLoader, resize_bilinear, resize_image_and_target, to_device_batch)
+    from snn_automotive_object_detection_tpu_torch.evaluation import CocoEvaluator
+    from snn_automotive_object_detection_tpu_torch.evaluation._native import native_available
+    from snn_automotive_object_detection_tpu_torch.models.detector import detector_apply
+    from snn_automotive_object_detection_tpu_torch.models.factory import (
+        DetectorConfig, init_params)
+    from snn_automotive_object_detection_tpu_torch.models.transform import resize_shape
+    from snn_automotive_object_detection_tpu_torch.train.optim import (
+        build_optimizer, build_schedule)
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+    from snn_automotive_object_detection_tpu_torch.utils.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from snn_automotive_object_detection_tpu_torch.utils.weights import tree_leaves
+
+    cfg = DetectorConfig(num_classes=9, t_rpn=8, t_det=12)
+    coco, pixels = _synthetic_coco(n_images, image_hw, cfg.num_classes - 1, seed=11)
+
+    class InMemory(CocoDataset):
+        def load_image(self, image_id):
+            return pixels[image_id]
+
+    ds = InMemory(images_dir="", ann_file=coco)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    loader = DetectionLoader(ds, batch_size, cfg.bucket, min_size=cfg.min_size,
+                             max_size=cfg.max_size, with_targets=False, num_workers=workers)
+    keys = ("boxes", "scores", "labels", "valid")
+
+    def evaluate(p, db):
+        return detector_apply(p, db, cfg, collect_rates=False)[0]
+
+    host_batches = list(loader)          # warm-up: the loader and one detector call
+    evaluate(params, to_device_batch(host_batches[0], dev))
+    torch.cuda.synchronize()
+
+    evaluator = CocoEvaluator(ds)
+    cb.reset_counts()
+    t0 = time.perf_counter()
+    first = None
+    n_batches = 0
+    for batch in loader:
+        out = evaluate(params, to_device_batch(batch, dev))
+        first = first or (batch, {k: out[k] for k in keys})
+        evaluator.update({int(batch["image_ids"][i]): {k: out[k][i] for k in keys}
+                          for i in range(batch_size) if batch["pad_mask"][i]})
+        n_batches += 1
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, plain_calls = dict(cb.LAUNCHES), dict(cb.PLAIN_CUDA_CALLS)
+    per_batch = {"rpn_head": 5, "roi_align": 1, "encoder_fc6": 1, "box_tail": 1,
+                 "fpn_level": 4, "stem": 1}
+    want = {k: per_batch.get(k, 0) * n_batches for k in launches}
+    print(f"dataset_eval: {n_images} images of {image_hw[0]} x {image_hw[1]} in {n_batches} "
+          f"batches of {batch_size} (bucket {cfg.bucket}, {workers} workers): launches "
+          f"{launches}; plain versions on the GPU {plain_calls}")
+    if launches != want:
+        _fail(f"dataset_eval: the launches are not {want}")
+    if any(v != 0 for v in plain_calls.values()):
+        _fail("dataset_eval: a plain version ran on the GPU")
+
+    # The first batch built without the loader: the same images, resized and
+    # padded here, as tensors made on the card.
+    batch, got = first
+    ids = [int(i) for i in batch["image_ids"]]
+    hb, wb = cfg.bucket
+    imgs, sizes = [], []
+    for i in ids:
+        img, _, (nh, nw) = resize_image_and_target(ds.load_image(i), None, cfg.min_size,
+                                                   cfg.max_size)
+        padded = np.zeros((hb, wb, 3), np.float32)
+        padded[:nh, :nw] = img
+        imgs.append(padded)
+        sizes.append((nh, nw))
+    direct = {"images": torch.tensor(np.stack(imgs), device=dev),
+              "image_sizes": torch.tensor(sizes, dtype=torch.int32, device=dev),
+              "original_sizes": torch.tensor([pixels[i].shape[:2] for i in ids],
+                                             dtype=torch.int32, device=dev)}
+    same_direct = _detections_equal(got, {k: v for k, v in evaluate(params, direct).items()
+                                          if k in keys})
+
+    # The ground truth fed back as detections.
+    gt_eval = CocoEvaluator(ds)
+    for i in ds.ids:
+        t = target_from_annotations(ds.index.img_to_anns[i], *pixels[i].shape[:2], i)
+        gt_eval.update({i: {"boxes": t["boxes"], "scores": np.ones(len(t["boxes"])),
+                            "labels": t["labels"]}})
+    gt_eval.accumulate()
+    gt_stats = gt_eval.summarize(verbose=False)
+
+    # Params, AdamW state and the scheduler through a checkpoint. The rate
+    # is 0 (so the step leaves the weights as they are) and the gradients
+    # seeded, so that the optimizer holds state.
+    head = {"box_head": params["box_head"]}
+    opt, sched = build_optimizer(head, "AdamW", build_schedule(0.0, 1, milestones=(1,)))
+    g = torch.Generator(device=dev).manual_seed(2)
+    before = [leaf.clone() for leaf in tree_leaves(head)]
+    for leaf in tree_leaves(head):
+        leaf.grad = torch.randn(leaf.shape, generator=g, device=dev) * 1e-3
+    opt.step()
+    sched.step()
+    unmoved = all(torch.equal(a, b) for a, b in zip(before, tree_leaves(head)))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "checkpoint.pth")
+        save_checkpoint(path, {"params": params, "optimizer": opt, "scheduler": sched,
+                               "epoch": 0}, args={"t_det": cfg.t_det})
+        ckpt = load_checkpoint(path, map_location=dev)
+    params2 = ckpt["params"]
+    opt2, sched2 = build_optimizer({"box_head": params2["box_head"]}, "AdamW",
+                                   build_schedule(0.0, 1, milestones=(1,)))
+    opt2.load_state_dict(ckpt["optimizer"])
+    sched2.load_state_dict(ckpt["scheduler"])
+    state_same = all(
+        torch.equal(opt.state[a]["exp_avg_sq"], opt2.state[b]["exp_avg_sq"])
+        for a, b in zip(tree_leaves(head), tree_leaves({"box_head": params2["box_head"]})))
+    on_card = all(leaf.device == dev for leaf in tree_leaves(params2))
+    same_ckpt = _detections_equal(got, {k: v for k, v in evaluate(
+        params2, to_device_batch(batch, dev)).items() if k in keys})
+
+    evaluator.synchronize_between_processes()
+    evaluator.accumulate()
+    stats = evaluator.summarize(verbose=False)
+    syncs = _profile(lambda: evaluate(params, to_device_batch(host_batches[0], dev)),
+                     "loader batch (to_device_batch + detector_apply)")
+
+    # Where the loop's time goes, on the host's clock. The loop above is
+    # cold: its 8 resizes start at once on the workers, so it times the
+    # loader's fill. Here, the numpy resize of one image alone (the main
+    # thread, nothing else running); one loaded batch's copies and detector
+    # call; and a loop of 4x the images (the same pixels cycled) timed from
+    # the first batch's arrival, past the fill.
+    img = pixels[1].astype(np.float32) / 255.0
+    nh, nw = resize_shape(image_hw, cfg.min_size, cfg.max_size)
+    resize_s, detect_s = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        resize_bilinear(img, nh, nw)
+        resize_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        evaluate(params, to_device_batch(host_batches[0], dev))
+        torch.cuda.synchronize()
+        detect_s.append(time.perf_counter() - t)
+    n_stream = 4 * n_images
+    stream = {"images": [{**coco["images"][0], "id": i} for i in range(1, n_stream + 1)],
+              "annotations": [], "categories": coco["categories"]}
+
+    class Cycled(CocoDataset):
+        def load_image(self, image_id):
+            return pixels[(image_id - 1) % n_images + 1]
+
+    batches = iter(DetectionLoader(Cycled(images_dir="", ann_file=stream), batch_size,
+                                   cfg.bucket, min_size=cfg.min_size, max_size=cfg.max_size,
+                                   with_targets=False, num_workers=workers))
+    evaluate(params, to_device_batch(next(batches), dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_steady = 0
+    for batch in batches:
+        evaluate(params, to_device_batch(batch, dev))
+        n_steady += batch_size
+    torch.cuda.synchronize()
+    steady_ips = n_steady / (time.perf_counter() - t0)
+
+    ips = n_images / dt
+    print(f"dataset_eval: {_smi()}: cold loop {ips:.3f} images/s with loading (host clock, "
+          f"{dt:.3f} s for {n_images} images, the loader's fill included: decode-free uint8 "
+          f"arrays, resize, pinned copies, detector, evaluator updates); one loader batch "
+          f"{syncs} host synchronisations; native COCO matcher built {native_available()}")
+    print(f"dataset_eval: {_smi()}: past the fill {steady_ips:.3f} images/s with loading "
+          f"(host clock, {n_steady} images of {n_stream} from the first batch's arrival, "
+          f"{workers} workers); alone, the numpy resize {image_hw[0]} x {image_hw[1]} -> "
+          f"{nh} x {nw} " + " ".join(f"{x * 1000:.1f}" for x in resize_s) + " ms an image; "
+          f"to_device_batch + detector_apply " + " ".join(f"{x * 1000:.1f}" for x in detect_s)
+          + f" ms a batch of {batch_size}")
+    print(f"dataset_eval: detections of the first batch equal to the batch built without "
+          f"the loader {same_direct}; GT as detections AP@[.5:.95] {gt_stats[0]:.4f}; "
+          f"checkpoint round trip: weights unmoved by the rate-0 step {unmoved}, AdamW state "
+          f"equal {state_same}, params on cuda:0 {on_card}, epoch {ckpt['epoch']}, the same "
+          f"detections {same_ckpt}")
+    print("dataset_eval: stats " + json.dumps([float(x) for x in stats]))
+    if not same_direct:
+        _fail("dataset_eval: the loader's batch gives other detections than the same batch "
+              "built without it")
+    if gt_stats[0] != 1.0:
+        _fail(f"dataset_eval: the GT fed back as detections gives AP {gt_stats[0]}, not 1.0")
+    if not (unmoved and state_same and on_card and same_ckpt and ckpt["epoch"] == 0):
+        _fail("dataset_eval: the checkpoint round trip changed the weights, the optimizer "
+              "state or the detections")
+    if len(stats) != 12 or not np.isfinite(stats).all():
+        _fail(f"dataset_eval: stats not 12 finite numbers: {stats}")
+    return launches
+
+
 def _tree_sums(leaves):
     import torch
 
@@ -1440,10 +1785,7 @@ def main() -> int:
 
     reference_numerics()
     dev = torch.device("cuda:0")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(_smi())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
@@ -1460,7 +1802,8 @@ def main() -> int:
                "evaluation": eval_path(dev, "resnet50_fpn"),
                "mobilenet": eval_path(dev, "mobilenet_v3_large_fpn"),
                "fused_box_head": fused_head_path(dev),
-               "float32_evaluation": float32_eval_path(dev)}
+               "float32_evaluation": float32_eval_path(dev),
+               "dataset_eval": dataset_eval_path(dev)}
     for r in results:
         r["launches_by_path"] = {k: v[r["name"]] for k, v in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

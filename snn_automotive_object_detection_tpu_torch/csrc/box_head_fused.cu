@@ -38,7 +38,10 @@
 //   (d) the readout: the GEMM at n64 on wro = cls|bbox (columns past n_out
 //       read zero weights) with an f32 LI epilogue.
 // So the only intermediates in device memory are the codes (two bytes per
-// neuron for all T steps); no current and no spike plane is stored.
+// neuron for up to 16 steps); no current and no spike plane is stored. For
+// 16 < T <= 32 the codes are two planes (steps 0-15 and 16-31) and each
+// GEMM pass runs as two launches (sgemm_host::launch_steps), the second
+// starting from the LIF or LI states the first stored (f32, [2][R][1024]).
 
 #include "spike_gemm.cuh"
 
@@ -49,10 +52,12 @@ constexpr int kMaxOut = 64;       // n_cls + n_reg: one n64 column tile
 constexpr int kCodeThreads = 256;
 
 // Periods to codes, 8 elements a thread: code[p] has bit k - 1 set for
-// k = p, 2p, ... up to T (period 0 does not occur; it gets no bits).
+// k = p, 2p, ... up to T (period 0 does not occur; it gets no bits). With
+// kPlanes = 2, bits 16-31 go to the second plane, R K elements on.
+template <int kPlanes>
 __global__ void __launch_bounds__(kCodeThreads)
 period_code_kernel(const uint8_t* __restrict__ per,   // [R, K]
-                   uint16_t* __restrict__ code,       // [R, K]
+                   uint16_t* __restrict__ code,       // [kPlanes, R, K]
                    int64_t n8, int T) {
   __shared__ uint32_t table[256];
   {
@@ -66,12 +71,10 @@ period_code_kernel(const uint8_t* __restrict__ per,   // [R, K]
        q += (int64_t)gridDim.x * kCodeThreads) {
     const uint2 raw = reinterpret_cast<const uint2*>(per)[q];
     const uint8_t* p8 = reinterpret_cast<const uint8_t*>(&raw);
-    uint4 o;
-    o.x = table[p8[0]] | table[p8[1]] << 16;
-    o.y = table[p8[2]] | table[p8[3]] << 16;
-    o.z = table[p8[4]] | table[p8[5]] << 16;
-    o.w = table[p8[6]] | table[p8[7]] << 16;
-    reinterpret_cast<uint4*>(code)[q] = o;
+    uint32_t b[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) b[j] = table[p8[j]];
+    sgemm::store_codes8<kPlanes>(b, code + 8 * q, code + 8 * (n8 + q));
   }
 }
 
@@ -83,33 +86,44 @@ period_code_kernel(const uint8_t* __restrict__ per,   // [R, K]
 // TMA); out [R, n_out] f32 final LI membranes; counts [R, 2] int32 fc6 and
 // fc7 spikes per row, zeroed by the caller; code_x [R, D], code6 and code7
 // [R, 1024] uint16 scratch, the encoder's, fc6's and fc7's spike trains
-// (bit t: a spike at step t) when the call returns. Requires D % 64 == 0,
-// 1 <= T <= 16, 1 <= n_out <= 64.
+// (bit t: a spike at step t) when the call returns, each [2, R, ...] for
+// T > 16 (plane h: steps 16 h .. 16 h + 15); state [2, R, 1024] f32
+// scratch for T > 16 (unused otherwise). Requires D % 64 == 0,
+// 1 <= T <= 32, 1 <= n_out <= 64.
 extern "C" int box_head_fused_bf16(const void* per, const void* w6, const void* w7,
                                    const void* wro, float* out, int* counts, void* code_x,
-                                   void* code6, void* code7, int R, int D, int T, int n_out,
-                                   void* stream) {
-  if (R <= 0 || D <= 0 || D % sgemm::kK != 0 || T < 1 || T > sgemm::kMaxT || n_out < 1 ||
+                                   void* code6, void* code7, void* state, int R, int D, int T,
+                                   int n_out, void* stream) {
+  using namespace sgemm;
+  if (R <= 0 || D <= 0 || D % kK != 0 || T < 1 || T > kMaxSteps || n_out < 1 ||
       n_out > kMaxOut) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
   const int64_t n8 = (int64_t)R * D / 8;
   const int64_t blocks = (n8 + kCodeThreads - 1) / kCodeThreads;
-  period_code_kernel<<<(int)(blocks < 1056 ? blocks : 1056), kCodeThreads, 0, s>>>(
-      reinterpret_cast<const uint8_t*>(per), reinterpret_cast<uint16_t*>(code_x), n8, T);
-  cudaError_t err = cudaGetLastError();
+  const int grid = (int)(blocks < 1056 ? blocks : 1056);
+  const uint8_t* p8 = reinterpret_cast<const uint8_t*>(per);
+  uint16_t* cx = reinterpret_cast<uint16_t*>(code_x);
+  uint16_t* c6 = reinterpret_cast<uint16_t*>(code6);
+  uint16_t* c7 = reinterpret_cast<uint16_t*>(code7);
+  const int n_w = (n_out + 7) / 8 * 8;
+  if (T <= kMaxT) {
+    period_code_kernel<1><<<grid, kCodeThreads, 0, s>>>(p8, cx, n8, T);
+  } else {
+    period_code_kernel<2><<<grid, kCodeThreads, 0, s>>>(p8, cx, n8, T);
+  }
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  int code = sgemm_host::launch<128, 8, sgemm::LifF32Codes>(
-      w6, kRep, code_x, R, D, T,
-      sgemm::LifF32Codes::Params{reinterpret_cast<uint16_t*>(code6), counts, kRep}, s);
+  float* st = reinterpret_cast<float*>(state);
+  int code = sgemm_host::launch_steps<128, 8, LifF32CodesT>(
+      w6, kRep, code_x, R, D, T, CodesParams{c6, counts, kRep, st}, s);
   if (code != 0) return code;
-  code = sgemm_host::launch<128, 8, sgemm::LifF32Codes>(
-      w7, kRep, code6, R, kRep, T,
-      sgemm::LifF32Codes::Params{reinterpret_cast<uint16_t*>(code7), counts + 1, kRep}, s);
+  code = sgemm_host::launch_steps<128, 8, LifF32CodesT>(
+      w7, kRep, code6, R, kRep, T, CodesParams{c7, counts + 1, kRep, st}, s);
   if (code != 0) return code;
-  return sgemm_host::launch<64, 8, sgemm::LiOutF32>(wro, (n_out + 7) / 8 * 8, code7, R, kRep, T,
-                                                    sgemm::LiOutF32::Params{out, n_out}, s);
+  return sgemm_host::launch_steps<64, 8, LiOutF32T>(wro, n_w, code7, R, kRep, T,
+                                                    OutParams{out, n_out, st}, s);
 }
 
 // Shared memory per block of the fc6 and fc7 passes and of the readout

@@ -30,7 +30,10 @@
 //       current to bf16 on its own, as the separate bf16(s7 @ wc) and
 //       bf16(s7 @ wb) do, and runs the LI scan.
 // w7 is read from L2 once per row tile (not once per row block and step),
-// and the readouts run on the tensor cores.
+// and the readouts run on the tensor cores. For 16 < T <= 32 the codes are
+// two planes (steps 0-15 and 16-31): LIF6 writes both, and fc7 and the
+// readout each run as two GEMM launches (sgemm_host::launch_steps), the
+// second starting from the LIF7 and LI states the first stored.
 
 #include "spike_gemm.cuh"
 
@@ -41,10 +44,12 @@ using sgemm::bf16;
 constexpr int kLifThreads = 128;
 
 // One block per row; thread tid runs neurons 8 tid .. 8 tid + 7 of each
-// 1024 columns.
+// 1024 columns, over the steps of kPlanes code planes of 16 (plane h: steps
+// 16 h .. 16 h + 15, R rows on), the states carried from one to the next.
+template <int kPlanes>
 __global__ void __launch_bounds__(kLifThreads)
 lif6_kernel(const bf16* __restrict__ cur6,  // [T, R, rep]
-            uint16_t* __restrict__ code6,   // [R, rep]
+            uint16_t* __restrict__ code6,   // [kPlanes, R, rep]
             int* __restrict__ counts,       // [R, 2]
             int R, int rep, int T) {
   __shared__ int part[kLifThreads / 32];
@@ -52,37 +57,42 @@ lif6_kernel(const bf16* __restrict__ cur6,  // [T, R, rep]
   const int64_t row = blockIdx.x;
   int cnt = 0;
   for (int c8 = tid * 8; c8 < rep; c8 += kLifThreads * 8) {
-    // Every step's currents first: the loads do not wait for the scan.
-    uint4 raw[sgemm::kMaxT];
-#pragma unroll
-    for (int t = 0; t < sgemm::kMaxT; ++t) {
-      if (t < T) raw[t] = *reinterpret_cast<const uint4*>(cur6 + ((int64_t)t * R + row) * rep + c8);
-    }
     float v[8], i[8];
-    uint32_t code[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      v[e] = i[e] = 0.0f;
-      code[e] = 0u;
-    }
+    for (int e = 0; e < 8; ++e) v[e] = i[e] = 0.0f;
 #pragma unroll
-    for (int t = 0; t < sgemm::kMaxT; ++t) {
-      if (t < T) {
-        const bf16* cv = reinterpret_cast<const bf16*>(&raw[t]);
+    for (int h = 0; h < kPlanes; ++h) {
+      const int t0 = h * sgemm::kMaxT;
+      // Every step's currents first: the loads do not wait for the scan.
+      uint4 raw[sgemm::kMaxT];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const bool z = sgemm::lif_step(v[e], i[e], __bfloat162float(cv[e])) > 0.0f;
-          code[e] |= (z ? 1u : 0u) << t;
-          cnt += z ? 1 : 0;
+      for (int t = 0; t < sgemm::kMaxT; ++t) {
+        if (t0 + t < T) {
+          raw[t] = *reinterpret_cast<const uint4*>(cur6 + ((int64_t)(t0 + t) * R + row) * rep + c8);
         }
       }
+      uint32_t code[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) code[e] = 0u;
+#pragma unroll
+      for (int t = 0; t < sgemm::kMaxT; ++t) {
+        if (t0 + t < T) {
+          const bf16* cv = reinterpret_cast<const bf16*>(&raw[t]);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const bool z = sgemm::lif_step(v[e], i[e], __bfloat162float(cv[e])) > 0.0f;
+            code[e] |= (z ? 1u : 0u) << t;
+            cnt += z ? 1 : 0;
+          }
+        }
+      }
+      uint4 o;
+      o.x = code[0] | code[1] << 16;
+      o.y = code[2] | code[3] << 16;
+      o.z = code[4] | code[5] << 16;
+      o.w = code[6] | code[7] << 16;
+      *reinterpret_cast<uint4*>(code6 + ((int64_t)h * R + row) * rep + c8) = o;
     }
-    uint4 o;
-    o.x = code[0] | code[1] << 16;
-    o.y = code[2] | code[3] << 16;
-    o.z = code[4] | code[5] << 16;
-    o.w = code[6] | code[7] << 16;
-    *reinterpret_cast<uint4*>(code6 + row * rep + c8) = o;
   }
   for (int off = 16; off > 0; off >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
   if ((tid & 31) == 0) part[tid >> 5] = cnt;
@@ -101,22 +111,32 @@ lif6_kernel(const bf16* __restrict__ cur6,  // [T, R, rep]
 // columns: 16-byte rows); out [R, n_out] f32 final LI membranes; counts
 // [R, 2] int32
 // fc6/fc7 spikes per row, zeroed by the caller; code6, code7 [R, rep]
-// uint16 scratch. Requires rep % 128 == 0, 1 <= T <= 16.
+// uint16 scratch ([2, R, rep] each for T > 16); state [2, R, rep] f32
+// scratch for T > 16 (the LIF7 and LI states between the halves; unused
+// otherwise). Requires rep % 128 == 0, 1 <= T <= 32.
 extern "C" int box_tail_bf16(const void* cur6, const void* w7, const void* wro, float* out,
-                             int* counts, void* code6, void* code7, int R, int T, int rep,
-                             int n_out, void* stream) {
-  if (R <= 0 || T < 1 || T > sgemm::kMaxT || rep % 128 != 0 || n_out < 1) {
+                             int* counts, void* code6, void* code7, void* state, int R, int T,
+                             int rep, int n_out, void* stream) {
+  using namespace sgemm;
+  if (R <= 0 || T < 1 || T > kMaxSteps || rep % 128 != 0 || n_out < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
-  lif6_kernel<<<R, kLifThreads, 0, s>>>(reinterpret_cast<const bf16*>(cur6),
-                                        reinterpret_cast<uint16_t*>(code6), counts, R, rep, T);
-  cudaError_t err = cudaGetLastError();
+  const bf16* cur = reinterpret_cast<const bf16*>(cur6);
+  uint16_t* c6 = reinterpret_cast<uint16_t*>(code6);
+  uint16_t* c7 = reinterpret_cast<uint16_t*>(code7);
+  const int n_w = (n_out + 7) / 8 * 8;
+  if (T <= kMaxT) {
+    lif6_kernel<1><<<R, kLifThreads, 0, s>>>(cur, c6, counts, R, rep, T);
+  } else {
+    lif6_kernel<2><<<R, kLifThreads, 0, s>>>(cur, c6, counts, R, rep, T);
+  }
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  int code = sgemm_host::launch<128, 4, sgemm::LifCodes>(
-      w7, rep, code6, R, rep, T,
-      sgemm::LifCodes::Params{reinterpret_cast<uint16_t*>(code7), counts, rep}, s);
+  float* st = reinterpret_cast<float*>(state);
+  const int code = sgemm_host::launch_steps<128, 4, LifCodesT>(
+      w7, rep, code6, R, rep, T, CodesParams{c7, counts, rep, st}, s);
   if (code != 0) return code;
-  return sgemm_host::launch<64, 4, sgemm::LiOut>(wro, (n_out + 7) / 8 * 8, code7, R, rep, T,
-                                                 sgemm::LiOut::Params{out, n_out}, s);
+  return sgemm_host::launch_steps<64, 4, LiOutT>(wro, n_w, code7, R, rep, T,
+                                                 OutParams{out, n_out, st}, s);
 }

@@ -21,7 +21,10 @@
 // stages, two-block clusters sharing each stage) stores its f32 sums
 // straight to cur6. A block owns 16 RoI rows x all T steps x 128 columns;
 // blocks run row tile by row tile within a column slice, so a 3.2 MB slice
-// of w6 stays in L2 while the codes stream past it.
+// of w6 stays in L2 while the codes stream past it. For 16 < T <= 32 the
+// code pass writes two code planes (steps 0-15 and 16-31) and the GEMM
+// runs once per plane (sgemm_host::launch_steps), the second half's sums
+// into cur6[16:].
 
 #include "spike_gemm.cuh"
 
@@ -32,14 +35,16 @@ using sgemm::bf16;
 constexpr int kCodeThreads = 256;
 
 // One block per row: periods by the threshold count, codes, and the row's
-// encoder spikes (floor(T / p) per element, the code's popcount).
+// encoder spikes (floor(T / p) per element, the code's popcount). With
+// kPlanes = 2, bits 16-31 go to the second plane, R D elements on.
+template <int kPlanes>
 __global__ void __launch_bounds__(kCodeThreads)
 encoder_code_kernel(const bf16* __restrict__ x,       // [R, D]
                     const float* __restrict__ thr_g,  // [T]
-                    uint16_t* __restrict__ code,      // [R, D]
+                    uint16_t* __restrict__ code,      // [kPlanes, R, D]
                     int* __restrict__ counts,         // [R]
                     int D, int T) {
-  __shared__ float thr[sgemm::kMaxT];
+  __shared__ float thr[sgemm::kMaxT * kPlanes];
   __shared__ int part[kCodeThreads / 32];
   const int tid = threadIdx.x;
   const int64_t row = blockIdx.x;
@@ -61,12 +66,8 @@ encoder_code_kernel(const bf16* __restrict__ x,       // [R, D]
       c[j] = bits;
       cnt += __popc(bits);
     }
-    uint4 o;
-    o.x = c[0] | c[1] << 16;
-    o.y = c[2] | c[3] << 16;
-    o.z = c[4] | c[5] << 16;
-    o.w = c[6] | c[7] << 16;
-    *reinterpret_cast<uint4*>(code + row * D + 8 * q) = o;
+    sgemm::store_codes8<kPlanes>(c, code + row * D + 8 * q,
+                                 code + (gridDim.x + row) * D + 8 * q);
   }
   for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
   if ((tid & 31) == 0) part[tid >> 5] = cnt;
@@ -81,19 +82,25 @@ encoder_code_kernel(const bf16* __restrict__ x,       // [R, D]
 }  // namespace
 
 // x [R, D] bf16; w6 [D, rep] bf16; thr [T] f32 (thresholds 1 - a^m); out
-// [T, R, rep] f32; counts [R] int32 encoder spikes per row; codes [R, D]
-// uint16 scratch. Requires D % 64 == 0, rep % 128 == 0, 1 <= T <= 16.
+// [T, R, rep] f32; counts [R] int32 encoder spikes per row; codes
+// [R, D] uint16 scratch, [2, R, D] for T > 16. Requires D % 64 == 0,
+// rep % 128 == 0, 1 <= T <= 32.
 extern "C" int encoder_fc6_bf16(const void* x, const void* w6, const float* thr, float* out,
                                 int* counts, void* codes, int R, int D, int rep, int T,
                                 void* stream) {
-  if (R <= 0 || D % sgemm::kK != 0 || rep % 128 != 0 || T < 1 || T > sgemm::kMaxT) {
+  if (R <= 0 || D % sgemm::kK != 0 || rep % 128 != 0 || T < 1 || T > sgemm::kMaxSteps) {
     return (int)cudaErrorInvalidValue;
   }
-  encoder_code_kernel<<<R, kCodeThreads, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const bf16*>(x), thr, reinterpret_cast<uint16_t*>(codes), counts, D, T);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bf16* xb = reinterpret_cast<const bf16*>(x);
+  uint16_t* code = reinterpret_cast<uint16_t*>(codes);
+  if (T <= sgemm::kMaxT) {
+    encoder_code_kernel<1><<<R, kCodeThreads, 0, s>>>(xb, thr, code, counts, D, T);
+  } else {
+    encoder_code_kernel<2><<<R, kCodeThreads, 0, s>>>(xb, thr, code, counts, D, T);
+  }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return sgemm_host::launch<128, 8, sgemm::StoreF32>(w6, rep, codes, R, D, T,
-                                                     sgemm::StoreF32::Params{out, rep},
-                                                     (cudaStream_t)stream);
+  return sgemm_host::launch_steps<128, 8, sgemm::StoreF32T>(w6, rep, codes, R, D, T,
+                                                            sgemm::StoreF32::Params{out, rep}, s);
 }

@@ -9,6 +9,18 @@
 // code[r, k], written once by the pass before (encoder periods, or a LIF
 // scan). The spike tensor itself is never materialised.
 //
+// Up to 32 steps: a spike train of T > 16 steps is two uint16 planes,
+// code[h][r, k] holding steps 16 h .. 16 h + 15 (launch_steps below), and
+// the GEMM runs once per plane, the second over the weights again. One
+// plane is exactly the 16 steps that a block's two consumer warpgroups hold
+// in their accumulators (2 m-tiles x 4 steps each), so the ring, the
+// mainloop, the registers and the shared memory of the T <= 16 instances
+// stay as they are; a 32-bit code in the ring would need 4 m-tiles per
+// warpgroup (256 f32 accumulators a thread at kN = 128, more than the 232
+// registers a consumer thread has) or narrower column tiles. The price is a second stream of the weights (from L2) and,
+// for the epilogues that scan over t, the neuron states of the first half
+// carried to the second through device memory (Carry below).
+//
 // Tile. A block owns 16 RoI rows x all T steps (the GEMM rows) x kN output
 // columns. Its GEMM rows are m64 tiles of 4 steps x 16 RoI rows: m-tile j
 // holds steps 4j .. 4j + 3, and warp w of a warpgroup supplies step 4j + w.
@@ -54,12 +66,69 @@ using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 16;        // RoI rows per block
-constexpr int kMaxT = 16;        // steps, bits of a code
+constexpr int kMaxT = 16;        // steps of one GEMM pass, bits of a code plane
+constexpr int kMaxSteps = 32;    // steps in two passes, one per code plane
 constexpr int kK = 64;           // k per stage: 128-byte rows of bf16 weights and uint16 codes
 constexpr int kThreads = 384;    // consumer warpgroups 0 and 1, producer 2
 constexpr int kConsumers = 256;
 constexpr int kCluster = 2;      // blocks (consecutive row tiles) sharing each weight stage
 constexpr int kCodeBytes = kRows * kK * 2;
+
+// Which steps an epilogue that scans over t runs: all of them (T <= 16), or
+// the first 16 of a longer train, ending by storing its neuron states, or
+// the rest, starting from those states.
+enum Carry { kWhole, kFirstHalf, kSecondHalf };
+
+// The parameters of the epilogues that emit spike codes (LifCodesT,
+// LifF32CodesT): the codes [R, n_total] uint16, the spike counts and, in
+// halves, the (v, i) states [2][R][n_total] f32 carried between them. The
+// second half writes the second code plane.
+struct CodesParams {
+  uint16_t* code;
+  int* counts;
+  int n_total;
+  float* state;
+  CodesParams second_half(int R) const {
+    return {code + (int64_t)R * n_total, counts, n_total, state};
+  }
+};
+
+// The parameters of the LI readouts (LiOutT, LiOutF32T): the final
+// membranes out [R, n_out]. In halves, the first leaves its membranes in
+// out and its currents in state [R, n_out], and the second starts there.
+struct OutParams {
+  float* out;
+  int n_out;
+  float* state;
+  OutParams second_half(int) const { return *this; }
+};
+
+// Stores the spike codes c of 8 consecutive elements (bit t: a spike at
+// step t) as uint16: bits 0-15 at lo and, with kPlanes = 2, bits 16-31 at
+// hi, the same elements in the second plane.
+template <int kPlanes>
+__device__ __forceinline__ void store_codes8(const uint32_t (&c)[8], uint16_t* lo,
+                                             uint16_t* hi) {
+  uint4 o;
+  if constexpr (kPlanes == 1) {
+    o.x = c[0] | c[1] << 16;
+    o.y = c[2] | c[3] << 16;
+    o.z = c[4] | c[5] << 16;
+    o.w = c[6] | c[7] << 16;
+  } else {
+    o.x = (c[0] & 0xFFFFu) | c[1] << 16;
+    o.y = (c[2] & 0xFFFFu) | c[3] << 16;
+    o.z = (c[4] & 0xFFFFu) | c[5] << 16;
+    o.w = (c[6] & 0xFFFFu) | c[7] << 16;
+    uint4 u;
+    u.x = c[0] >> 16 | (c[1] >> 16) << 16;
+    u.y = c[2] >> 16 | (c[3] >> 16) << 16;
+    u.z = c[4] >> 16 | (c[5] >> 16) << 16;
+    u.w = c[6] >> 16 | (c[7] >> 16) << 16;
+    *reinterpret_cast<uint4*>(hi) = u;
+  }
+  *reinterpret_cast<uint4*>(lo) = o;
+}
 
 template <int kN, int kStages>
 struct Ring {
@@ -256,11 +325,36 @@ __device__ __forceinline__ void stage_bf16(const float (&acc)[2][kN / 2], int mi
   named_bar(1, kConsumers);
 }
 
-// K3: the f32 sums to out [T, R, n_total].
+// A LIF epilogue's states of kE consecutive neurons (16-byte aligned), from
+// and to the v and i planes of a carry between halves.
+template <int kE>
+__device__ __forceinline__ void load_state(float* v, float* i, const float* sv,
+                                           const float* si) {
+#pragma unroll
+  for (int e = 0; e < kE; e += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(sv + e);
+    const float4 b = *reinterpret_cast<const float4*>(si + e);
+    v[e] = a.x; v[e + 1] = a.y; v[e + 2] = a.z; v[e + 3] = a.w;
+    i[e] = b.x; i[e + 1] = b.y; i[e + 2] = b.z; i[e + 3] = b.w;
+  }
+}
+
+template <int kE>
+__device__ __forceinline__ void store_state(const float* v, const float* i, float* sv,
+                                            float* si) {
+#pragma unroll
+  for (int e = 0; e < kE; e += 4) {
+    *reinterpret_cast<float4*>(sv + e) = make_float4(v[e], v[e + 1], v[e + 2], v[e + 3]);
+    *reinterpret_cast<float4*>(si + e) = make_float4(i[e], i[e + 1], i[e + 2], i[e + 3]);
+  }
+}
+
+// K3: the f32 sums to out [T, R, n_total]; the second half's to out[16:].
 struct StoreF32 {
   struct Params {
     float* out;
     int n_total;
+    Params second_half(int R) const { return {out + (int64_t)kMaxT * R * n_total, n_total}; }
   };
   static constexpr int kStageBytes = 0;
   static constexpr bool kInRing = false;
@@ -290,13 +384,10 @@ struct StoreF32 {
 };
 
 // K4's fc7: LIF7 on bf16(s6 @ w7) over the steps; emits the spike codes
-// [R, n_total] uint16 and adds the spikes per row to counts[2 r + 1].
-struct LifCodes {
-  struct Params {
-    uint16_t* code;
-    int* counts;
-    int n_total;
-  };
+// and adds the spikes per row to counts[2 r + 1].
+template <int kCarry>
+struct LifCodesT {
+  using Params = CodesParams;
   static constexpr int kLd = 128 + 8;   // staged row stride (bf16): conflict-free pair writes
   static constexpr int kStageBytes = kMaxT * kRows * kLd * 2;
   static constexpr bool kInRing = false;
@@ -320,6 +411,12 @@ struct LifCodes {
       code[e] = 0u;
     }
     int cnt = 0;
+    const int row = c.row0 + r;
+    const int64_t at = (int64_t)row * p.n_total + c.col0 + c8;
+    const int64_t plane = (int64_t)c.R * p.n_total;
+    if constexpr (kCarry == kSecondHalf) {
+      if (row < c.R) load_state<8>(v, i, p.state + at, p.state + plane + at);
+    }
     for (int t = 0; t < c.T; ++t) {
       const uint4 raw = *reinterpret_cast<const uint4*>(st + (t * kRows + r) * kLd + c8);
       const bf16* cv = reinterpret_cast<const bf16*>(&raw);
@@ -330,27 +427,25 @@ struct LifCodes {
         cnt += z ? 1 : 0;
       }
     }
-    const int row = c.row0 + r;
     if (row < c.R) {
       uint4 o;
       o.x = code[0] | code[1] << 16;
       o.y = code[2] | code[3] << 16;
       o.z = code[4] | code[5] << 16;
       o.w = code[6] | code[7] << 16;
-      *reinterpret_cast<uint4*>(p.code + (int64_t)row * p.n_total + c.col0 + c8) = o;
+      *reinterpret_cast<uint4*>(p.code + at) = o;
+      if constexpr (kCarry == kFirstHalf) store_state<8>(v, i, p.state + at, p.state + plane + at);
     }
     for (int off = 8; off > 0; off >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
     if ((tid & 15) == 0 && row < c.R && cnt != 0) atomicAdd(p.counts + 2 * row + 1, cnt);
   }
 };
+using LifCodes = LifCodesT<kWhole>;
 
-// K4's readout: the LI scan on bf16(s7 @ wro) of each column on its own;
-// the final membranes to out [R, n_out].
-struct LiOut {
-  struct Params {
-    float* out;
-    int n_out;
-  };
+// K4's readout: the LI scan on bf16(s7 @ wro) of each column on its own.
+template <int kCarry>
+struct LiOutT {
+  using Params = OutParams;
   static constexpr int kLd = 64 + 8;
   static constexpr int kStageBytes = kMaxT * kRows * kLd * 2;
   static constexpr bool kInRing = false;
@@ -367,17 +462,24 @@ struct LiOut {
       const int col = c.col0 + e % kN;
       const int row = c.row0 + r;
       if (row >= c.R || col >= p.n_out) continue;
+      const int64_t at = (int64_t)row * p.n_out + col;
       float v = 0.0f, i = 0.0f;
+      if constexpr (kCarry == kSecondHalf) {
+        v = p.out[at];
+        i = p.state[at];
+      }
       for (int t = 0; t < c.T; ++t) {
         const float cur = __bfloat162float(st[(t * kRows + r) * kLd + e % kN]);
         const float ij = i + cur;
         v = v + 0.1f * ((0.0f - v) + ij);
         i = ij + (-0.2f) * ij;
       }
-      p.out[(int64_t)row * p.n_out + col] = v;
+      p.out[at] = v;
+      if constexpr (kCarry == kFirstHalf) p.state[at] = i;
     }
   }
 };
+using LiOut = LiOutT<kWhole>;
 
 // Stores this thread's f32 sums of its m-tiles, unrounded, into the
 // staging plane [step][row][kLd] (floats) that overlays the drained ring,
@@ -408,14 +510,11 @@ __device__ __forceinline__ void stage_f32(const float (&acc)[2][kN / 2], int min
 }
 
 // K9's fc6 and fc7: the LIF scan over t on the f32 sums as they are; emits
-// the spike codes [R, n_total] uint16 and adds the spikes of each row to
-// counts[2 r] (the caller offsets counts by the layer's column).
-struct LifF32Codes {
-  struct Params {
-    uint16_t* code;
-    int* counts;
-    int n_total;
-  };
+// the spike codes and adds the spikes of each row to counts[2 r] (the
+// caller offsets counts by the layer's column).
+template <int kCarry>
+struct LifF32CodesT {
+  using Params = CodesParams;
   static constexpr int kLd = 128 + 8;
   static constexpr int kStageBytes = kMaxT * kRows * kLd * 4;
   static constexpr bool kInRing = true;
@@ -440,6 +539,15 @@ struct LifF32Codes {
       code[e] = 0u;
     }
     int cnt = 0;
+    const int row = c.row0 + r;
+    const int64_t at = (int64_t)row * p.n_total + c.col0 + c4;
+    const int64_t plane = (int64_t)c.R * p.n_total;
+    if constexpr (kCarry == kSecondHalf) {
+      if (row < c.R) {
+        load_state<4>(v, i, p.state + at, p.state + plane + at);
+        load_state<4>(v + 4, i + 4, p.state + at + 64, p.state + plane + at + 64);
+      }
+    }
     for (int t = 0; t < c.T; ++t) {
       const float4 lo = *reinterpret_cast<const float4*>(st + (t * kRows + r) * kLd + c4);
       const float4 hi = *reinterpret_cast<const float4*>(st + (t * kRows + r) * kLd + 64 + c4);
@@ -451,25 +559,26 @@ struct LifF32Codes {
         cnt += z ? 1 : 0;
       }
     }
-    const int row = c.row0 + r;
     if (row < c.R) {
-      uint16_t* o = p.code + (int64_t)row * p.n_total + c.col0 + c4;
+      uint16_t* o = p.code + at;
       *reinterpret_cast<uint2*>(o) = make_uint2(code[0] | code[1] << 16, code[2] | code[3] << 16);
       *reinterpret_cast<uint2*>(o + 64) =
           make_uint2(code[4] | code[5] << 16, code[6] | code[7] << 16);
+      if constexpr (kCarry == kFirstHalf) {
+        store_state<4>(v, i, p.state + at, p.state + plane + at);
+        store_state<4>(v + 4, i + 4, p.state + at + 64, p.state + plane + at + 64);
+      }
     }
     for (int off = 8; off > 0; off >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
     if ((tid & 15) == 0 && row < c.R && cnt != 0) atomicAdd(p.counts + 2 * row, cnt);
   }
 };
+using LifF32Codes = LifF32CodesT<kWhole>;
 
-// K9's readout: the LI scan on the f32 sums of each column as they are;
-// the final membranes to out [R, n_out].
-struct LiOutF32 {
-  struct Params {
-    float* out;
-    int n_out;
-  };
+// K9's readout: the LI scan on the f32 sums of each column as they are.
+template <int kCarry>
+struct LiOutF32T {
+  using Params = OutParams;
   static constexpr int kLd = 64 + 8;
   static constexpr int kStageBytes = kMaxT * kRows * kLd * 4;
   static constexpr bool kInRing = true;
@@ -486,16 +595,26 @@ struct LiOutF32 {
       const int col = c.col0 + e % kN;
       const int row = c.row0 + r;
       if (row >= c.R || col >= p.n_out) continue;
+      const int64_t at = (int64_t)row * p.n_out + col;
       float v = 0.0f, i = 0.0f;
+      if constexpr (kCarry == kSecondHalf) {
+        v = p.out[at];
+        i = p.state[at];
+      }
       for (int t = 0; t < c.T; ++t) {
         const float ij = i + st[(t * kRows + r) * kLd + e % kN];
         v = v + 0.1f * ((0.0f - v) + ij);
         i = ij + (-0.2f) * ij;
       }
-      p.out[(int64_t)row * p.n_out + col] = v;
+      p.out[at] = v;
+      if constexpr (kCarry == kFirstHalf) p.state[at] = i;
     }
   }
 };
+using LiOutF32 = LiOutF32T<kWhole>;
+
+template <int>
+using StoreF32T = StoreF32;   // K3's epilogue scans nothing: every carry is the same
 
 }  // namespace sgemm
 
@@ -516,7 +635,8 @@ constexpr int smem_bytes() {
 
 // C = spike codes [R, K] (uint16) x W [K, n_total] bf16, through the
 // epilogue Epi. Requires K % 64 == 0, n_total % 8 == 0 (16-byte rows for
-// TMA) and T <= 16; columns past n_total read zero weights.
+// TMA) and T <= 16 (launch_steps runs longer trains); columns past
+// n_total read zero weights.
 template <int kN, int kStages, class Epi>
 int launch(const void* w, int n_total, const void* codes, int R, int K, int T,
            const typename Epi::Params& ep, cudaStream_t stream) {
@@ -547,6 +667,26 @@ int launch(const void* w, int n_total, const void* codes, int R, int K, int T,
                                      map_w, map_code, R, K, T, ep);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Up to 32 steps through the epilogue EpiT: for T <= 16 one launch of
+// EpiT<kWhole> on codes [R, K]. Above, the codes are two planes [2][R][K]
+// uint16, plane h the steps 16 h .. 16 h + 15, and the GEMM runs once per
+// plane: EpiT<kFirstHalf> on steps 0-15, ending by storing what the second
+// needs, then EpiT<kSecondHalf> on steps 16 .. T - 1 with
+// p.second_half(R), which points its outputs at its half.
+template <int kN, int kStages, template <int> class EpiT>
+int launch_steps(const void* w, int n_total, const void* codes, int R, int K, int T,
+                 const typename EpiT<sgemm::kWhole>::Params& p, cudaStream_t stream) {
+  using namespace sgemm;
+  if (T <= kMaxT) return launch<kN, kStages, EpiT<kWhole>>(w, n_total, codes, R, K, T, p, stream);
+  if (T > kMaxSteps) return (int)cudaErrorInvalidValue;
+  const int code =
+      launch<kN, kStages, EpiT<kFirstHalf>>(w, n_total, codes, R, K, kMaxT, p, stream);
+  if (code != 0) return code;
+  const void* upper = static_cast<const uint16_t*>(codes) + (int64_t)R * K;
+  return launch<kN, kStages, EpiT<kSecondHalf>>(w, n_total, upper, R, K, T - kMaxT,
+                                                p.second_half(R), stream);
 }
 
 }  // namespace sgemm_host

@@ -54,6 +54,7 @@ from snn_automotive_object_detection_tpu_torch.models.transform import (
 )
 from snn_automotive_object_detection_tpu_torch.ops.anchors import generate_anchors
 from snn_automotive_object_detection_tpu_torch.ops.cuda_stem import stem_apply
+from snn_automotive_object_detection_tpu_torch.snn.cuda_fc6 import MAX_T as BOX_KERNEL_MAX_T
 
 
 @functools.lru_cache(maxsize=8)
@@ -77,7 +78,9 @@ def make_head_applies(config, params, collect_rates: bool, training: bool = Fals
     autograd, and the RPN head is K1's training instance with the
     backward kernel as its gradient when the compute dtype is bf16, the
     backbone is frozen (that gradient is for the weights only) and no rates
-    are collected; otherwise it is the scan too.
+    are collected; otherwise it is the scan too. A box head of more steps
+    than its kernels take (``t_det`` > 32) is the scan on either device, as
+    the reference's gate sends such a ``t_det`` to its XLA scan.
     """
     cd = config.compute_dtype
     kernels = cd == torch.bfloat16
@@ -95,7 +98,7 @@ def make_head_applies(config, params, collect_rates: bool, training: bool = Fals
                                              config.t_rpn, collect_rates, cd)
 
     def box_head_apply(flat):
-        kernel = kernels and not training
+        kernel = kernels and not training and config.t_det <= BOX_KERNEL_MAX_T
         apply = heads.fastrcnn_snn_apply if kernel else heads.fastrcnn_snn_scan_apply
         return apply(params["box_head"], flat, config.t_det, collect_rates, cd)
 

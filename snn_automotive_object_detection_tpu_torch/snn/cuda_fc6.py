@@ -7,7 +7,8 @@ version: threshold-count encoder periods, then cur6[t] = z_t @ w6 in float32
 for every step. :func:`encoder_codes_plain` is the plain version of the
 kernel's first pass alone, the spike train of each element as a code. A CPU
 tensor takes the plain version; a CUDA tensor launches the kernel (bf16 x
-and w6) or raises.
+and w6, T <= 32) or raises. Above 16 steps the kernel keeps each code as
+two 16-bit planes and runs its GEMM once per plane.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
 from snn_automotive_object_detection_tpu_torch.utils.constants import device_constant
 
 NAME = "encoder_fc6"
-MAX_T = 16
+MAX_T = 32
+PLANE_STEPS = 16    # steps of one code plane, one GEMM pass of the kernel
 
 
 def _thresholds(num_steps: int, device) -> torch.Tensor:
@@ -60,6 +62,11 @@ def encoder_codes_plain(x: torch.Tensor, num_steps: int):
     return codes, counts
 
 
+def planes(num_steps: int) -> int:
+    """16-bit code planes the kernels keep for a train of ``num_steps``."""
+    return -(-num_steps // PLANE_STEPS)
+
+
 def _launch(x: torch.Tensor, w6: torch.Tensor, num_steps: int):
     r, d = x.shape
     rep = w6.shape[1]
@@ -71,7 +78,7 @@ def _launch(x: torch.Tensor, w6: torch.Tensor, num_steps: int):
     thr = _thresholds(num_steps, x.device)
     cur6 = torch.empty((num_steps, r, rep), dtype=torch.float32, device=x.device)
     counts = torch.empty(r, dtype=torch.int32, device=x.device)   # one store per row
-    codes = torch.empty((r, d), dtype=torch.int16, device=x.device)
+    codes = torch.empty((planes(num_steps), r, d), dtype=torch.int16, device=x.device)
     fn = cb.function(NAME, "encoder_fc6_bf16",
                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     code = fn(x.data_ptr(), w6.data_ptr(), thr.data_ptr(), cur6.data_ptr(),

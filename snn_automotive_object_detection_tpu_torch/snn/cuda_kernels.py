@@ -19,8 +19,11 @@ periods; the detector keeps that route, as the reference does, and this
 module is an entry point of its own.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-(representation size 1024, at most 64 readout columns, T <= 16 and K a
-multiple of 64, the GEMM's stage depth) or raises.
+(representation size 1024, at most 64 readout columns, T <= 32 and K a
+multiple of 64, the GEMM's stage depth) or raises. Above 16 steps the
+kernel keeps each code as two 16-bit planes, runs each GEMM pass once per
+plane and carries the LIF and LI states from the first to the second; the
+reference kernel takes any T, so T > 32 is an open gap of this one.
 """
 
 from __future__ import annotations
@@ -30,12 +33,12 @@ import ctypes
 import torch
 
 from snn_automotive_object_detection_tpu_torch.snn import functional as snnf
+from snn_automotive_object_detection_tpu_torch.snn.cuda_fc6 import MAX_T, PLANE_STEPS, planes
 from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
 
 NAME = "box_head_fused"
 REP = 1024
 MAX_OUT = 64
-MAX_T = 16
 K_STAGE = 64        # k per stage of the spike-code GEMM
 ROWS = 16           # RoI rows per block of the GEMM
 SMEM_LIMIT = 232448
@@ -47,10 +50,11 @@ def smem_bytes(n_cols: int, stages: int, staging_in_ring: bool) -> int:
     ``stages``, as ``sgemm_host::smem_bytes`` in csrc/spike_gemm.cuh
     computes it (:func:`smem_on_card` asks the C side): the alignment
     slack, the ring (each slot a 64-deep weight stage plus the block's
-    16 x 64 codes), the f32 staging of 16 rows x 16 steps x (n_cols + 8)
-    unless it overlays the drained ring, and the full and empty barriers."""
+    16 x 64 codes), the f32 staging of 16 rows x 16 steps (one code plane)
+    x (n_cols + 8) unless it overlays the drained ring, and the full and
+    empty barriers."""
     ring = stages * (n_cols * K_STAGE * 2 + ROWS * K_STAGE * 2)
-    staging = MAX_T * ROWS * (n_cols + 8) * 4
+    staging = PLANE_STEPS * ROWS * (n_cols + 8) * 4
     if staging_in_ring and staging > ring:
         raise ValueError(f"{staging} bytes of staging do not fit in a {ring}-byte ring")
     return 1024 + ring + (0 if staging_in_ring else staging) + 2 * stages * 8
@@ -139,15 +143,15 @@ def fastrcnn_snn_plain(x: torch.Tensor, w6: torch.Tensor, w7: torch.Tensor,
     return cls, reg, (c6.double() / denom).float(), (c7.double() / denom).float()
 
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _launch(periods: torch.Tensor, w6: torch.Tensor, w7: torch.Tensor,
             wro: torch.Tensor, n_cls: int, num_steps: int, codes: bool = False):
     """K9 on the encoder periods [R, K] uint8. Returns (cls, reg, fc6 spike
     counts [R] int64, fc7 spike counts [R] int64); with ``codes`` also the
-    fc6 and fc7 spike trains as codes [R, H] int16 (bit t: a spike at step
-    t), which checks compare step by step."""
+    fc6 and fc7 spike trains as codes [R, H] int32 (bit t: a spike at step
+    t, the kernel's planes joined), which checks compare step by step."""
     r, d = periods.shape
     rep, n_out = wro.shape
     cb.require(periods, "periods", torch.uint8)
@@ -164,17 +168,29 @@ def _launch(periods: torch.Tensor, w6: torch.Tensor, w7: torch.Tensor,
     dev = periods.device
     out = torch.empty((r, n_out), dtype=torch.float32, device=dev)
     counts = torch.zeros((r, 2), dtype=torch.int32, device=dev)
-    code_x = torch.empty((r, d), dtype=torch.int16, device=dev)
-    code67 = torch.empty((2, r, rep), dtype=torch.int16, device=dev)
+    n_planes = planes(num_steps)
+    code_x = torch.empty((n_planes, r, d), dtype=torch.int16, device=dev)
+    code67 = torch.empty((2, n_planes, r, rep), dtype=torch.int16, device=dev)
+    state = torch.empty((2, r, rep) if n_planes > 1 else (0,), dtype=torch.float32, device=dev)
     fn = cb.function(NAME, "box_head_fused_bf16", _ARGTYPES)
     code = fn(periods.data_ptr(), w6.data_ptr(), w7.data_ptr(), wro.data_ptr(),
               out.data_ptr(), counts.data_ptr(), code_x.data_ptr(), code67[0].data_ptr(),
-              code67[1].data_ptr(), r, d, num_steps, n_out, cb.stream_ptr(dev))
+              code67[1].data_ptr(), state.data_ptr(), r, d, num_steps, n_out,
+              cb.stream_ptr(dev))
     cb.check(code, NAME)
     cb.LAUNCHES[NAME] += 1
     counts = counts.long()
     got = (out[:, :n_cls], out[:, n_cls:], counts[:, 0], counts[:, 1])
-    return got + (code67[0], code67[1]) if codes else got
+    return got + (joined_codes(code67[0]), joined_codes(code67[1])) if codes else got
+
+
+def joined_codes(code_planes: torch.Tensor) -> torch.Tensor:
+    """A kernel's 16-bit code planes [P, R, N] (plane h: steps 16 h ..
+    16 h + 15) -> codes [R, N] int32, bit t the spike at step t."""
+    out = torch.zeros(code_planes.shape[1:], dtype=torch.int32, device=code_planes.device)
+    for h, plane in enumerate(code_planes):
+        out |= (plane.int() & 0xFFFF) << (PLANE_STEPS * h)
+    return out
 
 
 def launch_args(x: torch.Tensor, w6: torch.Tensor, w7: torch.Tensor, wc: torch.Tensor,

@@ -12,7 +12,9 @@ f32 states, each matmul result rounded once to the compute dtype;
 :func:`readout_plain` are the plain versions of the three passes, whose
 composition gives :func:`box_tail_plain`'s bits. A CPU tensor takes the
 plain version; a CUDA tensor launches the kernel (bf16 currents and
-weights, rep a multiple of 128) or raises.
+weights, rep a multiple of 128, T <= 32) or raises. Above 16 steps the
+kernel keeps each code as two 16-bit planes, runs each GEMM once per plane
+and carries the LIF7 and LI states from the first to the second.
 """
 
 from __future__ import annotations
@@ -22,10 +24,10 @@ import ctypes
 import torch
 
 from snn_automotive_object_detection_tpu_torch.snn import functional as snnf
+from snn_automotive_object_detection_tpu_torch.snn.cuda_fc6 import MAX_T, PLANE_STEPS, planes
 from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
 
 NAME = "box_tail"
-MAX_T = 16
 
 
 def box_tail_plain(cur6: torch.Tensor, w7: torch.Tensor, wc: torch.Tensor,
@@ -128,12 +130,14 @@ def _launch(cur6: torch.Tensor, w7: torch.Tensor, wro: torch.Tensor,
         wro = torch.nn.functional.pad(wro, (0, 8 - n_out % 8))
     out = torch.empty((r, n_out), dtype=torch.float32, device=cur6.device)
     counts = torch.zeros((r, 2), dtype=torch.int32, device=cur6.device)
-    codes = torch.empty((2, r, rep), dtype=torch.int16, device=cur6.device)
+    codes = torch.empty((2, planes(t), r, rep), dtype=torch.int16, device=cur6.device)
+    state = torch.empty((2, r, rep) if t > PLANE_STEPS else (0,), dtype=torch.float32,
+                        device=cur6.device)
     fn = cb.function(NAME, "box_tail_bf16",
-                     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     code = fn(cur6.data_ptr(), w7.data_ptr(), wro.data_ptr(), out.data_ptr(),
-              counts.data_ptr(), codes[0].data_ptr(), codes[1].data_ptr(), r, t, rep,
-              n_out, cb.stream_ptr(cur6.device))
+              counts.data_ptr(), codes[0].data_ptr(), codes[1].data_ptr(), state.data_ptr(),
+              r, t, rep, n_out, cb.stream_ptr(cur6.device))
     cb.check(code, NAME)
     cb.LAUNCHES[NAME] += 1
     counts = counts.long()

@@ -1,0 +1,74 @@
+"""Dataset and model YAML configs.
+
+Port of ``snn_automotive_object_detection_tpu/utils/config.py``: the
+reference's ``load_config_dict`` with its UPPERCASE keys accepted as
+aliases, and ``model.yaml``. The YAML files are the JAX package's own
+(``CONFIG_DIR`` points at its ``configs/`` directory, read as files; nothing
+of that package is imported). PyYAML is imported inside the functions that
+read YAML, so that the modules which import this one load on a machine
+without it; a config given as a dict needs no YAML at all.
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+CONFIG_DIR = str(Path(__file__).resolve().parents[2]
+                 / "snn_automotive_object_detection_tpu" / "configs")
+
+_KEY_ALIASES = {
+    "IMAGES_DIR": "images_dir",
+    "ANN_DIR": "ann_dir",
+    "ANN_FILE_TRAIN": "ann_file_train",
+    "ANN_FILE_VAL": "ann_file_val",
+    "OUT_DIR": "out_dir",
+    "NUM_CLASSES": "num_classes",
+    "CLASSES": "classes",
+    "KNOWN_CLASSES": "known_classes",
+    "ROOT_DIR_FOR_DWLOAD": "root_dir",
+}
+
+
+def load_dataset_config(name_or_path: str, data_root: Optional[str] = None) -> Dict[str, Any]:
+    """A dataset config by name (cityscapes/bdd/idd/pascal/coco) or path;
+    ``data_root`` is prepended to every relative data path."""
+    import yaml
+
+    path = name_or_path
+    if not os.path.exists(path):
+        path = os.path.join(CONFIG_DIR, f"{name_or_path}.yaml")
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"no dataset config named {name_or_path!r} (looked in {CONFIG_DIR})")
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+
+    cfg = {_KEY_ALIASES.get(k, k): v for k, v in raw.items()}
+    cfg.setdefault("dataset", os.path.splitext(os.path.basename(path))[0])
+    if data_root:
+        for k in ("images_dir", "ann_file_train", "ann_file_val", "root_dir"):
+            if cfg.get(k) and not os.path.isabs(cfg[k]):
+                cfg[k] = os.path.join(data_root, cfg[k])
+    return cfg
+
+
+def load_model_yaml(path: Optional[str] = None) -> Dict[str, Any]:
+    """Model hyperparameters (``model.yaml`` of ``CONFIG_DIR`` by default)."""
+    import yaml
+
+    path = path or os.path.join(CONFIG_DIR, "model.yaml")
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def class_names(cfg: Dict[str, Any]) -> Dict[int, str]:
+    """The classes table as {id: name}, from the mapping form or the
+    reference's list of dicts."""
+    classes = cfg.get("classes")
+    if classes is None:
+        return {}
+    if isinstance(classes, dict):
+        return {int(k): v for k, v in classes.items()}
+    return {int(c["id"]): c["name"] for c in classes}

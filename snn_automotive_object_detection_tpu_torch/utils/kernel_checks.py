@@ -95,9 +95,9 @@ ROWS_DIFFERING = 0.01  # rows whose fc7 trains differ at all, a share of the row
 
 
 def _bits(codes: torch.Tensor) -> torch.Tensor:
-    """Set bits among the low 16 of each integer code, as int64."""
-    v = codes.long() & 0xFFFF
-    return sum(((v >> t) & 1) for t in range(16))
+    """Set bits among the low 32 of each integer code, as int64."""
+    v = codes.long() & 0xFFFFFFFF
+    return sum(((v >> t) & 1) for t in range(32))
 
 
 def box_head_fused_report(got, x, w6, w7, wc, wb, num_steps: int) -> dict:

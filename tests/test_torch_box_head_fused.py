@@ -200,14 +200,14 @@ def test_spike_by_spike_check_holds_and_fails():
     x, (w6, w7, wc, wb) = _small_head(5)
     s6 = k9.fc6_trains_plain(x, w6, t)
     cls, reg, s7 = k9.box_tail_f32_plain(s6, w7, wc, wb)
-    c6, c7 = k9.codes_of(s6).to(torch.int16), k9.codes_of(s7).to(torch.int16)
+    c6, c7 = k9.codes_of(s6), k9.codes_of(s7)
     counts = s6.sum(dim=(0, 2)).long(), s7.sum(dim=(0, 2)).long()
     good = (cls, reg, *counts, c6, c7)
     rep = kc.box_head_fused_report(good, x, w6, w7, wc, wb, t)
     print(kc.box_head_fused_line(rep))
     assert rep["ok"] and rep["flips6"] == rep["flips7"] == rep["rows7"] == 0
     assert rep["ex_row"] == rep["ex_head"] == 0.0 and rep["n6"] > 0 and rep["n7"] > 0
-    late = ((c6.int() << 1) & 0xFFF).to(torch.int16)
+    late = (c6 << 1) & 0xFFF
     assert not kc.box_head_fused_report((cls, reg, *counts, late, c7), x, w6, w7, wc, wb,
                                         t)["ok"]
     off = cls.clone()

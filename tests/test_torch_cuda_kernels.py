@@ -223,12 +223,14 @@ def test_roi_align_kernel_refuses_channels_not_a_multiple_of_8(dev):
 # cluster: R at a tile's edges (1, 15, 16, 17), odd counts of row tiles (1,
 # 3 and 125 tiles: the last cluster's partner is a padded tile), T from 1 to
 # 16 (one to four m-tiles of 4 steps, T = 10 ending inside one), one and
-# two column tiles, and the flagship D = 12544.
+# two column tiles, and the flagship D = 12544; T = 20 and 32 take two code
+# planes and two GEMM passes (T = 17: one step in the second).
 @pytest.mark.parametrize("r,d,rep,t", [(150, 512, 128, 12), (32, 512, 128, 4), (7, 512, 128, 1),
                                        (1, 512, 128, 1), (15, 512, 256, 4),
                                        (16, 512, 128, 10), (17, 512, 256, 12),
                                        (48, 512, 128, 16), (2000, 512, 128, 12),
-                                       (40, 12544, 1024, 12)])
+                                       (40, 12544, 1024, 12), (150, 512, 128, 20),
+                                       (17, 512, 256, 32), (40, 12544, 1024, 32)])
 def test_encoder_fc6_kernel_matches_plain(dev, r, d, rep, t):
     g = torch.Generator(device=dev).manual_seed(r + t + d)
     x = (torch.rand((r, d), generator=g, device=dev) * 2.5).to(BF)
@@ -246,7 +248,8 @@ def test_encoder_fc6_kernel_matches_plain(dev, r, d, rep, t):
 # steps the fc6 currents are larger so that both layers spike.
 @pytest.mark.parametrize("r,t,n_cls", [(203, 12, 9), (8, 10, 9), (3, 8, 9), (1, 1, 9),
                                        (15, 4, 9), (16, 10, 9), (17, 12, 9), (48, 16, 9),
-                                       (2000, 12, 9), (33, 12, 16)])
+                                       (2000, 12, 9), (33, 12, 16), (203, 20, 9),
+                                       (17, 32, 9), (2000, 32, 9), (33, 17, 16)])
 def test_box_tail_kernel_matches_plain(dev, r, t, n_cls):
     g = torch.Generator(device=dev).manual_seed(r * t + n_cls)
     scale = 0.15 if t >= 8 else 2.0
@@ -513,12 +516,14 @@ def _hold_box_head_fused(x, w6, w7, wc, wb, t):
 
 # Rows that end inside the 16-row tile and inside a cluster of two tiles,
 # one row, fewer rows than a tile, more tiles than the card holds blocks,
-# the flagship's 2000 rows of K = 12544; T = 4, 12 and 16; 45 and 64
-# readout columns (9 classes with 36 deltas, 16 with 48).
+# the flagship's 2000 rows of K = 12544; T = 4, 12 and 16, and 20 and 32 in
+# two passes per GEMM; 45 and 64 readout columns (9 classes with 36
+# deltas, 16 with 48).
 @pytest.mark.parametrize("r,d,t,n_cls,n_reg", [
     (203, 512, 12, 9, 36), (32, 1024, 12, 9, 36), (4500, 64, 4, 9, 36),
     (1, 640, 4, 9, 36), (15, 1024, 12, 16, 48), (17, 64, 16, 9, 36),
-    (2000, 12544, 12, 9, 36), (2000, 12544, 16, 16, 48)])
+    (2000, 12544, 12, 9, 36), (2000, 12544, 16, 16, 48), (203, 512, 20, 9, 36),
+    (17, 64, 32, 16, 48), (2000, 12544, 32, 9, 36)])
 def test_box_head_fused_kernel_matches_plain(dev, r, d, t, n_cls, n_reg):
     g = torch.Generator(device=dev).manual_seed(r + d + t)
     x = torch.rand((r, d), generator=g, device=dev) * 2.5
@@ -581,16 +586,21 @@ def test_kernels_refuse_other_dtypes(dev):
                         torch.zeros((256, 15), device=dev), 4)
     with pytest.raises(TypeError):
         k3.encoder_fc6(torch.zeros((4, 64), device=dev), torch.zeros((64, 64), device=dev), 4)
-    # K3 and K4 take whole weight stages (64 deep, 128 wide) and T <= 16.
-    for d, rep, t in ((96, 128, 4), (64, 64, 4), (64, 128, 17)):
+    # K3 and K4 take whole weight stages (64 deep, 128 wide) and T <= 32.
+    for d, rep, t in ((96, 128, 4), (64, 64, 4), (64, 128, 33)):
         with pytest.raises(ValueError):
             k3.encoder_fc6(torch.zeros((4, d), device=dev, dtype=BF),
                            torch.zeros((d, rep), device=dev, dtype=BF), t)
-    for rep, t in ((192, 4), (1024, 17)):
+    for rep, t in ((192, 4), (1024, 33)):
         with pytest.raises(ValueError):
             k4.box_tail(torch.zeros((t, 2, rep), device=dev, dtype=BF),
                         torch.zeros((rep, rep), device=dev), torch.zeros((rep, 9), device=dev),
                         torch.zeros((rep, 36), device=dev))
+    with pytest.raises(ValueError):   # K9 stops at T = 32 (the reference's kernel does not)
+        k9.fastrcnn_snn_cuda(torch.zeros((4, 64), device=dev), torch.zeros((64, 1024), device=dev),
+                             torch.zeros((1024, 1024), device=dev),
+                             torch.zeros((1024, 9), device=dev),
+                             torch.zeros((1024, 36), device=dev), 33)
     with pytest.raises(TypeError):
         k9.fastrcnn_snn_cuda(torch.zeros((4, 64), device=dev, dtype=torch.int32),
                              torch.zeros((64, 1024), device=dev),
@@ -608,6 +618,34 @@ def test_kernels_refuse_other_dtypes(dev):
                               "bias": torch.zeros(64, device=dev)}},
                       torch.zeros((1, 8, 8, 3), device=dev, dtype=torch.float64),
                       (0.5, 0.5, 0.5), (0.2, 0.2, 0.2))
+
+
+@pytest.mark.parametrize("t_det,box_kernels", [(20, 1), (32, 1), (40, 0)])
+def test_bf16_eval_long_t_det_routes(dev, t_det, box_kernels):
+    """bf16 evaluation at box-head steps past one code plane runs K3 and K4
+    (two GEMM passes each) up to 32 steps, and the box head's scan above,
+    as the reference's gate sends such a t_det to its XLA scan; the RPN
+    head's kernel runs either way."""
+    from snn_automotive_object_detection_tpu_torch.models.detector import detector_apply
+    from snn_automotive_object_detection_tpu_torch.models.factory import (
+        DetectorConfig, init_params)
+    from snn_automotive_object_detection_tpu_torch.models.rpn import RPNConfig
+
+    cfg = DetectorConfig(num_classes=3, t_rpn=3, t_det=t_det, min_size=64, max_size=128,
+                         rpn=RPNConfig(pre_nms_top_n_test=60, post_nms_top_n_test=20))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    batch = {"images": torch.rand((2, 64, 128, 3), generator=torch.Generator(device=dev)
+                                  .manual_seed(1), device=dev),
+             "image_sizes": torch.tensor([[64, 128]] * 2, device=dev),
+             "original_sizes": torch.tensor([[128, 256]] * 2, device=dev)}
+    cb.reset_counts()
+    out, _ = detector_apply(params, batch, cfg, collect_rates=True)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES[k3.NAME] == cb.LAUNCHES[k4.NAME] == box_kernels, cb.LAUNCHES
+    assert cb.LAUNCHES[k1.NAME] == 5
+    assert all(v == 0 for v in cb.PLAIN_CUDA_CALLS.values()), cb.PLAIN_CUDA_CALLS
+    assert bool(torch.isfinite(out["all_scores"]).all())
+    assert out["det_rates"]["fc6"].shape == (2 * cfg.rpn.post_nms_top_n_test,)
 
 
 def test_float32_eval_launches_no_kernel(dev):
