@@ -130,8 +130,19 @@ MUTANTS = [
      "for (int t = 0; t < c.T - 1; ++t) {\n      const float4 lo",
      "check_box_head_fused", "box_head_fused"),
     ("K9: one code bit shifted (the encoder's spikes at t + 1 = p, 2p, ... moved to t + 2)",
-     "box_head_fused.cu", "bits |= 1u << (k - 1);", "bits |= 1u << k;",
+     "box_head_fused.cu", "bits |= 1u << (k - 1 - 16 * h);", "bits |= 1u << (k - 16 * h);",
      "check_box_head_fused", "box_head_fused"),
+    ("K9: the GEMM pass of the third code plane reading the second (steps 32-47 lost)",
+     "spike_gemm.cuh",
+     "const void* plane = static_cast<const uint16_t*>(codes) + (int64_t)h * R * K;",
+     "const void* plane = static_cast<const uint16_t*>(codes) + (int64_t)(h == 2 ? 1 : h) * R * K;",
+     "check_box_head_fused", "box_head_fused"),
+    ("K1 bf16 states: the decayed membrane v not rounded to bf16",
+     "rpn_head_common.cuh", "vd = bf16r(v + bf16r(kTauMem16 * bf16r(cu - v)));",
+     "vd = v + bf16r(kTauMem16 * bf16r(cu - v));", "check_rpn_s16", "rpn_head_s16"),
+    ("K1 bf16 states: the threshold left at f32(0.1), not rounded to bf16",
+     "rpn_head_common.cuh", "const bool s = (vd - kVth16) > 0.0f;",
+     "const bool s = (vd - 0.1f) > 0.0f;", "check_rpn_s16", "rpn_head_s16"),
     ("K9: the last step left out of the f32 LI readout scan",
      "spike_gemm.cuh", "for (int t = 0; t < c.T; ++t) {\n        const float ij",
      "for (int t = 0; t < c.T - 1; ++t) {\n        const float ij",
@@ -155,12 +166,13 @@ MUTANTS = [
      "box_tail"),
 ] + [(f"{k}: code bits 16-31 dropped (the second GEMM pass reads the first code plane)",
       "spike_gemm.cuh",
-      "const void* upper = static_cast<const uint16_t*>(codes) + (int64_t)R * K;",
-      "const void* upper = codes;", phase, tests)
+      "const void* plane = static_cast<const uint16_t*>(codes) + (int64_t)h * R * K;",
+      "const void* plane = static_cast<const uint16_t*>(codes) + (int64_t)(h == 1 ? 0 : h) * R * K;",
+      phase, tests)
      for k, phase, tests in (("K3", "check_encoder_fc6", "encoder_fc6"),
                              ("K4", "check_box_tail", "box_tail"),
                              ("K9", "check_box_head_fused", "box_head_fused"))] + [
-    (f"{k}: the LIF states of steps 0-15 not carried (the second half starts from zero)",
+    (f"{k}: the LIF states of steps 0-15 not carried (the second plane starts from zero)",
      "spike_gemm.cuh", "const float* si) {\n#pragma unroll",
      "const float* si) {\n  return;\n#pragma unroll", phase, tests)
     for k, phase, tests in (("K4", "check_box_tail", "box_tail"),

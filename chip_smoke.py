@@ -9,9 +9,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
   1. device  - a CUDA device must be present; prints its name and power
                limit as nvidia-smi reports them.
-  2. build   - compiles the nine hand-written kernels (the nine TPU
-               kernels' counterparts; K8 is an instance of K1's kernel in
-               K1's source) from
+  2. build   - compiles the hand-written kernels (the nine TPU kernels'
+               counterparts and K1's bf16-state instance; K8 and that
+               instance are instances of K1's kernel in K1's source) from
                snn_automotive_object_detection_tpu_torch/csrc (one nvcc per
                source, all started together).
   3. kernels - at the flagship shapes (768x1536 bucket, batch 2, 1000
@@ -32,7 +32,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
                spikes by w6, the fc6 spikes by w7, per tap the shifted
                encoder spikes by dc), and K3's dense TFLOP/s; K3 and K4 are
                held and timed again at T = 20 and 32 (two code planes, two
-               GEMM passes), K9 at T = 32. The RPN head
+               GEMM passes), K9 at T = 32, 40 and 48 (three planes). K1's
+               instance for bf16 neuron states is held to its plain version
+               on the five flagship levels with flipped spikes counted, and
+               with none allowed on weights whose conv sums are exact in any
+               order, and timed in turns with K1. The RPN head
                (K1) is held to the plain version with flipped LIF spikes
                counted neuron by neuron, timed level by level and with the
                dense TFLOP/s it reaches; its training instance must give
@@ -113,6 +117,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
                AP 1.0, a checkpoint round trip giving the same detections,
                12 finite stats; prints images/s with loading (host clock)
                and one loader batch's host synchronisations.
+ 10. routes  - detector_apply evaluation with rates on the factory's other
+               heads and states at the flagship width: an ANN RPN head with
+               the spiking box head, the reverse, both ANN, and both spiking
+               with bf16 neuron states, each with exact launch counts
+               (ANN RPN: no K1; ANN box head: no K3 or K4; bf16 states:
+               K1's bf16-state instance x5, K3, no K4), finite, well-formed
+               outputs and images/s.
+ 11. cli     - the port's training CLI and T-sweep CLI on a seeded
+               COCO-format set in a temporary directory (flagship
+               configuration at its bucket): one epoch, a second from
+               --resume, --test-only --load-model of its checkpoint (12 stats, exact launches per
+               evaluation batch), the NOD dump, spike rates, and the sweep
+               over t_det 8, 12, 40 (the scan above 32 steps).
 
 The line before last is a JSON object listing the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -405,6 +422,8 @@ def check_roi_align(dev, g, results):
 # Steps past one 16-bit code plane, held and timed beside T = 12 in the
 # K3, K4 and K9 phases: the kernels run such trains as two GEMM passes.
 LONG_T = (20, 32)
+# K9 takes any T: two code planes at 32, three at 40 and 48.
+K9_LONG_T = (32, 40, 48)
 
 
 def _encoder_fc6_at(x, w6, t):
@@ -1102,31 +1121,102 @@ def check_box_head_fused(dev, g, results):
                       10.0 * steps * r * (2 * rep + 45))
 
     bound = bound_at(t, flips)
-    # The same inputs at T = 32: two passes of each GEMM, the states carried.
-    t_long = LONG_T[-1]
-    held = kc.box_head_fused_hold(x, w6, w7, wc, wb, t_long)
-    print(f"K9 box_head_fused at R = 2000, T = {t_long}: {kc.box_head_fused_line(held)}")
-    if not held["ok"]:
-        _fail(f"K9 disagrees with its plain version at R = 2000, T = {t_long}")
-    args_long = args[:-1] + (t_long,)
-    ms_long = _median_ms(lambda: k9._launch(*args_long), 10)
-    pms_long = _median_ms(lambda: k9.fastrcnn_snn_plain(x, w6, w7, wc, wb, t_long), 3)
-    bound_long = bound_at(t_long, held)
-    print(f"K9 box_head_fused at T = {t_long}: {ms_long:.3f} ms kernel on the periods, "
-          f"{pms_long:.3f} ms plain; bound {bound_long['bound_ms']:.4f} ms by "
-          f"{bound_long['bound_by']} ({ms_long / bound_long['bound_ms']:.1f}x)")
+    # The same inputs at T = 32 (two code planes) and past the reference's
+    # other kernels' 32 steps, T = 40 and 48 (three planes): one GEMM pass
+    # per plane, the states carried from plane to plane.
+    long_t = {}
+    for t_long in K9_LONG_T:
+        held = kc.box_head_fused_hold(x, w6, w7, wc, wb, t_long)
+        print(f"K9 box_head_fused at R = 2000, T = {t_long}: {kc.box_head_fused_line(held)}")
+        if not held["ok"]:
+            _fail(f"K9 disagrees with its plain version at R = 2000, T = {t_long}")
+        args_long = args[:-1] + (t_long,)
+        ms_long = _median_ms(lambda: k9._launch(*args_long), 10)
+        pms_long = _median_ms(lambda: k9.fastrcnn_snn_plain(x, w6, w7, wc, wb, t_long), 3)
+        bound_long = bound_at(t_long, held)
+        print(f"K9 box_head_fused at T = {t_long}: {ms_long:.3f} ms kernel on the periods, "
+              f"{pms_long:.3f} ms plain; bound {bound_long['bound_ms']:.4f} ms by "
+              f"{bound_long['bound_by']} ({ms_long / bound_long['bound_ms']:.1f}x)")
+        long_t[t_long] = dict(max_abs_err=held["err"], ms=ms_long, plain_ms=pms_long,
+                              flips={k: held[k] for k in ("flips6", "n6", "flips7", "n7",
+                                                          "rows7")}, **bound_long)
     _record(results, "box_head_fused", "snn/pallas_kernels.py:212", flips["err"], min(k9_ms),
             pms, bound, turns_ms={"K9": k9_ms, "K3 + K4": two},
             flips={k: flips[k] for k in ("flips6", "n6", "flips7", "n7", "rows7")},
-            long_t={t_long: dict(max_abs_err=held["err"], ms=ms_long, plain_ms=pms_long,
-                                 flips={k: held[k] for k in ("flips6", "n6", "flips7", "n7",
-                                                             "rows7")}, **bound_long)})
+            long_t=long_t)
+
+
+def _grid_weights(shape, g, dev):
+    """Weights on the grid k 2^-10, |k| <= 10 (about the flagship's 0.01
+    scale): every partial sum of spikes times them is a multiple of 2^-10
+    below 2^5, exact in f32, so a conv summed in any order gives the same
+    currents and the LIF recurrence alone decides the spikes."""
+    import torch
+
+    return torch.randint(-10, 11, shape, generator=g, device=dev).float() * 2.0 ** -10
+
+
+def check_rpn_s16(dev, g, results):
+    """K1's instance for bf16 neuron states on the five flagship levels (T =
+    8, 15 readout channels) against its plain version: on random weights
+    with flipped spikes counted (at most 0.1% of the neurons that spiked, as
+    K1), and on weights whose conv sums are exact in any order
+    (:func:`_grid_weights`), where the currents are the plain version's bits
+    and no spike may flip; timed in turns with K1's float32-state
+    instance on the same inputs."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
+
+    bf = torch.bfloat16
+    levels = [(192, 384), (96, 192), (48, 96), (24, 48), (12, 24)]
+    feats = [torch.rand((2, h, w, 256), generator=g, device=dev).mul(2.0).to(bf)
+             for h, w in levels]
+    w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.01
+    w_out = torch.randn((256, 15), generator=g, device=dev) * 0.01
+    w9t, wo = k1._taps_t(w_shared), w_out.to(bf).contiguous()
+
+    def s16(w9, spike_sum=False):
+        return [k1._launch(f, w9, wo, 8, spike_sum, bf16_states=True) for f in feats]
+
+    def plain(w, spike_sum=False):
+        return [k1.rpn_level_plain(f, w, w_out, 8, spike_sum, bf16_states=True) for f in feats]
+
+    got, want = s16(w9t, True), plain(w_shared, True)
+    err, enc, flips, spiked = _hold_rpn_eval(got, want, wo, "on the five flagship levels",
+                                             label="K1 rpn_head_s16")
+    w_grid = _grid_weights((3, 3, 256, 256), g, dev)
+    g_err, _, g_flips, g_spiked = _hold_rpn_eval(
+        s16(k1._taps_t(w_grid), True), plain(w_grid, True), wo,
+        "on weights whose conv sums are exact", label="K1 rpn_head_s16")
+    if g_flips:
+        _fail(f"K1 rpn_head_s16 flips {g_flips} spikes where its currents are the plain "
+              f"version's bits")
+    lif32 = [k1._launch(f, w9t, wo, 8) for f in feats]
+    n16 = sum(int(a[2].sum()) for a in got)
+    n32 = sum(int(a[2].sum()) for a in lif32)
+    print(f"K1 rpn_head_s16: LIF spikes with bf16 states {n16}, with f32 states {n32} "
+          f"({(n16 - n32) / max(n32, 1):+.2e})")
+    k16_ms, k32_ms = _turns(lambda: s16(w9t), lambda: [k1._launch(f, w9t, wo, 8) for f in feats])
+    pms = _median_ms(lambda: plain(w_shared), 5)
+    print(f"K1 rpn_head_s16 against K1 (f32 states) in turns, five levels: bf16 states "
+          f"{k16_ms[0]:.3f} and {k16_ms[1]:.3f} ms, f32 states {k32_ms[0]:.3f} and "
+          f"{k32_ms[1]:.3f} ms")
+    neurons = sum(2 * h * w * 256 * 8 for h, w in levels)
+    _record(results, "rpn_head_s16", "snn/pallas_rpn.py:449", err, min(k16_ms), pms,
+            _bound(_nbytes(*feats, w9t, wo, *[a[0] for a in got], *[a[1] for a in got],
+                           *[a[2] for a in got]),
+                   2.0 * enc * 9 * 256 + sum(2.0 * 2 * h * w * 256 * 15 for h, w in levels),
+                   10.0 * neurons),
+            turns_ms={"bf16 states": k16_ms, "f32 states": k32_ms},
+            flips={"neurons": flips, "spiked": spiked, "exact_currents": g_flips,
+                   "exact_currents_spiked": g_spiked, "exact_currents_err": g_err})
 
 
 # The kernel phases in the order they draw from one generator.
 KERNEL_CHECKS = (check_rpn_head, check_roi_align, check_encoder_fc6, check_box_tail, check_fpn,
                  check_stem, check_rpn_bwd, check_wide_readout, check_rpn_x2,
-                 check_box_head_fused)
+                 check_box_head_fused, check_rpn_s16)
 
 
 def _pre_nms_rows(cfg):
@@ -1150,7 +1240,7 @@ def _check_outputs(out, n, p, d, c, s):
     if (sc < 0).any() or (sc > 1).any() or (out["labels"] >= c).any():
         _fail("scores outside [0, 1] or labels outside the classes")
     for group in ("rpn_rates", "det_rates"):
-        for k, v in out.get(group, {}).items():
+        for k, v in (out.get(group) or {}).items():
             if not torch.isfinite(v).all() or (v < 0).any() or (v > 1).any():
                 _fail(f"{group}/{k}: rates outside [0, 1]")
 
@@ -1225,7 +1315,7 @@ def main_path(dev, iters=3):
           f"plain versions on the GPU {plain_calls}")
     want = {"rpn_head": 5 * iters, "roi_align": iters, "encoder_fc6": iters,
             "box_tail": iters, "fpn_level": 4 * iters, "stem": iters,
-            "rpn_head_bwd": 0, "rpn_head_x2": 0, "box_head_fused": 0}
+            "rpn_head_bwd": 0, "rpn_head_x2": 0, "box_head_fused": 0, "rpn_head_s16": 0}
     if launches != want:
         _fail(f"the main path's launches are not {want}")
     if any(v != 0 for v in plain_calls.values()):
@@ -1301,7 +1391,7 @@ def eval_path(dev, backbone, iters=3):
                     "rpn_head": 0 if paired else levels * iters,
                     "roi_align": iters, "encoder_fc6": iters, "box_tail": iters,
                     "fpn_level": 4 * iters if resnet else 0, "stem": iters if resnet else 0,
-                    "rpn_head_bwd": 0, "box_head_fused": 0}
+                    "rpn_head_bwd": 0, "box_head_fused": 0, "rpn_head_s16": 0}
             if launches != want:
                 _fail(f"the launches of the rates-off path on {backbone} are not {want}")
             if any(v != 0 for v in plain_calls.values()):
@@ -1419,6 +1509,206 @@ def fused_head_path(dev):
     if not (0 < r6.mean().item() < 1 and 0 <= r7.min().item() and r7.max().item() <= 1):
         _fail("fused box head: rates outside [0, 1] or no fc6 spike")
     return launches
+
+
+ROUTES = (  # (rpn_snn, detector_snn, snn_state_dtype): the factory's other heads and states
+    (False, True, "float32"), (True, False, "float32"), (False, False, "float32"),
+    (True, True, None))
+
+
+def _check_ann_outputs(out, n, d):
+    """The ANN box head's evaluation outputs: D rows of foreground
+    detections per image, finite, scores in [0, 1], no pre-NMS per-class
+    outputs."""
+    import torch
+
+    for k, shp in (("boxes", (n, d, 4)), ("scores", (n, d)), ("labels", (n, d)),
+                   ("valid", (n, d))):
+        if tuple(out[k].shape) != shp:
+            _fail(f"{k}: shape {tuple(out[k].shape)} != {shp}")
+    if not (torch.isfinite(out["boxes"]).all() and torch.isfinite(out["objectness"]).all()):
+        _fail("the ANN box head's route gave non-finite values")
+    if (out["scores"] < 0).any() or (out["scores"] > 1).any() or "all_boxes" in out:
+        _fail("the ANN box head's outputs are not well formed")
+
+
+def routes_path(dev, iters=2):
+    """``detector_apply`` evaluation with rates on the factory's other heads
+    and states at the flagship width (2 x 768 x 1536, 9 classes, T_rpn = 8,
+    T_det = 12): an ANN RPN head with the spiking box head, the spiking RPN
+    head with the ANN box head, both ANN, and both spiking with bf16 neuron
+    states. Exact launch counts per batch: the ANN RPN head launches no K1,
+    the ANN box head no K3 or K4 (K2 still pools for it), bf16 states K1's
+    bf16-state instance x5, K3 x1 and no K4; finite, well-formed outputs;
+    host-clock images/s of each. Returns the launches of all of them."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.models.detector import detector_apply
+    from snn_automotive_object_detection_tpu_torch.models.factory import (
+        DetectorConfig, init_params)
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+
+    total = {k: 0 for k in cb.KERNELS}
+    for rpn_snn, det_snn, states in ROUTES:
+        cfg = DetectorConfig(num_classes=9, t_rpn=8, t_det=12, rpn_snn=rpn_snn,
+                             detector_snn=det_snn,
+                             snn_state_dtype=getattr(torch, states) if states else None)
+        name = f"rpn_snn={rpn_snn}, detector_snn={det_snn}, states {states or 'bfloat16'}"
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        n, (h, w) = 2, cfg.bucket
+        g = torch.Generator(device=dev).manual_seed(1)
+        batches = [{"images": torch.rand((n, h, w, 3), generator=g, device=dev),
+                    "image_sizes": torch.tensor([[h, w]] * n, device=dev),
+                    "original_sizes": torch.tensor([[1024, 2048]] * n, device=dev)}
+                   for _ in range(2)]
+        detector_apply(params, batches[0], cfg, collect_rates=True)   # warm-up
+        torch.cuda.synchronize()
+        cb.reset_counts()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            out, _ = detector_apply(params, batches[i % 2], cfg, collect_rates=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches, plain_calls = dict(cb.LAUNCHES), dict(cb.PLAIN_CUDA_CALLS)
+        want = {k: 0 for k in cb.KERNELS}
+        want.update(stem=iters, fpn_level=4 * iters, roi_align=iters)
+        if rpn_snn:
+            want["rpn_head" if states else "rpn_head_s16"] = 5 * iters
+        if det_snn:
+            want["encoder_fc6"] = iters
+            want["box_tail"] = iters if states else 0
+        print(f"route {name}: {iters} batches of {n} x {h} x {w}: launches {launches}; "
+              f"{n * iters / dt:.3f} images/s ({dt / iters * 1000:.1f} ms per batch)")
+        if launches != want:
+            _fail(f"the launches of the route {name} are not {want}")
+        if any(v != 0 for v in plain_calls.values()):
+            _fail(f"a plain version ran on the GPU on the route {name}")
+        if det_snn:
+            _check_outputs(out, n, cfg.rpn.post_nms_top_n_test, cfg.roi.detections_per_img,
+                           cfg.num_classes, _pre_nms_rows(cfg))
+        else:
+            _check_ann_outputs(out, n, cfg.roi.detections_per_img)
+        if (out.get("rpn_rates") is None) == rpn_snn or (out.get("det_rates") is None) == det_snn:
+            _fail(f"the route {name} returned rates of the wrong heads")
+        fg = int((out["valid"] & (out["labels"] > 0)).sum())
+        print(f"route {name}: {fg} FG detections in the last batch, max objectness "
+              f"{out['objectness'].max().item():.4f}")
+        for k, v in launches.items():
+            total[k] += v
+    return total
+
+
+def cli_path(dev, n_images=4, image_hw=(768, 1536)):
+    """The port's CLIs on the card at the flagship configuration (9
+    classes, T_rpn = 8, T_det = 12, batch 2 at the 768 x 1536 bucket): a
+    seeded COCO-format set written to a temporary directory (the images of
+    ``_synthetic_coco`` as ``.npy`` files, the dataset config as JSON, so
+    that no OpenCV or PyYAML is needed); one training epoch, a second one
+    from ``--resume`` of its checkpoint (the weights moved, K7 x5 a step),
+    then ``--test-only --load-model`` of the weights it wrote (12 stats, the
+    launches of its evaluation batches exact: rates-off K6 x1, K5 x4, K1
+    x5, K2, K3, K4 x1 per batch), an ``-ext-prop-det`` dump,
+    ``--extract-spike-rates`` and the T sweep over t_det 8, 12 and 40 (the
+    box head's kernels up to 32 steps, its scan above). Prints host-clock
+    images/s of the evaluation and the seconds of each run. Returns the
+    launches of all of them."""
+    import json
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.cli import test_and_energy_eff as sweep
+    from snn_automotive_object_detection_tpu_torch.cli import train as cli
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+
+    total = {k: 0 for k in cb.KERNELS}
+
+    def run(module, *extra):
+        cb.reset_counts()
+        t0 = time.perf_counter()
+        got = module.main(module.get_args_parser().parse_args(common + list(extra)))
+        torch.cuda.synchronize()
+        launches = dict(cb.LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        if any(v != 0 for v in cb.PLAIN_CUDA_CALLS.values()):
+            _fail(f"a plain version ran on the GPU in the CLI run {extra}")
+        return got, launches, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        coco, pixels = _synthetic_coco(n_images, image_hw, 8, seed=13)
+        for img in coco["images"]:
+            img["file_name"] = f"{img['id']}.npy"
+            np.save(os.path.join(tmp, img["file_name"]), pixels[img["id"]])
+        with open(os.path.join(tmp, "ann.json"), "w") as f:
+            json.dump(coco, f)
+        out = os.path.join(tmp, "out")
+        with open(os.path.join(tmp, "ds.json"), "w") as f:
+            json.dump({"dataset": "cityscapes", "images_dir": tmp,
+                       "ann_file_train": os.path.join(tmp, "ann.json"),
+                       "ann_file_val": os.path.join(tmp, "ann.json"), "out_dir": out,
+                       "num_classes": 9,
+                       "classes": {str(c): f"class{c}" for c in range(9)}}, f)
+        common = ["-d", os.path.join(tmp, "ds.json"), "--rpn-snn", "--detector-snn",
+                  "-t-rpn", "8", "-t-det", "12", "-b", "2", "-j", "4", "--print-freq", "1",
+                  "--device", str(dev)]
+        _, launches, secs = run(cli, "--epochs", "1")
+        for name in ("model_cityscapes_1.pth", "checkpoint.pth", "hyperparams.txt"):
+            if not os.path.exists(os.path.join(out, name)):
+                _fail(f"the training CLI wrote no {name}")
+        print(f"CLI training, one epoch of {n_images // 2} steps and validation: {secs:.1f} s, "
+              f"launches {launches}")
+        first = torch.load(os.path.join(out, "model_cityscapes_1.pth"), map_location=dev,
+                           weights_only=True)["params"]
+        _, launches, secs = run(cli, "--epochs", "2", "--resume",
+                                os.path.join(out, "checkpoint.pth"))
+        state = torch.load(os.path.join(out, "checkpoint.pth"), map_location=dev,
+                           weights_only=True)
+        moved = not torch.equal(first["rpn_head"]["shared_conv"]["w"],
+                                state["params"]["rpn_head"]["shared_conv"]["w"])
+        print(f"CLI --resume to epoch 2: {secs:.1f} s; checkpoint epoch {state['epoch']}, the "
+              f"RPN head's weights moved from epoch 1's {moved}; launches {launches}")
+        if state["epoch"] != 2 or not moved or launches["rpn_head_bwd"] != 5 * (n_images // 2):
+            _fail("the training CLI did not resume for a second epoch of training steps")
+        stats, launches, secs = run(cli, "--test-only", "--load-model",
+                                    os.path.join(out, "model_cityscapes_1.pth"))
+        batches = -(-n_images // 2)
+        per_batch = {"rpn_head": 5, "roi_align": 1, "encoder_fc6": 1, "box_tail": 1,
+                     "fpn_level": 4, "stem": 1}
+        want = {k: batches * per_batch.get(k, 0) for k in cb.KERNELS}
+        print(f"CLI --test-only --load-model: {n_images / secs:.3f} images/s with loading and "
+              f"the evaluator ({secs:.1f} s, host clock); launches {launches}, per batch "
+              f"{ {k: v // batches for k, v in launches.items() if v} }; stats "
+              f"{[round(float(x), 4) for x in stats]}")
+        if launches != want:
+            _fail(f"the CLI evaluation's launches are not {want}")
+        if len(stats) != 12 or not np.isfinite(stats).all():
+            _fail("the CLI evaluation did not give 12 finite stats")
+        _, launches, secs = run(cli, "-ext-prop-det", "test", "-n-img", str(n_images))
+        dump = list(np.load(os.path.join(out, "test_results_per_img_cityscapes.npz"),
+                            allow_pickle=True)["results"])
+        keys = {"image_id", "boxes", "labels", "scores", "all_scores", "all_boxes",
+                "proposals", "objectness"}
+        print(f"CLI -ext-prop-det: {len(dump)} images in {secs:.1f} s; keys {sorted(dump[0])}")
+        if len(dump) != n_images or set(dump[0]) != keys:
+            _fail("the NOD dump is not one entry per image with the JAX CLI's keys")
+        _, launches, secs = run(cli, "--extract-spike-rates", "val")
+        rates = np.load(os.path.join(out, "spike_rates_val_cityscapes.npz"))
+        print(f"CLI --extract-spike-rates: {secs:.1f} s; shared per level "
+              f"{[round(float(x), 4) for x in rates['shared'].mean(axis=1)]}, fc6 "
+              f"{float(rates['fc6'].mean()):.4f}, fc7 {float(rates['fc7'].mean()):.4f}")
+        if rates["shared"].shape != (5, n_images) or not np.isfinite(rates["fc6"]).all():
+            _fail("the spike rates are not 5 levels x the images")
+        for t_det in (8, 12, 40):
+            rows, launches, secs = run(sweep, "-o", "metrics", "-r1", "8", "-r2", "8",
+                                       "-d1", str(t_det), "-d2", str(t_det))
+            box = launches["encoder_fc6"] + launches["box_tail"]
+            print(f"CLI T sweep t_det = {t_det}: {rows} in {secs:.1f} s; K3 + K4 launches {box}")
+            if len(rows) != 1 or rows[0][:2] != [8, t_det] or (box == 0) != (t_det > 32):
+                _fail(f"the T sweep at t_det = {t_det} did not take the route of its steps")
+    return total
 
 
 def _smi():
@@ -1731,7 +2021,7 @@ def train_path(dev, steps=2):
           f"versions on the GPU {plain_calls}")
     want = {"stem": steps, "rpn_head": 5 * steps, "rpn_head_bwd": 5 * steps,
             "roi_align": 0, "encoder_fc6": 0, "box_tail": 0, "fpn_level": 0,
-            "rpn_head_x2": 0, "box_head_fused": 0}
+            "rpn_head_x2": 0, "box_head_fused": 0, "rpn_head_s16": 0}
     if launches != want:
         _fail(f"the training path's launches are not {want}")
     if any(v != 0 for v in plain_calls.values()):
@@ -1803,7 +2093,9 @@ def main() -> int:
                "mobilenet": eval_path(dev, "mobilenet_v3_large_fpn"),
                "fused_box_head": fused_head_path(dev),
                "float32_evaluation": float32_eval_path(dev),
-               "dataset_eval": dataset_eval_path(dev)}
+               "dataset_eval": dataset_eval_path(dev),
+               "routes": routes_path(dev),
+               "cli": cli_path(dev)}
     for r in results:
         r["launches_by_path"] = {k: v[r["name"]] for k, v in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -39,9 +39,10 @@
 //       read zero weights) with an f32 LI epilogue.
 // So the only intermediates in device memory are the codes (two bytes per
 // neuron for up to 16 steps); no current and no spike plane is stored. For
-// 16 < T <= 32 the codes are two planes (steps 0-15 and 16-31) and each
-// GEMM pass runs as two launches (sgemm_host::launch_steps), the second
-// starting from the LIF or LI states the first stored (f32, [2][R][1024]).
+// T > 16 the codes are ceil(T / 16) planes (plane h: steps 16 h .. 16 h +
+// 15) and each GEMM pass runs as one launch per plane
+// (sgemm_host::launch_steps), each starting from the LIF or LI states the
+// one before stored (f32, [2][R][1024]).
 
 #include "spike_gemm.cuh"
 
@@ -50,31 +51,42 @@ namespace {
 constexpr int kRep = 1024;        // representation size
 constexpr int kMaxOut = 64;       // n_cls + n_reg: one n64 column tile
 constexpr int kCodeThreads = 256;
+// Steps of a train: the periods are uint8 with 255 for "never", so a step
+// t + 1 = 255 would read a spike; 254 steps are 16 planes.
+constexpr int kMaxSteps = 254;
+constexpr int kMaxPlanes = (kMaxSteps + sgemm::kMaxT - 1) / sgemm::kMaxT;
 
-// Periods to codes, 8 elements a thread: code[p] has bit k - 1 set for
-// k = p, 2p, ... up to T (period 0 does not occur; it gets no bits). With
-// kPlanes = 2, bits 16-31 go to the second plane, R K elements on.
-template <int kPlanes>
+// Periods to codes, 8 elements a thread: in plane h, code[p] has bit
+// k - 1 - 16 h set for each k = p, 2p, ... up to T within steps 16 h + 1 ..
+// 16 h + 16 (period 0 does not occur; it gets no bits). Plane h lies R K
+// elements after plane h - 1.
 __global__ void __launch_bounds__(kCodeThreads)
 period_code_kernel(const uint8_t* __restrict__ per,   // [R, K]
-                   uint16_t* __restrict__ code,       // [kPlanes, R, K]
+                   uint16_t* __restrict__ code,       // [planes, R, K]
                    int64_t n8, int T) {
-  __shared__ uint32_t table[256];
-  {
+  __shared__ uint16_t table[kMaxPlanes][256];
+  const int n_planes = (T + sgemm::kMaxT - 1) / sgemm::kMaxT;
+  for (int h = 0; h < n_planes; ++h) {
     const int p = threadIdx.x;
     uint32_t bits = 0u;
-    for (int k = p; p > 0 && k <= T; k += p) bits |= 1u << (k - 1);
-    table[p] = bits;
+    for (int k = p; p > 0 && k <= T; k += p) {
+      if (k > 16 * h && k <= 16 * h + 16) bits |= 1u << (k - 1 - 16 * h);
+    }
+    table[h][p] = (uint16_t)bits;
   }
   __syncthreads();
   for (int64_t q = (int64_t)blockIdx.x * kCodeThreads + threadIdx.x; q < n8;
        q += (int64_t)gridDim.x * kCodeThreads) {
     const uint2 raw = reinterpret_cast<const uint2*>(per)[q];
     const uint8_t* p8 = reinterpret_cast<const uint8_t*>(&raw);
-    uint32_t b[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) b[j] = table[p8[j]];
-    sgemm::store_codes8<kPlanes>(b, code + 8 * q, code + 8 * (n8 + q));
+    for (int h = 0; h < n_planes; ++h) {
+      uint4 o;
+      o.x = table[h][p8[0]] | (uint32_t)table[h][p8[1]] << 16;
+      o.y = table[h][p8[2]] | (uint32_t)table[h][p8[3]] << 16;
+      o.z = table[h][p8[4]] | (uint32_t)table[h][p8[5]] << 16;
+      o.w = table[h][p8[6]] | (uint32_t)table[h][p8[7]] << 16;
+      *reinterpret_cast<uint4*>(code + 8 * (h * n8 + q)) = o;
+    }
   }
 }
 
@@ -84,12 +96,12 @@ period_code_kernel(const uint8_t* __restrict__ per,   // [R, K]
 // [1024, 1024] bf16; wro [1024, ceil8(n_out)] bf16 (the cls columns, the
 // bbox columns, then zeros to a multiple of 8 columns: 16-byte rows for
 // TMA); out [R, n_out] f32 final LI membranes; counts [R, 2] int32 fc6 and
-// fc7 spikes per row, zeroed by the caller; code_x [R, D], code6 and code7
-// [R, 1024] uint16 scratch, the encoder's, fc6's and fc7's spike trains
-// (bit t: a spike at step t) when the call returns, each [2, R, ...] for
-// T > 16 (plane h: steps 16 h .. 16 h + 15); state [2, R, 1024] f32
-// scratch for T > 16 (unused otherwise). Requires D % 64 == 0,
-// 1 <= T <= 32, 1 <= n_out <= 64.
+// fc7 spikes per row, zeroed by the caller; code_x [P, R, D], code6 and
+// code7 [P, R, 1024] uint16 scratch with P = ceil(T / 16), the encoder's,
+// fc6's and fc7's spike trains (plane h: steps 16 h .. 16 h + 15, bit t - 16 h
+// a spike at step t) when the call returns; state [2, R, 1024] f32 scratch
+// for T > 16 (unused otherwise). Requires D % 64 == 0, 1 <= T <= 254,
+// 1 <= n_out <= 64.
 extern "C" int box_head_fused_bf16(const void* per, const void* w6, const void* w7,
                                    const void* wro, float* out, int* counts, void* code_x,
                                    void* code6, void* code7, void* state, int R, int D, int T,
@@ -103,18 +115,13 @@ extern "C" int box_head_fused_bf16(const void* per, const void* w6, const void* 
   const int64_t n8 = (int64_t)R * D / 8;
   const int64_t blocks = (n8 + kCodeThreads - 1) / kCodeThreads;
   const int grid = (int)(blocks < 1056 ? blocks : 1056);
-  const uint8_t* p8 = reinterpret_cast<const uint8_t*>(per);
-  uint16_t* cx = reinterpret_cast<uint16_t*>(code_x);
-  uint16_t* c6 = reinterpret_cast<uint16_t*>(code6);
-  uint16_t* c7 = reinterpret_cast<uint16_t*>(code7);
   const int n_w = (n_out + 7) / 8 * 8;
-  if (T <= kMaxT) {
-    period_code_kernel<1><<<grid, kCodeThreads, 0, s>>>(p8, cx, n8, T);
-  } else {
-    period_code_kernel<2><<<grid, kCodeThreads, 0, s>>>(p8, cx, n8, T);
-  }
+  period_code_kernel<<<grid, kCodeThreads, 0, s>>>(reinterpret_cast<const uint8_t*>(per),
+                                                   reinterpret_cast<uint16_t*>(code_x), n8, T);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  uint16_t* c6 = reinterpret_cast<uint16_t*>(code6);
+  uint16_t* c7 = reinterpret_cast<uint16_t*>(code7);
   float* st = reinterpret_cast<float*>(state);
   int code = sgemm_host::launch_steps<128, 8, LifF32CodesT>(
       w6, kRep, code_x, R, D, T, CodesParams{c6, counts, kRep, st}, s);

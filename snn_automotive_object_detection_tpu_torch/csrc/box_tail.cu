@@ -39,6 +39,9 @@
 
 namespace {
 
+// A code pass packs a train of up to 32 steps into two planes.
+constexpr int kMaxSteps = 2 * sgemm::kMaxT;
+
 using sgemm::bf16;
 
 constexpr int kLifThreads = 128;

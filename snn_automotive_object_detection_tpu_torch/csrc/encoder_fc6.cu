@@ -30,6 +30,9 @@
 
 namespace {
 
+// A code pass packs a train of up to 32 steps into two planes.
+constexpr int kMaxSteps = 2 * sgemm::kMaxT;
+
 using sgemm::bf16;
 
 constexpr int kCodeThreads = 256;
@@ -88,7 +91,7 @@ encoder_code_kernel(const bf16* __restrict__ x,       // [R, D]
 extern "C" int encoder_fc6_bf16(const void* x, const void* w6, const float* thr, float* out,
                                 int* counts, void* codes, int R, int D, int rep, int T,
                                 void* stream) {
-  if (R <= 0 || D % sgemm::kK != 0 || rep % 128 != 0 || T < 1 || T > sgemm::kMaxSteps) {
+  if (R <= 0 || D % sgemm::kK != 0 || rep % 128 != 0 || T < 1 || T > kMaxSteps) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;

@@ -51,6 +51,15 @@
 // channels). Spike counts are exact 64-bit integers; the encoder's are
 // floor(T / p) per element.
 //
+// bf16-state instance (template flag kS16, C entry rpn_level_s16_bf16): the
+// evaluation instance with the LIF v and i rounded to bf16 after every
+// elementwise operation and the threshold rounded to bf16
+// (lif_element_s16), as the reference's kernel runs with bf16 LIF states
+// (_run_level with lif_dtype = bf16); the encoder periods, the currents
+// rounded to bf16, the f32 LI-weighted spike sum and the bf16 readout are
+// the evaluation instance's. A simple instance: the rounding adds a few
+// conversions per neuron and step to the recurrence.
+//
 // Training instance (template flag kSave, C entry rpn_level_save_bf16):
 // the same code, which also stores what the backward (rpn_head_bwd.cu)
 // needs in place of a replay of the conv: each chunk's staged bf16
@@ -134,7 +143,7 @@ dim3 cluster_dims() {
   return dim3(1, kCl < 2 ? kCl : 2, kCl < 2 ? 1 : kCl / 2);
 }
 
-template <bool kSave, int kCl>
+template <bool kSave, int kCl, bool kS16>
 __global__ void __launch_bounds__(kThreads, 1)
 rpn_level_kernel(const __grid_constant__ CUtensorMap map_w9,  // w9 [9 * 256 out, 256 in]
                  const bf16* __restrict__ feat,     // [N, H, W, C]
@@ -333,7 +342,8 @@ rpn_level_kernel(const __grid_constant__ CUtensorMap map_w9,  // w9 [9 * 256 out
         for (int k = 0; k < kPx; ++k) {
           float vd;
           const float conv = __bfloat162float(stage[(sl * kPx + k) * kLdc + tid]);
-          const bool s = rpn::lif_element(conv, lit, v[k], cu[k], ss[k], vd);
+          const bool s = kS16 ? rpn::lif_element_s16(conv, lit, v[k], cu[k], ss[k], vd)
+                              : rpn::lif_element(conv, lit, v[k], cu[k], ss[k], vd);
           if (s && x0 + k < W && y < H) ++lif_cnt;
         }
       }
@@ -381,7 +391,7 @@ dim3 level_grid(int N, int H, int W) {
   return dim3((W + kPx - 1) / kPx, (H + cluster.y - 1) / cluster.y * cluster.y, N);
 }
 
-template <bool kSave, int kCl>
+template <bool kSave, int kCl, bool kS16 = false>
 int launch_level(const void* feat, const void* w9_t, const void* wout, const float* consts,
                  float* out, void* counts, float* ssum, void* cur, void* per, int N, int H,
                  int W, int T, int n_out, void* stream) {
@@ -397,7 +407,7 @@ int launch_level(const void* feat, const void* w9_t, const void* wout, const flo
   if (!hopper_host::bf16_map(&map, w9_t, 2, dims, box, CU_TENSOR_MAP_SWIZZLE_128B)) {
     return (int)cudaErrorInvalidValue;
   }
-  auto kernel = rpn_level_kernel<kSave, kCl>;
+  auto kernel = rpn_level_kernel<kSave, kCl, kS16>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
@@ -423,6 +433,16 @@ extern "C" int rpn_level_bf16(const void* feat, const void* w9_t, const void* wo
                               int N, int H, int W, int T, int n_out, void* stream) {
   return launch_level<false, kCluster>(feat, w9_t, wout, consts, out, counts, ssum, nullptr,
                                        nullptr, N, H, W, T, n_out, stream);
+}
+
+// The instance for bf16 neuron states (evaluation): the arguments of
+// rpn_level_bf16; the LIF v and i are rounded to bf16 after every
+// elementwise operation and the threshold is bf16(0.1) (lif_element_s16).
+extern "C" int rpn_level_s16_bf16(const void* feat, const void* w9_t, const void* wout,
+                                  const float* consts, float* out, void* counts, float* ssum,
+                                  int N, int H, int W, int T, int n_out, void* stream) {
+  return launch_level<false, kCluster, true>(feat, w9_t, wout, consts, out, counts, ssum,
+                                             nullptr, nullptr, N, H, W, T, n_out, stream);
 }
 
 // The training instance: the same arguments (ssum required), and in
@@ -459,7 +479,8 @@ extern "C" int rpn_level_launch_dims(int pair, int N, int H, int W, int* dims) {
 // How many clusters of the evaluation instance (pair = 0) or of the pair
 // instance (pair = 1) the card holds at once, into *clusters.
 extern "C" int rpn_level_max_clusters(int pair, int* clusters) {
-  auto kernel = pair ? rpn_level_kernel<false, kPairCluster> : rpn_level_kernel<false, kCluster>;
+  auto kernel = pair ? rpn_level_kernel<false, kPairCluster, false>
+                     : rpn_level_kernel<false, kCluster, false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;

@@ -2,7 +2,7 @@
 // (rpn_head.cu: K1 and its pair instance K8) and the backward
 // (rpn_head_bwd.cu, K7): the head's limits, step_mask, and lif_element, the
 // LIF update of one neuron in the order every kernel and plain version
-// runs it.
+// runs it (lif_element_s16: the same with bf16 states).
 
 #pragma once
 
@@ -34,6 +34,34 @@ __device__ __forceinline__ bool lif_element(float conv, float lit, float& v, flo
   const bool s = (vd - 0.1f) > 0.0f;
   v = s ? 0.0f : vd;
   cu = id + cur;
+  ss = ss + (s ? lit : 0.0f);
+  return s;
+}
+
+// bf16 rounding of an f32 value, back in f32.
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The constants of lif_element as bf16 values: the reference's kernel with
+// bf16 LIF states multiplies bf16 states by 0.1 and 0.2 as bf16 scalars and
+// rounds its threshold to the state dtype.
+constexpr float kTauMem16 = 0.10009765625f;   // bf16(0.1)
+constexpr float kTauSyn16 = 0.2001953125f;    // bf16(0.2)
+constexpr float kVth16 = 0.10009765625f;      // bf16(0.1)
+
+// lif_element with bf16 states (the K1 instance for bf16 neuron states): v
+// and cu hold bf16 values, and every elementwise result is rounded to bf16,
+// as an f32 operation on bf16 values rounded once, in the order of
+// lif_element.
+__device__ __forceinline__ bool lif_element_s16(float conv, float lit, float& v, float& cu,
+                                                float& ss, float& vd) {
+  const float cur = bf16r(conv);
+  vd = bf16r(v + bf16r(kTauMem16 * bf16r(cu - v)));
+  const float id = bf16r(cu - bf16r(kTauSyn16 * cu));
+  const bool s = (vd - kVth16) > 0.0f;
+  v = s ? 0.0f : vd;
+  cu = bf16r(id + cur);
   ss = ss + (s ? lit : 0.0f);
   return s;
 }

@@ -9,17 +9,18 @@
 // code[r, k], written once by the pass before (encoder periods, or a LIF
 // scan). The spike tensor itself is never materialised.
 //
-// Up to 32 steps: a spike train of T > 16 steps is two uint16 planes,
+// Any T: a spike train of T > 16 steps is ceil(T / 16) uint16 planes,
 // code[h][r, k] holding steps 16 h .. 16 h + 15 (launch_steps below), and
-// the GEMM runs once per plane, the second over the weights again. One
+// the GEMM runs once per plane, each over the weights again. One
 // plane is exactly the 16 steps that a block's two consumer warpgroups hold
 // in their accumulators (2 m-tiles x 4 steps each), so the ring, the
 // mainloop, the registers and the shared memory of the T <= 16 instances
 // stay as they are; a 32-bit code in the ring would need 4 m-tiles per
 // warpgroup (256 f32 accumulators a thread at kN = 128, more than the 232
-// registers a consumer thread has) or narrower column tiles. The price is a second stream of the weights (from L2) and,
-// for the epilogues that scan over t, the neuron states of the first half
-// carried to the second through device memory (Carry below).
+// registers a consumer thread has) or narrower column tiles. The price is
+// one stream of the weights (from L2) per plane and, for the epilogues
+// that scan over t, the neuron states of each plane carried to the next
+// through device memory (Carry below).
 //
 // Tile. A block owns 16 RoI rows x all T steps (the GEMM rows) x kN output
 // columns. Its GEMM rows are m64 tiles of 4 steps x 16 RoI rows: m-tile j
@@ -67,7 +68,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 16;        // RoI rows per block
 constexpr int kMaxT = 16;        // steps of one GEMM pass, bits of a code plane
-constexpr int kMaxSteps = 32;    // steps in two passes, one per code plane
 constexpr int kK = 64;           // k per stage: 128-byte rows of bf16 weights and uint16 codes
 constexpr int kThreads = 384;    // consumer warpgroups 0 and 1, producer 2
 constexpr int kConsumers = 256;
@@ -75,32 +75,40 @@ constexpr int kCluster = 2;      // blocks (consecutive row tiles) sharing each 
 constexpr int kCodeBytes = kRows * kK * 2;
 
 // Which steps an epilogue that scans over t runs: all of them (T <= 16), or
-// the first 16 of a longer train, ending by storing its neuron states, or
-// the rest, starting from those states.
-enum Carry { kWhole, kFirstHalf, kSecondHalf };
+// one code plane of a longer train: the first, ending by storing its neuron
+// states; a middle one, starting from the stored states and storing them
+// again; the last, starting from them.
+enum Carry { kWhole, kFirst, kMiddle, kLast };
+
+__host__ __device__ constexpr bool loads_state(int carry) {
+  return carry == kMiddle || carry == kLast;
+}
+__host__ __device__ constexpr bool stores_state(int carry) {
+  return carry == kFirst || carry == kMiddle;
+}
 
 // The parameters of the epilogues that emit spike codes (LifCodesT,
-// LifF32CodesT): the codes [R, n_total] uint16, the spike counts and, in
-// halves, the (v, i) states [2][R][n_total] f32 carried between them. The
-// second half writes the second code plane.
+// LifF32CodesT): the codes [R, n_total] uint16, the spike counts and, over
+// planes, the (v, i) states [2][R][n_total] f32 carried between them. The
+// pass of plane h writes code plane h.
 struct CodesParams {
   uint16_t* code;
   int* counts;
   int n_total;
   float* state;
-  CodesParams second_half(int R) const {
-    return {code + (int64_t)R * n_total, counts, n_total, state};
+  CodesParams at_plane(int h, int R) const {
+    return {code + (int64_t)h * R * n_total, counts, n_total, state};
   }
 };
 
 // The parameters of the LI readouts (LiOutT, LiOutF32T): the final
-// membranes out [R, n_out]. In halves, the first leaves its membranes in
-// out and its currents in state [R, n_out], and the second starts there.
+// membranes out [R, n_out]. Over planes, each pass leaves its membranes in
+// out and its currents in state [R, n_out], and the next starts there.
 struct OutParams {
   float* out;
   int n_out;
   float* state;
-  OutParams second_half(int) const { return *this; }
+  OutParams at_plane(int, int) const { return *this; }
 };
 
 // Stores the spike codes c of 8 consecutive elements (bit t: a spike at
@@ -349,12 +357,14 @@ __device__ __forceinline__ void store_state(const float* v, const float* i, floa
   }
 }
 
-// K3: the f32 sums to out [T, R, n_total]; the second half's to out[16:].
+// K3: the f32 sums to out [T, R, n_total]; plane h's to out[16 h:].
 struct StoreF32 {
   struct Params {
     float* out;
     int n_total;
-    Params second_half(int R) const { return {out + (int64_t)kMaxT * R * n_total, n_total}; }
+    Params at_plane(int h, int R) const {
+      return {out + (int64_t)h * kMaxT * R * n_total, n_total};
+    }
   };
   static constexpr int kStageBytes = 0;
   static constexpr bool kInRing = false;
@@ -414,7 +424,7 @@ struct LifCodesT {
     const int row = c.row0 + r;
     const int64_t at = (int64_t)row * p.n_total + c.col0 + c8;
     const int64_t plane = (int64_t)c.R * p.n_total;
-    if constexpr (kCarry == kSecondHalf) {
+    if constexpr (loads_state(kCarry)) {
       if (row < c.R) load_state<8>(v, i, p.state + at, p.state + plane + at);
     }
     for (int t = 0; t < c.T; ++t) {
@@ -434,7 +444,7 @@ struct LifCodesT {
       o.z = code[4] | code[5] << 16;
       o.w = code[6] | code[7] << 16;
       *reinterpret_cast<uint4*>(p.code + at) = o;
-      if constexpr (kCarry == kFirstHalf) store_state<8>(v, i, p.state + at, p.state + plane + at);
+      if constexpr (stores_state(kCarry)) store_state<8>(v, i, p.state + at, p.state + plane + at);
     }
     for (int off = 8; off > 0; off >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
     if ((tid & 15) == 0 && row < c.R && cnt != 0) atomicAdd(p.counts + 2 * row + 1, cnt);
@@ -464,7 +474,7 @@ struct LiOutT {
       if (row >= c.R || col >= p.n_out) continue;
       const int64_t at = (int64_t)row * p.n_out + col;
       float v = 0.0f, i = 0.0f;
-      if constexpr (kCarry == kSecondHalf) {
+      if constexpr (loads_state(kCarry)) {
         v = p.out[at];
         i = p.state[at];
       }
@@ -475,7 +485,7 @@ struct LiOutT {
         i = ij + (-0.2f) * ij;
       }
       p.out[at] = v;
-      if constexpr (kCarry == kFirstHalf) p.state[at] = i;
+      if constexpr (stores_state(kCarry)) p.state[at] = i;
     }
   }
 };
@@ -542,7 +552,7 @@ struct LifF32CodesT {
     const int row = c.row0 + r;
     const int64_t at = (int64_t)row * p.n_total + c.col0 + c4;
     const int64_t plane = (int64_t)c.R * p.n_total;
-    if constexpr (kCarry == kSecondHalf) {
+    if constexpr (loads_state(kCarry)) {
       if (row < c.R) {
         load_state<4>(v, i, p.state + at, p.state + plane + at);
         load_state<4>(v + 4, i + 4, p.state + at + 64, p.state + plane + at + 64);
@@ -564,7 +574,7 @@ struct LifF32CodesT {
       *reinterpret_cast<uint2*>(o) = make_uint2(code[0] | code[1] << 16, code[2] | code[3] << 16);
       *reinterpret_cast<uint2*>(o + 64) =
           make_uint2(code[4] | code[5] << 16, code[6] | code[7] << 16);
-      if constexpr (kCarry == kFirstHalf) {
+      if constexpr (stores_state(kCarry)) {
         store_state<4>(v, i, p.state + at, p.state + plane + at);
         store_state<4>(v + 4, i + 4, p.state + at + 64, p.state + plane + at + 64);
       }
@@ -597,7 +607,7 @@ struct LiOutF32T {
       if (row >= c.R || col >= p.n_out) continue;
       const int64_t at = (int64_t)row * p.n_out + col;
       float v = 0.0f, i = 0.0f;
-      if constexpr (kCarry == kSecondHalf) {
+      if constexpr (loads_state(kCarry)) {
         v = p.out[at];
         i = p.state[at];
       }
@@ -607,7 +617,7 @@ struct LiOutF32T {
         i = ij + (-0.2f) * ij;
       }
       p.out[at] = v;
-      if constexpr (kCarry == kFirstHalf) p.state[at] = i;
+      if constexpr (stores_state(kCarry)) p.state[at] = i;
     }
   }
 };
@@ -669,24 +679,30 @@ int launch(const void* w, int n_total, const void* codes, int R, int K, int T,
   return (int)cudaGetLastError();
 }
 
-// Up to 32 steps through the epilogue EpiT: for T <= 16 one launch of
-// EpiT<kWhole> on codes [R, K]. Above, the codes are two planes [2][R][K]
+// Any T through the epilogue EpiT: for T <= 16 one launch of EpiT<kWhole>
+// on codes [R, K]. Above, the codes are ceil(T / 16) planes [P][R][K]
 // uint16, plane h the steps 16 h .. 16 h + 15, and the GEMM runs once per
-// plane: EpiT<kFirstHalf> on steps 0-15, ending by storing what the second
-// needs, then EpiT<kSecondHalf> on steps 16 .. T - 1 with
-// p.second_half(R), which points its outputs at its half.
+// plane, on p.at_plane(h, R), which points its outputs at that plane:
+// EpiT<kFirst> on steps 0-15, ending by storing what the next needs, then
+// EpiT<kMiddle> on each full plane after it, then EpiT<kLast> on the rest.
 template <int kN, int kStages, template <int> class EpiT>
 int launch_steps(const void* w, int n_total, const void* codes, int R, int K, int T,
                  const typename EpiT<sgemm::kWhole>::Params& p, cudaStream_t stream) {
   using namespace sgemm;
   if (T <= kMaxT) return launch<kN, kStages, EpiT<kWhole>>(w, n_total, codes, R, K, T, p, stream);
-  if (T > kMaxSteps) return (int)cudaErrorInvalidValue;
-  const int code =
-      launch<kN, kStages, EpiT<kFirstHalf>>(w, n_total, codes, R, K, kMaxT, p, stream);
-  if (code != 0) return code;
-  const void* upper = static_cast<const uint16_t*>(codes) + (int64_t)R * K;
-  return launch<kN, kStages, EpiT<kSecondHalf>>(w, n_total, upper, R, K, T - kMaxT,
-                                                p.second_half(R), stream);
+  const int n_planes = (T + kMaxT - 1) / kMaxT;
+  for (int h = 0; h < n_planes; ++h) {
+    const void* plane = static_cast<const uint16_t*>(codes) + (int64_t)h * R * K;
+    const int steps = T - h * kMaxT < kMaxT ? T - h * kMaxT : kMaxT;
+    const auto ph = p.at_plane(h, R);
+    const int code =
+        h == 0 ? launch<kN, kStages, EpiT<kFirst>>(w, n_total, plane, R, K, steps, ph, stream)
+        : h + 1 < n_planes
+            ? launch<kN, kStages, EpiT<kMiddle>>(w, n_total, plane, R, K, steps, ph, stream)
+            : launch<kN, kStages, EpiT<kLast>>(w, n_total, plane, R, K, steps, ph, stream);
+    if (code != 0) return code;
+  }
+  return 0;
 }
 
 }  // namespace sgemm_host

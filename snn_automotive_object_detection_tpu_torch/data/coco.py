@@ -173,10 +173,14 @@ class CocoDataset:
         return int(h), int(w)
 
     def load_image(self, image_id) -> np.ndarray:
-        """The image's pixels, uint8 RGB [H, W, 3], decoded with ``cv2``."""
+        """The image's pixels, uint8 RGB [H, W, 3]: a ``.npy`` file as numpy
+        saved it, any other file decoded with ``cv2``."""
+        path = self.image_path(image_id)
+        if path.endswith(".npy"):
+            return np.load(path)
         import cv2
 
-        img = cv2.imread(self.image_path(image_id), cv2.IMREAD_COLOR)
+        img = cv2.imread(path, cv2.IMREAD_COLOR)
         if img is None:
             raise FileNotFoundError(self.image_path(image_id))
         return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)

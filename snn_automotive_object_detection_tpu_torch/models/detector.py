@@ -13,7 +13,12 @@ hand-written kernels (K1 RPN head, or K8 pair by pair when no rates are
 collected and ``snn/cuda_rpn.PAIR_IMAGES`` is on; K2 RoIAlign, K3
 encoder+fc6, K4 box tail); on the CPU they run as the kernels' plain
 PyTorch versions. With float32 they run as the reference's own scans and
-the gather RoIAlign, on either device, and launch no kernel.
+the gather RoIAlign, on either device, and launch no kernel. With bf16
+neuron states (``snn_state_dtype=None``) the RPN head is K1's instance for
+bf16 states and the box tail a scan with bf16 states after K3. ANN heads
+(``rpn_snn``/``detector_snn`` off) are plain convolutions and linears;
+the ANN box head takes the standard postprocess, the spiking one the
+open-set postprocess (:func:`make_head_applies` states the whole rule).
 
 The compute dtype picks the backbone's route, by the reference's rule (its
 bf16 runs take the fused kernels, its float32 runs keep the unfused chain):
@@ -69,38 +74,65 @@ def _anchors(shapes, image_size, spec, device):
 def make_head_applies(config, params, collect_rates: bool, training: bool = False):
     """The RPN head's and the box head's apply functions for this call.
 
-    The device, the dtype, ``training`` and the trainable backbone stages
-    pick the route; there is no flag. The kernels take bf16 only, as the
-    reference gates its own on bf16. Outside training, with bf16, both
-    heads run on their kernels (plain versions on the CPU); with float32
-    both are the reference's scans (step encoder, LI readout at every
-    step), on either device. In training the box head is the scan under
-    autograd, and the RPN head is K1's training instance with the
-    backward kernel as its gradient when the compute dtype is bf16, the
-    backbone is frozen (that gradient is for the weights only) and no rates
-    are collected; otherwise it is the scan too. A box head of more steps
-    than its kernels take (``t_det`` > 32) is the scan on either device, as
-    the reference's gate sends such a ``t_det`` to its XLA scan.
+    The device, the dtype, the head switches, the state dtype, ``training``
+    and the trainable backbone stages pick the route; there is no flag.
+
+    ANN heads (``rpn_snn`` / ``detector_snn`` off) are convolutions and
+    linears with biases on either device (the JAX package leaves them to
+    XLA). For the spiking heads the kernels take bf16 only, as the
+    reference gates its own on bf16:
+
+      * float32 compute: the reference's scans (step encoder, LI readout at
+        every step), on either device, in every mode.
+      * bf16 with float32 states (the default), outside training: the RPN
+        head on K1 (K8 where the pairing switch pairs a level), the box
+        head on K3 then K4.
+      * bf16 states (``snn_state_dtype=None``), outside training: the RPN
+        head on K1's instance for bf16 states, the box head on K3 then
+        :func:`heads.box_tail_scan` with bf16 states, as the reference runs
+        its kernels there. K8 and K1's training instance have no bf16-state
+        instance yet, so where the pairing switch would pair a level, and in
+        training, the RPN head is the scan with bf16 states.
+      * training: the box head is the scan under autograd; the RPN head is
+        K1's training instance with K7 as its backward for bf16 compute,
+        float32 states, a frozen backbone (that gradient is for the weights
+        only) and no rate collection; otherwise the scan too.
+
+    A box head of more steps than K3 and K4 take (``t_det`` > 32) is the
+    scan on either device, as the reference's gate sends such a ``t_det`` to
+    its XLA scan. ``RoIAlign`` is chosen by the features' dtype alone
+    (``roi_heads.roi_heads_forward``).
     """
-    cd = config.compute_dtype
+    cd, sd = config.compute_dtype, config.state_dtype
     kernels = cd == torch.bfloat16
-    kernel_rpn_train = (kernels and not collect_rates
+    state16 = sd == torch.bfloat16
+    kernel_rpn_train = (kernels and not state16 and not collect_rates
                         and config.backbone_trainable_stages == 0)
 
     def rpn_head_apply(features):
-        if not training and kernels:
+        if not config.rpn_snn:
+            return heads.rpn_head_ann_apply(params["rpn_head"], features, cd)
+        if (not training and kernels
+                and not (state16 and heads.pairs(features, collect_rates))):
             return heads.rpn_head_snn_apply(params["rpn_head"], features,
-                                            config.t_rpn, collect_rates, cd)
+                                            config.t_rpn, collect_rates, cd, state16)
         if training and kernel_rpn_train:
             return heads.rpn_head_snn_train_apply(params["rpn_head"], features,
                                                   config.t_rpn, cd)
         return heads.rpn_head_snn_scan_apply(params["rpn_head"], features,
-                                             config.t_rpn, collect_rates, cd)
+                                             config.t_rpn, collect_rates, cd,
+                                             state_dtype=sd)
 
     def box_head_apply(flat):
-        kernel = kernels and not training and config.t_det <= BOX_KERNEL_MAX_T
-        apply = heads.fastrcnn_snn_apply if kernel else heads.fastrcnn_snn_scan_apply
-        return apply(params["box_head"], flat, config.t_det, collect_rates, cd)
+        if not config.detector_snn:
+            rep = heads.two_mlp_head_apply(params["box_head"], flat, cd)
+            cls, reg = heads.fastrcnn_predictor_apply(params["box_predictor"], rep)
+            return cls, reg, None
+        if kernels and not training and config.t_det <= BOX_KERNEL_MAX_T:
+            return heads.fastrcnn_snn_apply(params["box_head"], flat, config.t_det,
+                                            collect_rates, cd, sd)
+        return heads.fastrcnn_snn_scan_apply(params["box_head"], flat, config.t_det,
+                                             collect_rates, cd, state_dtype=sd)
 
     return rpn_head_apply, box_head_apply
 
@@ -123,8 +155,10 @@ def detector_apply(params: Dict, batch: Dict[str, torch.Tensor], config,
     slots), proposals [N, S, 4] and objectness [N, S] (pre-NMS), all_scores
     [N, P, C], all_boxes [N, P, C, 4], with collect_rates rpn_rates
     {"encoder", "shared": [L, N]} and det_rates {"encoder", "fc6", "fc7":
-    [N * P]}; losses is empty. In training: detections holds the rates
-    only (when collected) and losses the four of loss_objectness,
+    [N * P]}; losses is empty. The ANN box head (``detector_snn`` off)
+    gives D rows of foreground detections and no all_scores or all_boxes,
+    an ANN head None for its rates. In training: detections holds the
+    rates only (when collected) and losses the four of loss_objectness,
     loss_rpn_box_reg, loss_classifier and loss_box_reg.
     """
     if training:
@@ -174,7 +208,7 @@ def _detector_apply(params, batch, config, training, generator, collect_rates,
     det, roi_losses = roi_mod.roi_heads_forward(
         box_head_apply, feats[:-1], proposals["boxes"], proposals["valid"],
         img_sizes, (hb, wb), config.roi, training, batch.get("targets"),
-        generator, draws.get("roi"))
+        generator, draws.get("roi"), open_set=config.detector_snn)
     losses = {**rpn_losses, **roi_losses}
 
     if training:
@@ -193,9 +227,13 @@ def _detector_apply(params, batch, config, training, generator, collect_rates,
         "proposals": rescale_boxes(proposals["pre_nms_proposals"], img_sizes,
                                    orig_sizes),
         "objectness": proposals["pre_nms_objectness"],
-        "all_scores": det["all_scores"],
-        "all_boxes": rescale_boxes(det["all_boxes"], img_sizes, orig_sizes),
     }
+    # The ANN detector's postprocess has no per-class pre-NMS outputs, and
+    # its heads no rates: the keys are left out, or None, as the JAX
+    # package's det.get gives them.
+    if "all_boxes" in det:
+        out["all_scores"] = det["all_scores"]
+        out["all_boxes"] = rescale_boxes(det["all_boxes"], img_sizes, orig_sizes)
     if collect_rates:
         out["rpn_rates"] = proposals["rates"]
         out["det_rates"] = det["rates"]

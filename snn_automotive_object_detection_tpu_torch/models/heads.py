@@ -1,5 +1,5 @@
-"""Spiking RPN head and spiking box head: on the CUDA kernels, and as
-differentiable step-by-step scans.
+"""RPN and box heads: the spiking ones on the CUDA kernels and as
+differentiable step-by-step scans, and the ANN ones.
 
 Port of the SNN heads of ``snn_automotive_object_detection_tpu/models/
 heads.py``. At inference, as the reference runs them with its kernels on:
@@ -27,9 +27,18 @@ For training:
     for rate collection, and evaluation for float32, on either device;
     they are no kernel's plain version.
 
-Neuron states are float32; matmul operands are in the compute dtype.
-Rates follow the reference convention: mean spikes per neuron per step,
-one value per image and level (RPN) or per RoI (box head).
+The ANN heads (reference rpn.py:203-245, faster_rcnn.py:320-411: a 3x3
+conv with ReLU and two 1x1 convs; TwoMLPHead and FastRCNNPredictor) are
+plain convolutions and linears with biases, as the JAX package leaves them
+to XLA; no kernel.
+
+Neuron states are float32 by default; with bf16 states (the reference's
+--no-amp) the RPN head at inference is K1's instance for bf16 states, and
+the box head K3 followed by the tail as a scan with bf16 states
+(:func:`box_tail_scan`), as the reference runs its tail with bf16 states.
+Matmul operands are in the compute dtype. Rates follow the reference
+convention: mean spikes per neuron per step, one value per image and level
+(RPN) or per RoI (box head).
 """
 
 from __future__ import annotations
@@ -56,7 +65,7 @@ def _fused_readout(params: Dict):
 
 def rpn_head_snn_apply(params: Dict, features: List[torch.Tensor],
                        num_steps: int, collect_rates: bool = False,
-                       compute_dtype=torch.bfloat16):
+                       compute_dtype=torch.bfloat16, bf16_states: bool = False):
     """features: list of [N, H_l, W_l, C]. Returns (objectness list
     [N, H_l, W_l, A] f32, bbox list [N, H_l, W_l, 4A] f32, rates): rates is
     None or {"encoder", "shared"}: [L, N].
@@ -64,18 +73,22 @@ def rpn_head_snn_apply(params: Dict, features: List[torch.Tensor],
     A level takes the paired kernel (K8), which keeps no spike counts, when
     ``cuda_rpn.PAIR_IMAGES`` is on, no rates are collected and the level can
     pair (an even batch); else the per-image kernel (K1). Per image the two
-    give the same bits."""
+    give the same bits. ``bf16_states`` takes K1's instance for bf16 neuron
+    states on every level; it has no pair instance, so the caller must not
+    ask for it where a level would pair (:func:`pairs`)."""
     w_out, a = _fused_readout(params)
     w_shared = params["shared_conv"]["w"]
     logits, bbox_reg, enc_rates, shared_rates = [], [], [], []
     for feat in features:
         x = feat.to(compute_dtype).contiguous()
         _, h, w, c = x.shape
-        if (cuda_rpn.PAIR_IMAGES and not collect_rates
-                and cuda_rpn.x2_feasible(x.shape)):
+        if pairs([x], collect_rates):
+            if bf16_states:
+                raise ValueError("K8 has no instance for bf16 neuron states")
             out = cuda_rpn.rpn_level_x2(x, w_shared, w_out, num_steps)
         else:
-            out, enc, lif = cuda_rpn.rpn_level(x, w_shared, w_out, num_steps)
+            out, enc, lif = cuda_rpn.rpn_level(x, w_shared, w_out, num_steps,
+                                               bf16_states=bf16_states)
             denom = float(num_steps * h * w * c)
             enc_rates.append(enc.double() / denom)
             shared_rates.append(lif.double() / denom)
@@ -86,6 +99,13 @@ def rpn_head_snn_apply(params: Dict, features: List[torch.Tensor],
         rates = {"encoder": torch.stack(enc_rates).float(),
                  "shared": torch.stack(shared_rates).float()}
     return logits, bbox_reg, rates
+
+
+def pairs(features: List[torch.Tensor], collect_rates: bool) -> bool:
+    """Whether :func:`rpn_head_snn_apply` would take the paired kernel (K8)
+    for any of these levels."""
+    return (cuda_rpn.PAIR_IMAGES and not collect_rates
+            and any(cuda_rpn.x2_feasible(f.shape) for f in features))
 
 
 def rpn_head_snn_train_apply(params: Dict, features: List[torch.Tensor],
@@ -202,22 +222,93 @@ def fastrcnn_snn_scan_apply(params: Dict, x: torch.Tensor, num_steps: int,
     return li_c.v.float(), li_b.v.float(), rates
 
 
+def box_tail_scan(cur6: torch.Tensor, w7: torch.Tensor, wc: torch.Tensor, wb: torch.Tensor,
+                  compute_dtype=torch.bfloat16, state_dtype=torch.bfloat16):
+    """The box head's LIF6, fc7, LIF7 and LI readouts step by step over the
+    fc6 currents cur6 [T, R, rep] (in the compute dtype), neuron states in
+    ``state_dtype``: the JAX package's ``_fastrcnn_snn_from_cur6``, which
+    the reference's kernel route runs after its fc6 kernel where the states
+    are bf16. Returns (class logits [R, C] f32, box deltas [R, B] f32, fc6
+    and fc7 spike counts [R] f32)."""
+    cd, sd = compute_dtype, state_dtype
+    _, r, rep = cur6.shape
+    dev = cur6.device
+    l6 = snnf.zeros_lif_state((r, rep), sd, dev)
+    l7 = snnf.zeros_lif_state((r, rep), sd, dev)
+    li_c = snnf.zeros_li_state((r, wc.shape[1]), sd, dev)
+    li_b = snnf.zeros_li_state((r, wb.shape[1]), sd, dev)
+    c6 = torch.zeros(r, device=dev)
+    c7 = torch.zeros(r, device=dev)
+    for cur in cur6:
+        s6, l6 = snnf.lif_feed_forward_step(cur.to(sd), l6)
+        s7, l7 = snnf.lif_feed_forward_step(_linear(s6.to(cd), w7).to(sd), l7)
+        _, li_c = snnf.li_feed_forward_step(_linear(s7.to(cd), wc).to(sd), li_c)
+        _, li_b = snnf.li_feed_forward_step(_linear(s7.to(cd), wb).to(sd), li_b)
+        c6 = c6 + s6.float().sum(dim=1)
+        c7 = c7 + s7.float().sum(dim=1)
+    return li_c.v.float(), li_b.v.float(), c6, c7
+
+
 def fastrcnn_snn_apply(params: Dict, x: torch.Tensor, num_steps: int,
                        collect_rates: bool = False,
-                       compute_dtype=torch.bfloat16):
+                       compute_dtype=torch.bfloat16, state_dtype=torch.float32):
     """x: [R, 7*7*C] flattened RoI features. Returns (class logits
     [R, n_cls] f32, box deltas [R, n_reg] f32, rates): rates is None or
-    {"encoder", "fc6", "fc7"}: [R]."""
+    {"encoder", "fc6", "fc7"}: [R]. Encoder and fc6 run as K3; the tail as
+    K4 with float32 states, else as :func:`box_tail_scan` in
+    ``state_dtype``."""
     x = x.to(compute_dtype).contiguous()
     d_in = x.shape[1]
     rep = params["fc6"]["w"].shape[1]
     cur6, enc = encoder_fc6(x, params["fc6"]["w"], num_steps)
-    cls, box, c6, c7 = box_tail(
-        cur6.to(compute_dtype).contiguous(), params["fc7"]["w"],
-        params["cls_score"]["w"], params["bbox_pred"]["w"])
+    tail_w = (params["fc7"]["w"], params["cls_score"]["w"], params["bbox_pred"]["w"])
+    if state_dtype == torch.float32:
+        cls, box, c6, c7 = box_tail(cur6.to(compute_dtype).contiguous(), *tail_w)
+    else:
+        cls, box, c6, c7 = box_tail_scan(cur6.to(compute_dtype), *tail_w, compute_dtype,
+                                         state_dtype)
     rates = None
     if collect_rates:
         rates = {"encoder": (enc.double() / (num_steps * d_in)).float(),
                  "fc6": (c6.double() / (num_steps * rep)).float(),
                  "fc7": (c7.double() / (num_steps * rep)).float()}
     return cls, box, rates
+
+
+def _linear_b(x: torch.Tensor, leaf: Dict) -> torch.Tensor:
+    """x @ w (in x's dtype) + b: a bf16 product plus the f32 bias is f32, as
+    in the JAX package."""
+    return _linear(x, leaf["w"]) + leaf["b"]
+
+
+def _conv_b(x: torch.Tensor, leaf: Dict) -> torch.Tensor:
+    return conv_nhwc(x, leaf["w"]) + leaf["b"]
+
+
+def rpn_head_ann_apply(params: Dict, features: List[torch.Tensor],
+                       compute_dtype=torch.bfloat16):
+    """The ANN RPN head (reference rpn.py:203-245): per level a 3x3 conv
+    with bias and ReLU, then the 1x1 cls and bbox convs with biases.
+    Returns (objectness list [N, H_l, W_l, A] f32, bbox list
+    [N, H_l, W_l, 4A] f32, None)."""
+    logits, bbox_reg = [], []
+    for feat in features:
+        t = torch.relu(_conv_b(feat.to(compute_dtype), params["conv"])).to(compute_dtype)
+        logits.append(_conv_b(t, params["cls_logits"]).float())
+        bbox_reg.append(_conv_b(t, params["bbox_pred"]).float())
+    return logits, bbox_reg, None
+
+
+def two_mlp_head_apply(params: Dict, x: torch.Tensor,
+                       compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """TwoMLPHead (reference faster_rcnn.py:320-345): fc6 and fc7 with
+    biases and ReLU; x [R, 7*7*C]. Returns [R, rep] f32."""
+    x = torch.relu(_linear_b(x.to(compute_dtype), params["fc6"]))
+    return torch.relu(_linear_b(x.to(compute_dtype), params["fc7"])).float()
+
+
+def fastrcnn_predictor_apply(params: Dict, x: torch.Tensor):
+    """FastRCNNPredictor (reference faster_rcnn.py:348-411): the cls and
+    bbox linears with biases on the f32 representation. Returns (class
+    logits [R, C], box deltas [R, 4C])."""
+    return _linear_b(x, params["cls_score"]), _linear_b(x, params["bbox_pred"])

@@ -1,5 +1,5 @@
-"""RoI heads of the spiking (open-set) detector: training-sample selection
-and loss, and the eval postprocess.
+"""RoI heads: training-sample selection and loss, and the eval
+postprocess, open-set (the spiking detector) or standard (the ANN one).
 
 Port of ``snn_automotive_object_detection_tpu/models/roi_heads.py``
 (reference roi_heads.py:496-1347). Training: the ground truth is appended
@@ -12,8 +12,12 @@ reference gates its kernel), the box head, then the open-set postprocess.
 Foreground boxes (classes >= 1) are score-thresholded, small-filtered, NMS'd per class and capped at detections_per_img;
 background (class-0) boxes of proposals that no above-threshold foreground
 prediction claimed survive their own NMS and are all kept. The pre-NMS
-per-class scores and boxes go out for new-object discovery. All tensors
-are batched over images; fixed capacities with validity masks.
+per-class scores and boxes go out for new-object discovery. The ANN
+detector's postprocess (reference roi_heads.py:668-732) drops the
+background column and keeps the thresholded, NMS'd foreground only. A box
+head of one class-agnostic box (``only_one_bbox``) has its 4 deltas
+broadcast to every class. All tensors are batched over images; fixed
+capacities with validity masks.
 """
 
 from __future__ import annotations
@@ -134,6 +138,16 @@ def fastrcnn_loss(class_logits: torch.Tensor, box_regression: torch.Tensor,
     return loss_cls, loss_box
 
 
+def _class_boxes(box_regression, proposals, image_sizes, c: int, cfg: RoIConfig):
+    """Decoded boxes [N, P, C, 4] clipped to each image; one class-agnostic
+    box per proposal ([N, P, 4] deltas) is broadcast to the C classes."""
+    n, p, _ = proposals.shape
+    boxes = box_ops.decode_boxes(box_regression, proposals, cfg.bbox_reg_weights)
+    boxes = boxes.reshape(n, p, -1, 4).expand(n, p, c, 4)
+    return box_ops.clip_boxes_to_image(boxes, image_sizes[:, 0, None, None],
+                                       image_sizes[:, 1, None, None])
+
+
 def _postproc_groups(class_logits, box_regression, proposals, prop_valid,
                      image_sizes, cfg: RoIConfig):
     """Softmax, decode and clip, then the G = (C-1) FG + 1 BG NMS groups.
@@ -145,10 +159,7 @@ def _postproc_groups(class_logits, box_regression, proposals, prop_valid,
     """
     n, p, c = class_logits.shape
     scores = torch.softmax(class_logits, dim=-1)
-    boxes = box_ops.decode_boxes(box_regression, proposals, cfg.bbox_reg_weights)
-    boxes = box_ops.clip_boxes_to_image(
-        boxes.reshape(n, p, c, 4), image_sizes[:, 0, None, None],
-        image_sizes[:, 1, None, None])
+    boxes = _class_boxes(box_regression, proposals, image_sizes, c, cfg)
 
     all_scores = torch.where(prop_valid[..., None], scores, 0.0)
     all_boxes = torch.where(prop_valid[..., None, None], boxes, 0.0)
@@ -222,18 +233,63 @@ def _postproc_outputs(inter, keep_all, bg_order, cfg: RoIConfig):
     }
 
 
+def _per_class_nms(boxes, scores, valid, nms_thresh: float) -> torch.Tensor:
+    """NMS within each class: boxes [N, P, C', 4], scores and valid
+    [N, P, C']. Returns the keep mask [N, P * C'], p-major (the order of
+    ``reshape(n, -1)`` of the per-class arrays). Suppression never crosses
+    classes (torchvision's batched_nms with the labels as ids), so each
+    class is one row of a batched NMS."""
+    n, p, c = scores.shape
+    keep, _ = nms_ops.nms_mask(boxes.transpose(1, 2).reshape(n * c, p, 4),
+                               scores.transpose(1, 2).reshape(n * c, p),
+                               valid.transpose(1, 2).reshape(n * c, p), nms_thresh)
+    return keep.reshape(n, c, p).transpose(1, 2).reshape(n, p * c)
+
+
+def postprocess_detections_ann(class_logits, box_regression, proposals, prop_valid,
+                               image_sizes, cfg: RoIConfig):
+    """The ANN detector's postprocess (reference roi_heads.py:668-732):
+    softmax, decode, clip; the background column dropped; score threshold,
+    small boxes and NMS per class; the top detections_per_img. class_logits
+    [N, P, C]; box_regression [N, P, 4C] or [N, P, 4]. Returns boxes
+    [N, D, 4], scores, labels and valid [N, D]."""
+    n, p, c = class_logits.shape
+    scores = torch.softmax(class_logits, dim=-1)
+    boxes = _class_boxes(box_regression, proposals, image_sizes, c, cfg)
+    fg_boxes = boxes[:, :, 1:].reshape(n, -1, 4)
+    fg_scores = scores[:, :, 1:].reshape(n, -1)
+    fg_labels = torch.arange(1, c, device=scores.device).repeat(p)
+    fg_valid = ((fg_scores > cfg.score_thresh)
+                & prop_valid.repeat_interleave(c - 1, dim=1)
+                & box_ops.small_box_mask(fg_boxes, cfg.min_size))
+    keep = _per_class_nms(boxes[:, :, 1:], scores[:, :, 1:], fg_valid.reshape(n, p, c - 1),
+                          cfg.nms_thresh)
+    idx, valid = nms_ops.topk_after_nms(fg_scores, keep, cfg.detections_per_img)
+    return {
+        "boxes": torch.where(valid[..., None],
+                             torch.gather(fg_boxes, 1, idx[..., None].expand(-1, -1, 4)), 0.0),
+        "scores": torch.where(valid, torch.gather(fg_scores, 1, idx), 0.0),
+        "labels": torch.where(valid, fg_labels[idx], 0),
+        "valid": valid,
+    }
+
+
 def roi_heads_forward(box_head_apply: Callable, features, proposals: torch.Tensor,
                       prop_valid: torch.Tensor, image_sizes: torch.Tensor,
                       image_bucket: Tuple[int, int], cfg: RoIConfig,
                       training: bool = False, targets: Optional[Dict] = None,
-                      generator: Optional[torch.Generator] = None, draws=None):
+                      generator: Optional[torch.Generator] = None, draws=None,
+                      open_set: bool = True):
     """features: the 4 pooled levels [N, H_l, W_l, C] (not "pool");
     proposals [N, P, 4]. box_head_apply: [N*P, 7*7*C] -> (logits, deltas,
     rates). targets (training): {"boxes", "labels", "valid"}; the sampler
     draws from ``generator`` or takes ``draws`` (see
-    :func:`select_training_samples`). Returns (detections dict with
-    "rates", losses): in training the dict holds the rates only, outside it
-    the losses are empty."""
+    :func:`select_training_samples`). ``open_set`` picks the spiking
+    detector's open-set postprocess, else the ANN one's
+    (:func:`postprocess_detections_ann`: no background boxes, no
+    ``all_scores``/``all_boxes``). Returns (detections dict with "rates",
+    losses): in training the dict holds the rates only, outside it the
+    losses are empty."""
     n, p, _ = proposals.shape
     if training:
         if targets is None or (generator is None and draws is None):
@@ -251,6 +307,11 @@ def roi_heads_forward(box_head_apply: Callable, features, proposals: torch.Tenso
     align = roi_align if features[0].dtype == torch.bfloat16 else multiscale_roi_align
     pooled = align(features, proposals.contiguous(), image_bucket)
     cls, reg, rates = box_head_apply(pooled.reshape(n * p, -1))
+    if not open_set:
+        det = postprocess_detections_ann(cls.reshape(n, p, -1), reg.reshape(n, p, -1),
+                                         proposals, prop_valid, image_sizes, cfg)
+        det["rates"] = rates
+        return det, {}
     (gb, gs, gv), inter = _postproc_groups(
         cls.reshape(n, p, -1), reg.reshape(n, p, -1), proposals, prop_valid,
         image_sizes, cfg)

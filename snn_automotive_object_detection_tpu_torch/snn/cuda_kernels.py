@@ -19,11 +19,13 @@ periods; the detector keeps that route, as the reference does, and this
 module is an entry point of its own.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-(representation size 1024, at most 64 readout columns, T <= 32 and K a
-multiple of 64, the GEMM's stage depth) or raises. Above 16 steps the
-kernel keeps each code as two 16-bit planes, runs each GEMM pass once per
-plane and carries the LIF and LI states from the first to the second; the
-reference kernel takes any T, so T > 32 is an open gap of this one.
+(representation size 1024, at most 64 readout columns, T <= 254 and K a
+multiple of 64, the GEMM's stage depth) or raises. A spike train is kept as
+codes of 16 steps each: codes [P, R, N], P = ceil(T / 16), bit t - 16 h of
+plane h set where the neuron spikes at step t. The kernel runs each GEMM
+pass once per plane and carries the LIF and LI states from one plane to
+the next, so it takes any T the reference kernel takes: the periods are
+uint8 with 255 for "never", which bounds T at 254 on both.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import ctypes
 import torch
 
 from snn_automotive_object_detection_tpu_torch.snn import functional as snnf
-from snn_automotive_object_detection_tpu_torch.snn.cuda_fc6 import MAX_T, PLANE_STEPS, planes
+from snn_automotive_object_detection_tpu_torch.snn.cuda_fc6 import PLANE_STEPS, planes
 from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
 
 NAME = "box_head_fused"
@@ -42,6 +44,7 @@ MAX_OUT = 64
 K_STAGE = 64        # k per stage of the spike-code GEMM
 ROWS = 16           # RoI rows per block of the GEMM
 SMEM_LIMIT = 232448
+MAX_T = snnf.NEVER - 1   # a step t + 1 = 255 would read "never" as a period
 
 
 def smem_bytes(n_cols: int, stages: int, staging_in_ring: bool) -> int:
@@ -72,26 +75,28 @@ def smem_on_card():
 
 def period_codes_plain(periods: torch.Tensor, num_steps: int) -> torch.Tensor:
     """The kernel's first pass: encoder periods [R, K] (uint8, 255 = never)
-    to spike-train codes [R, K] int32, bit t set when (t + 1) % p == 0."""
-    codes = torch.zeros(periods.shape, dtype=torch.int32, device=periods.device)
-    for t in range(num_steps):
-        codes |= snnf.encoder_spikes_at(periods, t, torch.int32) << t
-    return codes
+    to spike-train codes [P, R, K] int32, bit t - 16 h of plane h set when
+    (t + 1) % p == 0."""
+    return codes_of(torch.stack([snnf.encoder_spikes_at(periods, t)
+                                 for t in range(num_steps)]))
 
 
 def codes_of(trains: torch.Tensor) -> torch.Tensor:
-    """Spike trains [T, R, N] (0/1) -> codes [R, N] int32, bit t the spike at
-    step t."""
-    codes = torch.zeros(trains.shape[1:], dtype=torch.int32, device=trains.device)
+    """Spike trains [T, R, N] (0/1) -> codes [P, R, N] int32, P = ceil(T /
+    16): bit t - 16 h of plane h the spike at step t."""
+    codes = torch.zeros((planes(trains.shape[0]), *trains.shape[1:]), dtype=torch.int32,
+                        device=trains.device)
     for t, s in enumerate(trains):
-        codes |= (s > 0).to(torch.int32) << t
+        codes[t // PLANE_STEPS] |= (s > 0).to(torch.int32) << (t % PLANE_STEPS)
     return codes
 
 
 def trains_of(codes: torch.Tensor, num_steps: int) -> torch.Tensor:
-    """Codes [R, N] (any integer dtype; bit t the spike at step t) -> spike
-    trains [T, R, N] float32."""
-    return torch.stack([((codes.int() >> t) & 1).float() for t in range(num_steps)])
+    """Codes [P, R, N] (any integer dtype, the kernel's int16 planes too;
+    bit t - 16 h of plane h the spike at step t) -> spike trains [T, R, N]
+    float32."""
+    return torch.stack([((codes[t // PLANE_STEPS].int() >> (t % PLANE_STEPS)) & 1).float()
+                        for t in range(num_steps)])
 
 
 def fc6_trains_plain(x: torch.Tensor, w6: torch.Tensor, num_steps: int) -> torch.Tensor:
@@ -150,8 +155,8 @@ def _launch(periods: torch.Tensor, w6: torch.Tensor, w7: torch.Tensor,
             wro: torch.Tensor, n_cls: int, num_steps: int, codes: bool = False):
     """K9 on the encoder periods [R, K] uint8. Returns (cls, reg, fc6 spike
     counts [R] int64, fc7 spike counts [R] int64); with ``codes`` also the
-    fc6 and fc7 spike trains as codes [R, H] int32 (bit t: a spike at step
-    t, the kernel's planes joined), which checks compare step by step."""
+    fc6 and fc7 spike trains as the kernel's code planes [P, R, H] int16
+    (see :func:`trains_of`), which checks compare step by step."""
     r, d = periods.shape
     rep, n_out = wro.shape
     cb.require(periods, "periods", torch.uint8)
@@ -181,16 +186,7 @@ def _launch(periods: torch.Tensor, w6: torch.Tensor, w7: torch.Tensor,
     cb.LAUNCHES[NAME] += 1
     counts = counts.long()
     got = (out[:, :n_cls], out[:, n_cls:], counts[:, 0], counts[:, 1])
-    return got + (joined_codes(code67[0]), joined_codes(code67[1])) if codes else got
-
-
-def joined_codes(code_planes: torch.Tensor) -> torch.Tensor:
-    """A kernel's 16-bit code planes [P, R, N] (plane h: steps 16 h ..
-    16 h + 15) -> codes [R, N] int32, bit t the spike at step t."""
-    out = torch.zeros(code_planes.shape[1:], dtype=torch.int32, device=code_planes.device)
-    for h, plane in enumerate(code_planes):
-        out |= (plane.int() & 0xFFFF) << (PLANE_STEPS * h)
-    return out
+    return got + (code67[0], code67[1]) if codes else got
 
 
 def launch_args(x: torch.Tensor, w6: torch.Tensor, w7: torch.Tensor, wc: torch.Tensor,

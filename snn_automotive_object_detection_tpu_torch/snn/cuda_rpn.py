@@ -47,6 +47,7 @@ from snn_automotive_object_detection_tpu_torch.utils.constants import device_con
 NAME = "rpn_head"
 BWD_NAME = "rpn_head_bwd"
 X2_NAME = "rpn_head_x2"
+S16_NAME = "rpn_head_s16"   # K1's instance for bf16 neuron states
 # Whether the head outside training takes the paired kernel for the levels
 # that can pair (see :func:`x2_feasible`) when no rates are collected.
 # ``chip_smoke.check_rpn_x2`` times K8 against K1 in turns on the five
@@ -90,17 +91,20 @@ def _taps_t(w_shared: torch.Tensor) -> torch.Tensor:
 
 
 def _level_steps(feat: torch.Tensor, w_shared: torch.Tensor,
-                 w_out: torch.Tensor, num_steps: int, save: bool = False):
+                 w_out: torch.Tensor, num_steps: int, save: bool = False,
+                 bf16_states: bool = False):
     """The T steps of one level on a batch of images: (readout, encoder
     counts, LIF spike counts, LI-weighted spike sums, and with ``save`` the
-    :class:`Saved` tensors, else None)."""
+    :class:`Saved` tensors, else None). ``bf16_states`` carries the LIF v
+    and i in bf16 (see :func:`rpn_level_plain`)."""
     cd = feat.dtype
     n, h, w, c = feat.shape
     consts = _constants(num_steps, feat.device)
     thr, li = consts[:num_steps], consts[num_steps:]
     periods = snnf.threshold_periods(feat.float(), thr)
     weight = w_shared.to(cd).permute(3, 2, 0, 1).contiguous()
-    state = snnf.zeros_lif_state((n, h, w, c), device=feat.device)
+    sd = torch.bfloat16 if bf16_states else torch.float32
+    state = snnf.zeros_lif_state((n, h, w, c), sd, feat.device)
     ssum = torch.zeros((n, h, w, c), dtype=torch.float32, device=feat.device)
     enc = torch.zeros(n, dtype=torch.int64, device=feat.device)
     lif = torch.zeros(n, dtype=torch.int64, device=feat.device)
@@ -110,7 +114,8 @@ def _level_steps(feat: torch.Tensor, w_shared: torch.Tensor,
         cur = F.conv2d(z.permute(0, 3, 1, 2), weight, padding=1).permute(0, 2, 3, 1)
         if save:
             curs.append(cur)
-        s, state = snnf.lif_feed_forward_step(cur.float(), state)
+        s, state = snnf.lif_feed_forward_step(cur.to(sd), state)
+        s = s.float()
         ssum = ssum + li[t] * s
         enc += z.sum(dim=(1, 2, 3), dtype=torch.int64)
         lif += s.sum(dim=(1, 2, 3), dtype=torch.int64)
@@ -128,7 +133,7 @@ def _returns(got, spike_sum: bool, save: bool):
 
 def rpn_level_plain(feat: torch.Tensor, w_shared: torch.Tensor,
                     w_out: torch.Tensor, num_steps: int, spike_sum: bool = False,
-                    save: bool = False):
+                    save: bool = False, bf16_states: bool = False):
     """One FPN level, plain PyTorch.
 
     feat [N, H, W, C] in the plane dtype (bf16 or f32); w_shared
@@ -139,9 +144,24 @@ def rpn_level_plain(feat: torch.Tensor, w_shared: torch.Tensor,
     neuron by neuron; with ``save`` last the :class:`Saved` tensors that
     :func:`rpn_level_bwd_from_saved_plain` starts from (the currents rounded
     to the plane dtype, as the LIF takes them).
+
+    ``bf16_states``: the plain version of K1's instance for bf16 neuron
+    states (the reference's ``_run_level`` with ``lif_dtype=bf16``): the LIF
+    v and i are bf16, every elementwise result is rounded to bf16 and the
+    constants 0.1, 0.2 and the threshold are bf16 values
+    (``snnf.lif_feed_forward_step`` on bf16 states). That is the program as
+    the reference writes it, each jnp operation on bf16 arrays rounded to
+    bf16, and what PyTorch's eager bf16 operations give; XLA on the CPU may
+    keep f32 between fused operations where it allows excess precision,
+    which tests/test_torch_state16.py measures. The currents are rounded to
+    bf16 first, the LI-weighted spike sum stays f32, and there is no
+    training instance (``save`` raises).
     """
-    cb.note_plain(NAME, feat)
-    return _returns(_level_steps(feat, w_shared, w_out, num_steps, save), spike_sum, save)
+    cb.note_plain(S16_NAME if bf16_states else NAME, feat)
+    if save and bf16_states:
+        raise ValueError("the level with bf16 states has no training instance")
+    return _returns(_level_steps(feat, w_shared, w_out, num_steps, save, bf16_states),
+                    spike_sum, save)
 
 
 def level_grid(feat_shape, pair: bool = False):
@@ -205,12 +225,17 @@ def _check_level(name, feat, w9, w_out, num_steps):
 
 
 def _launch(feat: torch.Tensor, w9_t: torch.Tensor, w_out: torch.Tensor,
-            num_steps: int, spike_sum: bool = False, save: bool = False):
-    """K1 on one level, its training instance with ``save``; ``w9_t`` from
+            num_steps: int, spike_sum: bool = False, save: bool = False,
+            bf16_states: bool = False):
+    """K1 on one level, its training instance with ``save``, its instance
+    for bf16 neuron states with ``bf16_states``; ``w9_t`` from
     :func:`_taps_t`. Same returns as :func:`rpn_level_plain`."""
     n, h, w, c = feat.shape
     n_out = w_out.shape[1]
-    _check_level(NAME, feat, w9_t, w_out, num_steps)
+    name = S16_NAME if bf16_states else NAME
+    _check_level(name, feat, w9_t, w_out, num_steps)
+    if save and bf16_states:
+        raise ValueError("the level with bf16 states has no training instance")
     dev = feat.device
     consts = _constants(num_steps, dev)
     out = torch.empty((n, h, w, n_out), dtype=torch.float32, device=dev)
@@ -224,11 +249,13 @@ def _launch(feat: torch.Tensor, w9_t: torch.Tensor, w_out: torch.Tensor,
         saved = Saved(torch.empty((n, h, w, num_steps, c), dtype=torch.bfloat16, device=dev),
                       torch.empty((n, h, w, c), dtype=torch.uint8, device=dev), ssum)
         args += [saved.cur.data_ptr(), saved.per.data_ptr()]
-    fn = cb.function(NAME, "rpn_level_save_bf16" if save else "rpn_level_bf16",
+    entry = ("rpn_level_save_bf16" if save else "rpn_level_s16_bf16" if bf16_states
+             else "rpn_level_bf16")
+    fn = cb.function(name, entry,
                      [ctypes.c_void_p] * len(args) + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     code = fn(*args, n, h, w, num_steps, n_out, cb.stream_ptr(dev))
-    cb.check(code, NAME)
-    cb.LAUNCHES[NAME] += 1
+    cb.check(code, name)
+    cb.LAUNCHES[name] += 1
     return _returns((out, counts[:, 0], counts[:, 1], ssum, saved), spike_sum, save)
 
 
@@ -256,13 +283,15 @@ def _launch_x2(feat: torch.Tensor, w9_t: torch.Tensor, w_out: torch.Tensor,
 
 
 def rpn_level(feat: torch.Tensor, w_shared: torch.Tensor, w_out: torch.Tensor,
-              num_steps: int, spike_sum: bool = False, save: bool = False):
-    """One level through K1 (CUDA; its training instance with ``save``) or
-    the plain version (CPU). Same returns as :func:`rpn_level_plain`."""
-    if cb.dispatch_device(feat, NAME):
+              num_steps: int, spike_sum: bool = False, save: bool = False,
+              bf16_states: bool = False):
+    """One level through K1 (CUDA; its training instance with ``save``, its
+    instance for bf16 neuron states with ``bf16_states``) or the plain
+    version (CPU). Same returns as :func:`rpn_level_plain`."""
+    if cb.dispatch_device(feat, S16_NAME if bf16_states else NAME):
         return _launch(feat, _taps_t(w_shared), w_out.to(torch.bfloat16).contiguous(),
-                       num_steps, spike_sum, save)
-    return rpn_level_plain(feat, w_shared, w_out, num_steps, spike_sum, save)
+                       num_steps, spike_sum, save, bf16_states)
+    return rpn_level_plain(feat, w_shared, w_out, num_steps, spike_sum, save, bf16_states)
 
 
 def rpn_level_x2(feat: torch.Tensor, w_shared: torch.Tensor, w_out: torch.Tensor,

@@ -15,6 +15,7 @@ under autograd and their forward values are those of a plain ``x > 0``.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -84,13 +85,28 @@ def heaviside_super(x: torch.Tensor, alpha: float) -> torch.Tensor:
     return _HeavisideSuper.apply(x, alpha)
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded(x: float, dtype: torch.dtype) -> float:
+    return float(torch.tensor(x, dtype=dtype))
+
+
+def _weak(x: float, like: torch.Tensor) -> float:
+    """The Python constant ``x`` rounded to the dtype of ``like``, as JAX
+    takes a Python scalar in an operation on an array (weak typing): a bf16
+    state is multiplied by bf16(0.1) = 0.10009765625, not by f32(0.1).
+    Rounding the constant first gives PyTorch's op (computed in f32, rounded
+    once to the tensor's dtype) the operands of JAX's; for f32 tensors it is
+    the value PyTorch takes anyway."""
+    return x if like.dtype == torch.float64 else _rounded(x, like.dtype)
+
+
 def lif_current_encoder(input_current, voltage, p: LIFParams = ENCODER_PARAMS,
                         dt: float = DT):
     """Constant-current LIF encoder step (norse ``lif_current_encoder``).
     Returns (z, v)."""
-    dv = dt * p.tau_mem_inv * ((p.v_leak - voltage) + input_current)
+    dv = _weak(dt * p.tau_mem_inv, voltage) * ((p.v_leak - voltage) + input_current)
     voltage = voltage + dv
-    z = heaviside_super(voltage - p.v_th, p.alpha)
+    z = heaviside_super(voltage - _weak(p.v_th, voltage), p.alpha)
     voltage = voltage - z * (voltage - p.v_reset)
     return z, voltage
 
@@ -98,12 +114,15 @@ def lif_current_encoder(input_current, voltage, p: LIFParams = ENCODER_PARAMS,
 def lif_feed_forward_step(input_current, state: LIFState,
                           p: LIFParams = LIF_PARAMS, dt: float = DT):
     """Feed-forward LIF step (norse ``lif_feed_forward_step``).
-    Returns (z, new_state); the input reaches the membrane one step later."""
-    dv = dt * p.tau_mem_inv * ((p.v_leak - state.v) + state.i)
-    v_decayed = state.v + dv
-    di = -dt * p.tau_syn_inv * state.i
-    i_decayed = state.i + di
-    z = heaviside_super(v_decayed - p.v_th, p.alpha)
+    Returns (z, new_state); the input reaches the membrane one step later.
+    The constants take the state's dtype (:func:`_weak`), so with bf16
+    states every operation is the reference's bf16 operation."""
+    v, i = state
+    dv = _weak(dt * p.tau_mem_inv, v) * ((p.v_leak - v) + i)
+    v_decayed = v + dv
+    di = _weak(-dt * p.tau_syn_inv, i) * i
+    i_decayed = i + di
+    z = heaviside_super(v_decayed - _weak(p.v_th, v), p.alpha)
     v_new = (1.0 - z) * v_decayed + z * p.v_reset
     i_new = i_decayed + input_current
     return z, LIFState(v=v_new, i=i_new)
@@ -114,9 +133,9 @@ def li_feed_forward_step(input_current, state: LIState,
     """Leaky-integrator step (norse ``li_feed_forward_step``).
     Returns (v_new, new_state); the input jumps the current first."""
     i_jump = state.i + input_current
-    dv = dt * p.tau_mem_inv * ((p.v_leak - state.v) + i_jump)
+    dv = _weak(dt * p.tau_mem_inv, state.v) * ((p.v_leak - state.v) + i_jump)
     v_new = state.v + dv
-    di = -dt * p.tau_syn_inv * i_jump
+    di = _weak(-dt * p.tau_syn_inv, i_jump) * i_jump
     i_decayed = i_jump + di
     return v_new, LIState(v=v_new, i=i_decayed)
 

@@ -108,6 +108,8 @@ def split_trainable(params: Dict[str, Any], freeze_fpn: bool = False,
     (frozen if freeze_fpn or n == 0 else trainable)["backbone_fpn"] = fpn
     (frozen if freeze_rpn else trainable)["rpn_head"] = params["rpn_head"]
     (frozen if freeze_detector else trainable)["box_head"] = params["box_head"]
+    if "box_predictor" in params:   # the ANN box head's predictor
+        (frozen if freeze_detector else trainable)["box_predictor"] = params["box_predictor"]
     for tree, flag in ((trainable, True), (frozen, False)):
         for leaf in tree_leaves(tree):
             leaf.requires_grad_(flag)
@@ -121,5 +123,7 @@ def merge_params(trainable: Dict[str, Any], frozen: Dict[str, Any]) -> Dict[str,
     for src in (frozen, trainable):   # the body may be split across both
         backbone.update(src.get("backbone", {}))
     backbone["fpn"] = parts["backbone_fpn"]
-    return {"backbone": backbone, "rpn_head": parts["rpn_head"],
-            "box_head": parts["box_head"]}
+    out = {"backbone": backbone, "rpn_head": parts["rpn_head"], "box_head": parts["box_head"]}
+    if "box_predictor" in parts:
+        out["box_predictor"] = parts["box_predictor"]
+    return out

@@ -6,11 +6,13 @@ aliases, and ``model.yaml``. The YAML files are the JAX package's own
 (``CONFIG_DIR`` points at its ``configs/`` directory, read as files; nothing
 of that package is imported). PyYAML is imported inside the functions that
 read YAML, so that the modules which import this one load on a machine
-without it; a config given as a dict needs no YAML at all.
+without it; a config given as a dict, or as a ``.json`` file (YAML is a
+superset of JSON, so the same keys), needs no YAML at all.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from pathlib import Path
 from typing import Any, Dict, Optional
@@ -31,19 +33,27 @@ _KEY_ALIASES = {
 }
 
 
-def load_dataset_config(name_or_path: str, data_root: Optional[str] = None) -> Dict[str, Any]:
-    """A dataset config by name (cityscapes/bdd/idd/pascal/coco) or path;
-    ``data_root`` is prepended to every relative data path."""
-    import yaml
+def _read(path: str) -> Dict[str, Any]:
+    """A YAML file, or a JSON one (``.json``, read without PyYAML)."""
+    with open(path) as f:
+        if path.endswith(".json"):
+            return json.load(f)
+        import yaml
 
+        return yaml.safe_load(f)
+
+
+def load_dataset_config(name_or_path: str, data_root: Optional[str] = None) -> Dict[str, Any]:
+    """A dataset config by name (cityscapes/bdd/idd/pascal/coco) or path of
+    a YAML or JSON file; ``data_root`` is prepended to every relative data
+    path."""
     path = name_or_path
     if not os.path.exists(path):
         path = os.path.join(CONFIG_DIR, f"{name_or_path}.yaml")
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"no dataset config named {name_or_path!r} (looked in {CONFIG_DIR})")
-    with open(path) as f:
-        raw = yaml.safe_load(f)
+    raw = _read(path)
 
     cfg = {_KEY_ALIASES.get(k, k): v for k, v in raw.items()}
     cfg.setdefault("dataset", os.path.splitext(os.path.basename(path))[0])
@@ -55,12 +65,9 @@ def load_dataset_config(name_or_path: str, data_root: Optional[str] = None) -> D
 
 
 def load_model_yaml(path: Optional[str] = None) -> Dict[str, Any]:
-    """Model hyperparameters (``model.yaml`` of ``CONFIG_DIR`` by default)."""
-    import yaml
-
-    path = path or os.path.join(CONFIG_DIR, "model.yaml")
-    with open(path) as f:
-        return yaml.safe_load(f)
+    """Model hyperparameters (``model.yaml`` of ``CONFIG_DIR`` by default; a
+    ``.json`` file of the same keys is read without PyYAML)."""
+    return _read(path or os.path.join(CONFIG_DIR, "model.yaml"))
 
 
 def class_names(cfg: Dict[str, Any]) -> Dict[int, str]:

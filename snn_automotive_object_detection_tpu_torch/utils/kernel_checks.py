@@ -95,14 +95,16 @@ ROWS_DIFFERING = 0.01  # rows whose fc7 trains differ at all, a share of the row
 
 
 def _bits(codes: torch.Tensor) -> torch.Tensor:
-    """Set bits among the low 32 of each integer code, as int64."""
-    v = codes.long() & 0xFFFFFFFF
-    return sum(((v >> t) & 1) for t in range(32))
+    """Spikes per neuron of codes [P, R, N] (the low 16 bits of each plane,
+    see ``cuda_kernels.trains_of``): [R, N] int64."""
+    v = codes.long() & 0xFFFF
+    return sum(((v >> t) & 1) for t in range(16)).sum(dim=0)
 
 
 def box_head_fused_report(got, x, w6, w7, wc, wb, num_steps: int) -> dict:
     """K9's output ``got`` = (cls, reg, fc6 counts, fc7 counts, fc6 codes,
-    fc7 codes), from ``cuda_kernels._launch(..., codes=True)``, against its
+    fc7 codes), from ``cuda_kernels._launch(..., codes=True)`` (codes as
+    code planes [P, R, H], see ``cuda_kernels.trains_of``), against its
     plain version on the same inputs, spike by spike.
 
     The kernel sums each current in another order than the plain version,
@@ -166,7 +168,8 @@ def box_head_fused_hold(x, w6, w7, wc, wb, num_steps: int) -> dict:
     got = k9._launch(*args, codes=True)
     again = k9._launch(*args, codes=True)
     entry = k9.fastrcnn_snn_cuda(x, w6, w7, wc, wb, num_steps)
-    shapes = ((r, wc.shape[1]), (r, wb.shape[1]), (r,), (r,), (r, k9.REP), (r, k9.REP))
+    p = k9.planes(num_steps)
+    shapes = ((r, wc.shape[1]), (r, wb.shape[1]), (r,), (r,), (p, r, k9.REP), (p, r, k9.REP))
     shapes_ok = all(tuple(a.shape) == s for a, s in zip(got, shapes))
     if not shapes_ok:
         return dict(ok=False, shapes_ok=False, shapes=[tuple(a.shape) for a in got])

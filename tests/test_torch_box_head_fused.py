@@ -148,7 +148,8 @@ def test_period_codes_rule(t):
     the trains are one another's."""
     periods = torch.arange(256, dtype=torch.int32).clamp(min=1).to(torch.uint8).reshape(16, 16)
     codes = k9.period_codes_plain(periods, t)
-    for p, c in zip(periods.flatten().tolist(), codes.flatten().tolist()):
+    assert codes.shape == (1, 16, 16)
+    for p, c in zip(periods.flatten().tolist(), codes[0].flatten().tolist()):
         assert c == sum(1 << (k - 1) for k in range(p, t + 1, p)), (p, c)
     assert int(codes.flatten()[0]) == (1 << t) - 1 and int(codes.flatten()[-1]) == 0
     trains = k9.trains_of(codes, t)

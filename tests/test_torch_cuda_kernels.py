@@ -144,6 +144,39 @@ def test_rpn_head_kernel_matches_plain(dev, n, h, w, t, n_out):
         assert torch.equal(got[0], want[0]) and float(got[3].abs().max()) == 0
 
 
+# K1's instance for bf16 neuron states: random weights (flipped spikes
+# counted as for K1), and weights on the 2^-10 grid, whose conv sums are
+# exact in any order, so that the currents are the plain version's bits and
+# no spike may flip.
+@pytest.mark.parametrize("n,h,w,t,n_out,grid", [(2, 3, 45, 8, 15, False), (2, 3, 45, 8, 15, True),
+                                                (1, 5, 64, 12, 75, True),
+                                                (2, 2, 33, 32, 128, True)])
+def test_rpn_head_s16_kernel_matches_plain(dev, n, h, w, t, n_out, grid):
+    g = torch.Generator(device=dev).manual_seed(n * h * w + t + n_out)
+    feat = (torch.rand((n, h, w, 256), generator=g, device=dev) * 2).to(BF)
+    if grid:
+        w_shared = torch.randint(-10, 11, (3, 3, 256, 256), generator=g,
+                                 device=dev).float() * 2.0 ** -10
+    else:
+        w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.02
+    w_out = torch.randn((256, n_out), generator=g, device=dev) * 0.05
+    before = dict(cb.LAUNCHES)
+    got = k1.rpn_level(feat, w_shared, w_out, t, spike_sum=True, bf16_states=True)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES[k1.S16_NAME] == before[k1.S16_NAME] + 1
+    assert cb.LAUNCHES[k1.NAME] == before[k1.NAME]
+    want = k1.rpn_level_plain(feat, w_shared, w_out, t, spike_sum=True, bf16_states=True)
+    assert int(want[2].sum()) > 0
+    if grid:
+        assert torch.equal(got[3], want[3]) and torch.equal(got[2], want[2])
+    _hold_rpn_eval(got, want, w_out)
+    # bf16 states give other spikes than f32 states on the same inputs.
+    f32 = k1.rpn_level(feat, w_shared, w_out, t, spike_sum=True)
+    assert not torch.equal(f32[3], got[3])
+    with pytest.raises(ValueError):
+        k1.rpn_level(feat, w_shared, w_out, t, save=True, bf16_states=True)
+
+
 def test_roi_align_kernel_matches_plain(dev):
     g = torch.Generator(device=dev).manual_seed(5)
     size = (128, 192)
@@ -516,14 +549,16 @@ def _hold_box_head_fused(x, w6, w7, wc, wb, t):
 
 # Rows that end inside the 16-row tile and inside a cluster of two tiles,
 # one row, fewer rows than a tile, more tiles than the card holds blocks,
-# the flagship's 2000 rows of K = 12544; T = 4, 12 and 16, and 20 and 32 in
-# two passes per GEMM; 45 and 64 readout columns (9 classes with 36
-# deltas, 16 with 48).
+# the flagship's 2000 rows of K = 12544; T = 4, 12 and 16, 20 and 32 in
+# two passes per GEMM, 40 and 48 in three and 70 in five (the last plane
+# partly filled); 45 and 64 readout columns (9 classes with 36 deltas, 16
+# with 48).
 @pytest.mark.parametrize("r,d,t,n_cls,n_reg", [
     (203, 512, 12, 9, 36), (32, 1024, 12, 9, 36), (4500, 64, 4, 9, 36),
     (1, 640, 4, 9, 36), (15, 1024, 12, 16, 48), (17, 64, 16, 9, 36),
     (2000, 12544, 12, 9, 36), (2000, 12544, 16, 16, 48), (203, 512, 20, 9, 36),
-    (17, 64, 32, 16, 48), (2000, 12544, 32, 9, 36)])
+    (17, 64, 32, 16, 48), (2000, 12544, 32, 9, 36), (203, 512, 40, 9, 36),
+    (2000, 12544, 48, 9, 36), (17, 64, 70, 16, 48)])
 def test_box_head_fused_kernel_matches_plain(dev, r, d, t, n_cls, n_reg):
     g = torch.Generator(device=dev).manual_seed(r + d + t)
     x = torch.rand((r, d), generator=g, device=dev) * 2.5
@@ -596,11 +631,11 @@ def test_kernels_refuse_other_dtypes(dev):
             k4.box_tail(torch.zeros((t, 2, rep), device=dev, dtype=BF),
                         torch.zeros((rep, rep), device=dev), torch.zeros((rep, 9), device=dev),
                         torch.zeros((rep, 36), device=dev))
-    with pytest.raises(ValueError):   # K9 stops at T = 32 (the reference's kernel does not)
+    with pytest.raises(ValueError):   # K9 takes T <= 254: period 255 means "never"
         k9.fastrcnn_snn_cuda(torch.zeros((4, 64), device=dev), torch.zeros((64, 1024), device=dev),
                              torch.zeros((1024, 1024), device=dev),
                              torch.zeros((1024, 9), device=dev),
-                             torch.zeros((1024, 36), device=dev), 33)
+                             torch.zeros((1024, 36), device=dev), 255)
     with pytest.raises(TypeError):
         k9.fastrcnn_snn_cuda(torch.zeros((4, 64), device=dev, dtype=torch.int32),
                              torch.zeros((64, 1024), device=dev),
@@ -679,3 +714,41 @@ def test_float32_eval_launches_no_kernel(dev):
         assert out[k].dtype == torch.float32 and bool(torch.isfinite(out[k]).all()), k
     assert out["rpn_rates"]["shared"].shape == (5, n)
     assert bool((out["scores"] >= 0).all() and (out["scores"] <= 1).all())
+
+
+@pytest.mark.parametrize("rpn_snn,det_snn,states", [(False, True, torch.float32),
+                                                    (True, False, torch.float32),
+                                                    (False, False, torch.float32),
+                                                    (True, True, None)])
+def test_eval_routes_launch_counts(dev, rpn_snn, det_snn, states):
+    """bf16 evaluation on the factory's other heads and states: an ANN RPN
+    head launches no K1, an ANN box head no K3 or K4 (K2 pools for either
+    box head), bf16 states take K1's bf16-state instance on every level, K3
+    and the box tail's scan; no plain version of a kernel runs."""
+    from snn_automotive_object_detection_tpu_torch.models.detector import detector_apply
+    from snn_automotive_object_detection_tpu_torch.models.factory import (
+        DetectorConfig, init_params)
+    from snn_automotive_object_detection_tpu_torch.models.rpn import RPNConfig
+
+    cfg = DetectorConfig(num_classes=3, t_rpn=3, t_det=3, min_size=64, max_size=128,
+                         rpn=RPNConfig(pre_nms_top_n_test=60, post_nms_top_n_test=20),
+                         rpn_snn=rpn_snn, detector_snn=det_snn, snn_state_dtype=states)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    batch = {"images": torch.rand((2, 64, 128, 3), generator=torch.Generator(device=dev)
+                                  .manual_seed(1), device=dev),
+             "image_sizes": torch.tensor([[64, 128]] * 2, device=dev),
+             "original_sizes": torch.tensor([[128, 256]] * 2, device=dev)}
+    cb.reset_counts()
+    out, _ = detector_apply(params, batch, cfg, collect_rates=True)
+    torch.cuda.synchronize()
+    want = {k: 0 for k in cb.KERNELS}
+    want.update(stem=1, fpn_level=4, roi_align=1)
+    if rpn_snn:
+        want[k1.NAME if states else k1.S16_NAME] = 5
+    if det_snn:
+        want[k3.NAME] = 1
+        want[k4.NAME] = 1 if states else 0
+    assert dict(cb.LAUNCHES) == want
+    assert all(v == 0 for v in cb.PLAIN_CUDA_CALLS.values()), cb.PLAIN_CUDA_CALLS
+    assert bool(torch.isfinite(out["boxes"]).all() and torch.isfinite(out["objectness"]).all())
+    assert ("all_boxes" in out) == det_snn

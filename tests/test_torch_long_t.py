@@ -42,6 +42,8 @@ from snn_automotive_object_detection_tpu_torch.snn import cuda_kernels as k9
 from snn_automotive_object_detection_tpu_torch.snn import functional as snnf
 
 LONG_T = (20, 32)
+# K9 takes any T: three code planes at 40.
+K9_LONG_T = (20, 32, 40)
 
 
 def _flips(a, b):
@@ -134,7 +136,7 @@ def fused_setup():
     return params, rng.uniform(0, 2.5, (96, 3584)).astype(np.float32)
 
 
-@pytest.mark.parametrize("t", LONG_T)
+@pytest.mark.parametrize("t", K9_LONG_T)
 def test_fused_head_plain_matches_pallas_interpret(fused_setup, t):
     from jax.experimental.pallas import tpu as pltpu
 
@@ -161,22 +163,23 @@ def test_fused_head_plain_matches_pallas_interpret(fused_setup, t):
     assert d6.max() <= 3 and d7.max() <= 3
 
 
-@pytest.mark.parametrize("t", LONG_T)
+@pytest.mark.parametrize("t", K9_LONG_T)
 def test_period_codes_past_16_steps(t):
-    """K9's first pass at T > 16: bit s set when (s + 1) % p == 0, bit 31
-    included; the codes and the trains are one another's, and the kernel's
-    two 16-bit planes join to the same codes."""
+    """K9's first pass at T > 16: in plane h, bit s - 16 h set when (s + 1)
+    % p == 0, the last step's bit included; the codes and the trains are one
+    another's, and the kernel's int16 planes (bit 15 the sign) read as the
+    same trains."""
     periods = torch.arange(256, dtype=torch.int32).clamp(min=1).to(torch.uint8).reshape(16, 16)
     codes = k9.period_codes_plain(periods, t)
-    for p, c in zip(periods.flatten().tolist(), codes.flatten().tolist()):
-        assert c & 0xFFFFFFFF == sum(1 << (k - 1) for k in range(p, t + 1, p)), (p, c)
+    assert codes.shape == (cuda_fc6.planes(t), 16, 16)
+    joined = sum(codes[h].long() << (16 * h) for h in range(codes.shape[0]))
+    for p, c in zip(periods.flatten().tolist(), joined.flatten().tolist()):
+        assert c == sum(1 << (k - 1) for k in range(p, t + 1, p)), (p, c)
     trains = k9.trains_of(codes, t)
     assert torch.equal(k9.codes_of(trains), codes)
     assert torch.equal(trains, torch.stack([snnf.encoder_spikes_at(periods, s)
                                             for s in range(t)]))
-    planes = torch.stack([(codes & 0xFFFF).to(torch.int16), ((codes >> 16) & 0xFFFF)
-                          .to(torch.int16)])
-    assert torch.equal(k9.joined_codes(planes), codes)
+    assert torch.equal(k9.trains_of(codes.to(torch.int16), t), trains)
 
 
 @pytest.mark.parametrize("t_det,route", [(12, "kernels"), (32, "kernels"), (40, "scan")])
