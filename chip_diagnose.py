@@ -5,7 +5,7 @@ NVIDIA GPU.
     python3 chip_diagnose.py            # K1, K5, K3, K4, K7, K2, K6, K8 and K9
     python3 chip_diagnose.py K2 K6      # only those kernels' variants
     python3 chip_diagnose.py K9         # also K9's check on the input where it once failed
-    python3 chip_diagnose.py ptxas DIR  # ptxas figures of K3, K4, K9 against DIR's csrc/
+    python3 chip_diagnose.py ptxas DIR  # ptxas figures of K1, K7, K3, K4, K9 against DIR's csrc/
 
 Shows what limits K1, K5, K3, K4, K7's weight gradient, K2, K6, K8 and K9.
 Each variant below replaces lines of ``csrc/rpn_head.cu`` (K1 and its pair
@@ -36,14 +36,21 @@ there spike by spike, as ``chip_smoke.py`` does; for the rows whose fc7
 trains differ it prints the flips per step.
 
 ``ptxas DIR`` builds no variant and needs no card, only ``nvcc``: it
-compiles the spike-code GEMM's three sources (``encoder_fc6.cu``,
-``box_tail.cu``, ``box_head_fused.cu``) from this tree's ``csrc/`` and from
-``DIR`` (another checkout's ``csrc/``) with the package's flags, and prints
-each entry function's registers, barriers and spill bytes side by side. An
-instance that ``DIR`` has under the same name (the T <= 16 instances: an
-epilogue template at kWhole = 0 and a code pass at one plane are named as
-the untemplated ones before them) must show the same figures, or the
-script exits non-zero.
+compiles the RPN head's two sources (``rpn_head.cu``, ``rpn_head_bwd.cu``)
+and the spike-code GEMM's three (``encoder_fc6.cu``, ``box_tail.cu``,
+``box_head_fused.cu``) from this tree's ``csrc/`` and from ``DIR`` (another
+checkout's ``csrc/``) with the package's flags, and prints each entry
+function's registers, barriers and spill bytes side by side. An instance
+that ``DIR`` has under the same name (the T <= 16 instances: an epilogue
+template at kWhole = 0 and a code pass at one plane are named as the
+untemplated ones before them; K7's f32-state sweep as the sweep before its
+state flag) must show the same figures, or the script exits non-zero. Each
+instance for bf16 neuron states (K1's evaluation and training instances,
+K8's, K7's sweep) is printed beside its f32-state instance.
+
+The ``as built`` timings of K1, K7 and K8 also time their instances for
+bf16 neuron states in turns with the f32-state ones: K1's training
+instance, K7's sweep alone, K8.
 """
 
 from __future__ import annotations
@@ -371,7 +378,15 @@ def k9_replay(dev) -> None:
               f"spikes, per step: " + " ".join(f"{u}/{v}" for u, v in zip(up, down)))
 
 
-PTXAS_SOURCES = ("encoder_fc6.cu", "box_tail.cu", "box_head_fused.cu")
+PTXAS_SOURCES = ("rpn_head.cu", "rpn_head_bwd.cu", "encoder_fc6.cu", "box_tail.cu",
+                 "box_head_fused.cu")
+# (bf16-state instance, its f32-state instance), as ptxas_entries names them.
+STATE16_PAIRS = [
+    (f"(anonymous namespace)::rpn_level_kernel<{save}, {cl}, true>",
+     f"(anonymous namespace)::rpn_level_kernel<{save}, {cl}, false>")
+    for save, cl in (("false", 2), ("true", 2), ("false", 4))] + [
+    (f"(anonymous namespace)::sweep_kernel<{t}, true>",
+     f"(anonymous namespace)::sweep_kernel<{t}>") for t in (8, 16, 32)]
 
 
 def ptxas_entries(report: str) -> dict:
@@ -399,6 +414,7 @@ def ptxas_entries(report: str) -> dict:
     for mangled, pretty in zip(raw, names):
         pretty = re.sub(r"(\w+)T<0>", r"\1", pretty)
         pretty = re.sub(r"(encoder_code_kernel|lif6_kernel|period_code_kernel)<1>", r"\1", pretty)
+        pretty = re.sub(r"sweep_kernel<(\d+), false>", r"sweep_kernel<\1>", pretty)
         # A function template's name demangles with its return type.
         pretty = re.sub(r"^void ", "", re.sub(r"\s+>", ">", pretty))
         out[pretty] = tuple(raw[mangled])
@@ -406,7 +422,8 @@ def ptxas_entries(report: str) -> dict:
 
 
 def ptxas_compare(other: Path) -> int:
-    """This tree's ptxas figures of K3, K4 and K9 against ``other``'s."""
+    """This tree's ptxas figures of K1, K7, K3, K4 and K9 against
+    ``other``'s, and each bf16-state instance beside its f32-state one."""
     from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
 
     def reports(csrc: Path):
@@ -421,7 +438,18 @@ def ptxas_compare(other: Path) -> int:
         return [ptxas_entries(o) for o in outs]
 
     differ = 0
-    for src, new, old in zip(PTXAS_SOURCES, reports(cb.CSRC_DIR), reports(other)):
+    ours = reports(cb.CSRC_DIR)
+    mine = {fn: fig for entries in ours for fn, fig in entries.items()}
+    def entry(name):
+        return next((fig for fn, fig in mine.items() if fn.startswith(name + "(")), None)
+
+    for s16, f32 in STATE16_PAIRS:
+        a, b = entry(s16), entry(f32)
+        if a is None or b is None:
+            raise SystemExit(f"chip_diagnose: no ptxas entry {s16 if a is None else f32}")
+        print(f"ptxas bf16 states: {s16}: {a[0]} registers, spill stores {a[2]} loads {a[3]}; "
+              f"f32 states: {b[0]} registers, spill stores {b[2]} loads {b[3]}")
+    for src, new, old in zip(PTXAS_SOURCES, ours, reports(other)):
         for fn, fig in new.items():
             was = old.get(fn)
             same = "new" if was is None else ("same" if was == fig else "DIFFERENT")
@@ -604,6 +632,52 @@ def main() -> int:
         cb.check(fn(f.data_ptr(), w9_t.data_ptr(), wout.data_ptr(), consts.data_ptr(),
                     out.data_ptr(), None, n, h, w, 8, 15, stream), "K8")
 
+    # The instances for bf16 neuron states beside the f32-state ones: K1's
+    # training instance and K8 on K1's levels, K7's sweep on dc-sized
+    # currents (overwritten by each run; only the time means anything).
+    saves = [(torch.empty((2, h, w, 15), device=dev), torch.zeros((2, 2), dtype=torch.int64,
+                                                                   device=dev),
+              torch.empty((2, h, w, 256), device=dev),
+              torch.zeros((2, h, w, 8, 256), dtype=bf, device=dev),
+              torch.empty((2, h, w, 256), dtype=torch.uint8, device=dev)) for h, w in levels]
+    cots = [torch.randn((2, h, w, 15), generator=g, device=dev) for h, w in levels]
+    ssums = [torch.zeros((2, h, w, 256), device=dev) for h, w in levels]
+
+    def k1_save_run(lib, i, s16):
+        f = feats[i]
+        n, h, w, _ = f.shape
+        fn = _bind(lib, "rpn_level_save_s16_bf16" if s16 else "rpn_level_save_bf16",
+                   [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        cb.check(fn(f.data_ptr(), w9_t.data_ptr(), wout.data_ptr(), consts.data_ptr(),
+                    *[t.data_ptr() for t in saves[i]], n, h, w, 8, 15, stream), "K1")
+
+    def k7_sweep_run(lib, i, s16):
+        n, h, w, t, c = dcs[i].shape
+        counters = torch.zeros(18, dtype=torch.int32, device=dev)
+        fn = _bind(lib, "rpn_level_bwd_s16_bf16" if s16 else "rpn_level_bwd_bf16",
+                   [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        cb.check(fn(saves[i][3].data_ptr(), None, ssums[i].data_ptr(), wout.data_ptr(),
+                    consts.data_ptr(), cots[i].data_ptr(), None, None, None,
+                    counters.data_ptr(), None, None, n, h, w, t, 15, 1, 1, 1, stream), "K7")
+
+    def k8_s16_run(lib, f, s16):
+        n, h, w, _ = f.shape
+        out = torch.empty((n, h, w, 15), device=dev)
+        fn = _bind(lib, "rpn_level_x2_s16_bf16" if s16 else "rpn_level_x2_bf16",
+                   [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        cb.check(fn(f.data_ptr(), w9_t.data_ptr(), wout.data_ptr(), consts.data_ptr(),
+                    out.data_ptr(), None, n, h, w, 8, 15, stream), "K8")
+
+    def states_turns(kernel, lib):
+        """The f32-state and bf16-state instance of ``kernel`` in turns."""
+        run = {"K1": lambda s16: [k1_save_run(lib, i, s16) for i in range(len(levels))],
+               "K7": lambda s16: [k7_sweep_run(lib, i, s16) for i in range(len(levels))],
+               "K8": lambda s16: [k8_s16_run(lib, f, s16) for f in feats]}[kernel]
+        f32, s16 = chip_smoke._turns(lambda: run(False), lambda: run(True))
+        what = {"K1": "training instance", "K7": "sweep", "K8": "pair instance"}[kernel]
+        print(f"{kernel} {what}, five levels, in turns: f32 states {f32[0]:.3f} and "
+              f"{f32[1]:.3f} ms, bf16 states {s16[0]:.3f} and {s16[1]:.3f} ms")
+
     periods = snnf.encoder_periods(x).contiguous()
     k9_out = torch.empty((2000, 45), device=dev)
     k9_counts = torch.zeros((2000, 2), dtype=torch.int32, device=dev)
@@ -623,6 +697,8 @@ def main() -> int:
                 per = [chip_smoke._median_ms(lambda: k8_run(lib, f), 10) for f in feats]
                 print(f"K8 {variant}: P2..P6 " + " / ".join(f"{x:.3f}" for x in per)
                       + f" ms, five levels {sum(per):.3f} ms")
+                if variant == "as built":
+                    states_turns("K8", lib)
                 continue
             if kernel == "K9":
                 ms = chip_smoke._median_ms(lambda: k9_run(lib), 10)
@@ -637,6 +713,8 @@ def main() -> int:
                        for i in range(len(levels))]
                 print(f"K7 weight gradient {variant}: P2..P6 " + " / ".join(f"{x:.3f}" for x in per)
                       + f" ms, five levels {sum(per):.3f} ms")
+                if variant == "as built":
+                    states_turns("K7", lib)
                 continue
             if kernel in ("K3", "K4"):
                 ms = chip_smoke._median_ms(lambda: (k3_run if kernel == "K3" else k4_run)(lib), 10)
@@ -646,6 +724,8 @@ def main() -> int:
                 per = [chip_smoke._median_ms(lambda: k1_run(lib, f), 10) for f in feats]
                 print(f"K1 {variant}: P2..P6 " + " / ".join(f"{x:.3f}" for x in per)
                       + f" ms, five levels {sum(per):.3f} ms")
+                if variant == "as built":
+                    states_turns("K1", lib)
                 continue
             for rows in (8, 4):
                 per = [chip_smoke._median_ms(lambda: k5_run(lib, i, rows), 10)

@@ -8,8 +8,10 @@ temporary directory, breaks one line of one CUDA source in the copy, and
 runs there (a) that kernel's phase of ``chip_smoke.py`` and (b) that
 kernel's card tests. Both must fail on every mutant; the script prints the
 phase's own report (how far outside the bound the broken kernel lands) and
-exits non-zero if any mutant passes a check. The repository itself is never
-edited.
+exits non-zero if any mutant passes a check. A run killed at its time limit
+(``TIMEOUT``, or ``HANG_TIMEOUT`` for a mutant that breaks a barrier
+protocol and so hangs its launch) counts as a failing check. The
+repository itself is never edited.
 """
 
 from __future__ import annotations
@@ -23,8 +25,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PKG = "snn_automotive_object_detection_tpu_torch"
 
-# The card tests that reach K7.
+# The card tests that reach K7, and its bf16-state instance.
 K7_TESTS = "rpn_head_bwd or train_backward or wide_readout"
+K7_S16_TESTS = "rpn_head_bwd_s16 or bf16_states_backward or bf16_state_training_step"
+# A run past its time limit is killed and counts as a failing check: a
+# broken mbarrier protocol hangs the launch rather than giving wrong numbers.
+# Mutants expected to hang ("hangs" in the description) get the short limit.
+TIMEOUT, HANG_TIMEOUT = 600, 180
 
 # (name, source under csrc/, the line as it stands, the broken line,
 #  chip_smoke phase, pytest -k expression)
@@ -143,6 +150,27 @@ MUTANTS = [
     ("K1 bf16 states: the threshold left at f32(0.1), not rounded to bf16",
      "rpn_head_common.cuh", "const bool s = (vd - kVth16) > 0.0f;",
      "const bool s = (vd - 0.1f) > 0.0f;", "check_rpn_s16", "rpn_head_s16"),
+    ("K7 bf16 states: the rerun on lif_element, with f32 states",
+     "rpn_head_bwd.cu",
+     "rpn::lif_element_s16(__bfloat162float(c4[e]), li[t], v[e], cu[e], ss[e], vd[t][e]);",
+     "rpn::lif_element(__bfloat162float(c4[e]), li[t], v[e], cu[e], ss[e], vd[t][e]);",
+     "check_rpn_s16_train", K7_S16_TESTS),
+    ("K7 bf16 states: the reverse sweep's threshold left at f32(0.1), not bf16(0.1)",
+     "rpn_head_bwd.cu", "const float u = vd[t][e] - (kS16 ? rpn::kVth16 : 0.1f);",
+     "const float u = vd[t][e] - 0.1f;", "check_rpn_s16_train", K7_S16_TESTS),
+    ("K1 bf16 states: the training instance's currents not rounded to bf16 (truncated: the "
+     "f32 sums' upper halves), even channels",
+     "rpn_head.cu", "o.x = __float2bfloat16_rn(acc[4 * j + 2 * h]);",
+     "o.x = kSave && kS16 ? __float2bfloat16_rz(acc[4 * j + 2 * h])"
+     " : __float2bfloat16_rn(acc[4 * j + 2 * h]);", "check_rpn_s16_train",
+     K7_S16_TESTS + " or rpn_head_s16_kernel"),
+    ("K8 bf16 states: the pair instance launched without kS16 (f32 states)",
+     "rpn_head.cu", "return launch_level<false, kPairCluster, true>(",
+     "return launch_level<false, kPairCluster, false>(", "check_rpn_x2_s16", "x2_s16"),
+    ("K8: one block's bit dropped from the pair's multicast mask (the launch hangs; killed)",
+     "rpn_head.cu", "&full[slot], (uint16_t)((1 << kCl) - 1), (c % 4) * kK,",
+     "&full[slot], (uint16_t)(kCl == 4 ? 0x7 : (1 << kCl) - 1), (c % 4) * kK,",
+     "check_rpn_x2", "rpn_head_x2"),
     ("K9: the last step left out of the f32 LI readout scan",
      "spike_gemm.cuh", "for (int t = 0; t < c.T; ++t) {\n        const float ij",
      "for (int t = 0; t < c.T - 1; ++t) {\n        const float ij",
@@ -189,7 +217,7 @@ chip_smoke.{phase}(dev, torch.Generator(device=dev).manual_seed(1234), [])
 """
 
 
-def _run(cmd, cwd, timeout=600):
+def _run(cmd, cwd, timeout=TIMEOUT):
     """``cmd`` in ``cwd``; a run past ``timeout`` seconds is killed and
     reported as exit code -9 with what it printed so far."""
     try:
@@ -220,16 +248,19 @@ def main() -> int:
                 print(f"chip_mutants: {src}: the line to break is not there once")
                 return 1
             path.write_text(text.replace(old, new))
-            smoke = _run([sys.executable, "-c", PHASE.format(phase=phase)], tree)
+            limit = HANG_TIMEOUT if "hangs" in name else TIMEOUT
+            smoke = _run([sys.executable, "-c", PHASE.format(phase=phase)], tree, limit)
             card = _run([sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider",
-                         "-q", "tests/test_torch_cuda_kernels.py", "-k", tests], tree)
+                         "-q", "tests/test_torch_cuda_kernels.py", "-k", tests], tree, limit)
         print(f"mutant {name}")
         for line in (smoke.stdout + smoke.stderr).strip().splitlines()[-6:]:
             print(f"  smoke: {line}")
         print(f"  smoke exit {smoke.returncode}; card tests exit {card.returncode}: "
               f"{card.stdout.strip().splitlines()[-1] if card.stdout.strip() else ''}")
-        # pytest exits 1 when tests ran and failed (5 would mean none ran).
-        if "chip_smoke: FAILED" not in smoke.stderr or card.returncode != 1:
+        # pytest exits 1 when tests ran and failed (5 would mean none ran);
+        # -9 is a run killed at the time limit.
+        if ("chip_smoke: FAILED" not in smoke.stderr and smoke.returncode != -9) \
+                or card.returncode not in (1, -9):
             survived += 1
             print("  SURVIVED a check")
     print(f"chip_mutants: {len(chosen) - survived} of {len(chosen)} mutants fail both checks")

@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
   1. device  - a CUDA device must be present; prints its name and power
                limit as nvidia-smi reports them.
   2. build   - compiles the hand-written kernels (the nine TPU kernels'
-               counterparts and K1's bf16-state instance; K8 and that
-               instance are instances of K1's kernel in K1's source) from
+               counterparts and the bf16-state instances of K1, its
+               training instance, K7 and K8; K8 and K1's instances live in
+               K1's source, K7's in K7's) from
                snn_automotive_object_detection_tpu_torch/csrc (one nvcc per
                source, all started together).
   3. kernels - at the flagship shapes (768x1536 bucket, batch 2, 1000
@@ -36,7 +37,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
                instance for bf16 neuron states is held to its plain version
                on the five flagship levels with flipped spikes counted, and
                with none allowed on weights whose conv sums are exact in any
-               order, and timed in turns with K1. The RPN head
+               order, and timed in turns with K1. With bf16 states too,
+               K1's training instance (held as that instance, its readout,
+               counts and spike sums that instance's bits, no flip and its
+               currents the plain version's bits on those weights), K7 on
+               its saved tensors (K7's bounds) and K8 (K1's bf16-state bits),
+               each timed in turns with the instance it extends. The RPN head
                (K1) is held to the plain version with flipped LIF spikes
                counted neuron by neuron, timed level by level and with the
                dense TFLOP/s it reaches; its training instance must give
@@ -90,7 +96,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
                six kernels never,
                and no plain version runs on the GPU. Prints steps/s,
                images/s, peak memory and one profiled step by kernel with
-               its count of stream synchronisations.
+               its count of stream synchronisations. Then the same step
+               with bf16 neuron states (--no-amp): the RPN head on K1's and
+               K7's bf16-state instances, five launches each a step.
 
   6. eval    - detector_apply(training=False, collect_rates=False), the
                plain evaluation call, on the flagship and on
@@ -123,13 +131,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
                with bf16 neuron states, each with exact launch counts
                (ANN RPN: no K1; ANN box head: no K3 or K4; bf16 states:
                K1's bf16-state instance x5, K3, no K4), finite, well-formed
-               outputs and images/s.
+               outputs and images/s; bf16 states also rates off in turns
+               with the pairing switch on (K8's bf16-state instance x5) and
+               off, the same bits either way.
  11. cli     - the port's training CLI and T-sweep CLI on a seeded
                COCO-format set in a temporary directory (flagship
                configuration at its bucket): one epoch, a second from
                --resume, --test-only --load-model of its checkpoint (12 stats, exact launches per
-               evaluation batch), the NOD dump, spike rates, and the sweep
-               over t_det 8, 12, 40 (the scan above 32 steps).
+               evaluation batch), the NOD dump, spike rates, the sweep
+               over t_det 8, 12, 40 (the scan above 32 steps), the noise
+               sweeps (gaussian 0 and 0.05, rain 0 and 50), new-object
+               discovery on the dump, the energy recompute from the rates
+               and one --no-amp epoch (K1's and K7's bf16-state instances).
 
 The line before last is a JSON object listing the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -1213,10 +1226,177 @@ def check_rpn_s16(dev, g, results):
                    "exact_currents_spiked": g_spiked, "exact_currents_err": g_err})
 
 
+def check_rpn_s16_train(dev, g, results):
+    """K1's training instance and K7 with bf16 neuron states on the five
+    flagship levels (T = 8, 15 readout channels, features over [0, 3)).
+    The training instance against its plain version as ``check_rpn_s16``
+    holds K1's bf16-state instance (flipped spikes counted, at most 0.1% of
+    the neurons that spiked), its readout, counts and spike sums equal to
+    that instance's bits, its periods the plain version's; on grid weights
+    (:func:`_grid_weights`) no flip and its saved currents the plain
+    version's bits. K7's bf16-state instance against its plain version on
+    the same saved tensors with K7's bounds (``_hold_rpn_bwd``; against the
+    replaying plain version where the currents are its bits), on random and
+    on grid weights. The training forward timed in turns with the
+    evaluation instance, K7 with its sweep apart, each beside its bound."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
+    from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
+
+    bf = torch.bfloat16
+    levels = [(192, 384), (96, 192), (48, 96), (24, 48), (12, 24)]
+    feats = [torch.rand((2, h, w, 256), generator=g, device=dev).mul(3.0).to(bf)
+             for h, w in levels]
+    cots = [torch.randn((2, h, w, 15), generator=g, device=dev) for h, w in levels]
+    w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.01
+    w_out = torch.randn((256, 15), generator=g, device=dev) * 0.01
+    w_grid = _grid_weights((3, 3, 256, 256), g, dev)
+    wo = w_out.to(bf).contiguous()
+
+    def train16(w9, spike_sum=True):
+        return [k1._launch(f, w9, wo, 8, spike_sum, True, bf16_states=True) for f in feats]
+
+    err = worst = 0.0
+    for label, w in (("random", w_shared), ("grid", w_grid)):
+        w9t = k1._taps_t(w)
+        trains = train16(w9t)
+        evals = [k1._launch(f, w9t, wo, 8, True, bf16_states=True) for f in feats]
+        same = all(torch.equal(a[i], b[i]) for a, b in zip(trains, evals) for i in range(4))
+        plains = [k1.rpn_level_plain(f, w, w_out, 8, True, save=True, bf16_states=True)
+                  for f in feats]
+        e, enc, flips, spiked = _hold_rpn_eval([t[:4] for t in trains], [p[:4] for p in plains],
+                                               wo, f"on the five flagship levels, {label} "
+                                               "weights", label="K1 rpn_head_s16_save")
+        per_equal = all(torch.equal(t[4].per, p[4].per) for t, p in zip(trains, plains))
+        cur_same = [torch.equal(t[4].cur, p[4].cur) for t, p in zip(trains, plains)]
+        cur_ex = max(kc.excess(t[4].cur.float(), p[4].cur.float())
+                     for t, p in zip(trains, plains))
+        print(f"K1 rpn_head_s16_save ({label} weights): readout, counts and spike sums equal "
+              f"the bf16-state evaluation instance's bits {same}; periods equal the plain "
+              f"version's {per_equal}; currents the plain version's bits per level {cur_same}, "
+              f"{cur_ex:.3g} of the bound 2^-7|want| + {kc.ATOL}")
+        if not same or not per_equal or cur_ex > 1 or (label == "grid" and (
+                flips or not all(cur_same))):
+            _fail(f"K1's bf16-state training instance disagrees with its evaluation instance "
+                  f"or its plain version ({label} weights)")
+        del plains
+        for f, t, c, cs in zip(feats, trains, cots, cur_same):
+            a = k1._launch_bwd(_fresh(t[4]), wo, c, 8, True, bf16_states=True)
+            a2 = k1._launch_bwd(_fresh(t[4]), wo, c, 8, bf16_states=True)
+            own = k1.rpn_level_bwd_from_saved_plain(t[4], w_out, c, 8, bf16_states=True)
+            b = k1.rpn_level_bwd_plain(f, w, w_out, c, 8, True, bf16_states=True)
+            e7, ex7 = _hold_rpn_bwd(a, a2, own, b, t[3], c, cs)
+            if label == "random":
+                err, worst = max(err, e7), max(worst, ex7)
+        if label == "random":
+            s_err, s_enc, s_flips, s_spiked, saved = e, enc, flips, spiked, [t[4] for t in trains]
+        else:
+            g_flips, g_spiked = flips, spiked
+    print(f"K7 rpn_head_bwd_s16: max |diff| {err:.3g}, {worst:.3g} of the bound")
+
+    w9t = k1._taps_t(w_shared)
+
+    def forward(save):
+        return [k1._launch(f, w9t, wo, 8, False, save, bf16_states=True) for f in feats]
+
+    t_save, t_eval = _turns(lambda: forward(True), lambda: forward(False))
+    pms = _median_ms(lambda: [k1.rpn_level_plain(f, w_shared, w_out, 8, save=True,
+                                                 bf16_states=True) for f in feats], 3)
+    print(f"K1 rpn_head_s16_save, five levels: {t_save[0]:.3f} and {t_save[1]:.3f} ms, the "
+          f"bf16-state evaluation instance {t_eval[0]:.3f} and {t_eval[1]:.3f} ms in turns")
+    neurons = sum(2 * h * w * 256 * 8 for h, w in levels)
+    outs = forward(True)
+    # K1's operations; its bytes and, written once, the saved tensors.
+    _record(results, "rpn_head_s16_save", "snn/pallas_rpn.py:449", s_err, min(t_save), pms,
+            _bound(_nbytes(*feats, w9t, wo, *[a[0] for a in outs], *[a[1] for a in outs],
+                           *[a[2] for a in outs], *[x for a in outs for x in a[3]]),
+                   2.0 * s_enc * 9 * 256 + sum(2.0 * 2 * h * w * 256 * 15 for h, w in levels),
+                   10.0 * neurons),
+            turns_ms={"training instance": t_save, "evaluation instance": t_eval},
+            flips={"neurons": s_flips, "spiked": s_spiked, "exact_currents": g_flips,
+                   "exact_currents_spiked": g_spiked})
+
+    def k7(phases, states16=True):
+        return lambda xs: [k1._launch_bwd(x, wo, c, 8, phases=phases, bf16_states=states16)
+                           for x, c in zip(xs, cots)]
+
+    def prepare():
+        return [_fresh(sv) for sv in saved]
+
+    ms16 = _median_ms_fresh(prepare, k7(7), 10)
+    sweep16 = _median_ms_fresh(prepare, k7(1), 10)
+    sweep32 = _median_ms_fresh(prepare, k7(1, False), 10)
+    ms16b = _median_ms_fresh(prepare, k7(7), 10)
+    pms7 = _median_ms(lambda: [k1.rpn_level_bwd_from_saved_plain(sv, w_out, c, 8,
+                                                                  bf16_states=True)
+                               for sv, c in zip(saved, cots)], 3)
+    print(f"K7 rpn_head_bwd_s16, five levels: {ms16:.3f} and {ms16b:.3f} ms; its sweep "
+          f"{sweep16:.3f} ms, the f32-state sweep on the same tensors {sweep32:.3f} ms; plain "
+          f"version from the saved tensors {pms7:.3f} ms")
+    got = k7(7)(prepare())
+    px = [2 * h * w for h, w in levels]
+    _record(results, "rpn_head_bwd_s16", "snn/pallas_rpn.py:1012", err, min(ms16, ms16b), pms7,
+            _bound(2 * _nbytes(*[sv.cur for sv in saved])
+                   + _nbytes(*[sv.per for sv in saved], *[sv.ssum for sv in saved], *cots, wo,
+                             *[a[0] for a in got], *[a[1] for a in got]),
+                   2.0 * s_enc * 9 * 256,
+                   sum(2 * 2.0 * p * 256 * 15 for p in px) + 25.0 * 8 * 256 * sum(px)),
+            sweep_ms={"bf16 states": sweep16, "f32 states": sweep32})
+
+
+def check_rpn_x2_s16(dev, g, results):
+    """K8's instance for bf16 neuron states on the five flagship levels (N =
+    2, T = 8, 15 readout channels): its readout and spike sums equal to K1's
+    bf16-state instance's bit for bit, held to its plain version with
+    flipped spikes counted, and timed in turns with K1's bf16-state
+    instance."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
+
+    bf = torch.bfloat16
+    levels = [(192, 384), (96, 192), (48, 96), (24, 48), (12, 24)]
+    feats = [torch.rand((2, h, w, 256), generator=g, device=dev).mul(2.0).to(bf)
+             for h, w in levels]
+    w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.01
+    w_out = torch.randn((256, 15), generator=g, device=dev) * 0.01
+    w9t, wo = k1._taps_t(w_shared), w_out.to(bf).contiguous()
+    got, ones, want = [], [], []
+    for f in feats:
+        got.append(k1._launch_x2(f, w9t, wo, 8, True, bf16_states=True))
+        ones.append(k1._launch(f, w9t, wo, 8, True, bf16_states=True))
+        want.append(k1.rpn_level_x2_plain(f, w_shared, w_out, 8, True, bf16_states=True))
+    equal = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[3]) for a, b in zip(got, ones))
+    err, _, flips, spiked = _hold_rpn_eval([(a[0], None, None, a[1]) for a in got],
+                                           [(b[0], None, None, b[1]) for b in want], wo,
+                                           "on the five flagship levels",
+                                           label="K8 rpn_head_x2_s16")
+    print(f"K8 rpn_head_x2_s16: readout and spike sums equal to K1 rpn_head_s16's bit for bit "
+          f"{equal}")
+    if not equal:
+        _fail("K8's bf16-state instance differs from K1's bf16-state instance")
+    t16, t8 = _turns(lambda: [k1._launch(f, w9t, wo, 8, bf16_states=True) for f in feats],
+                     lambda: [k1._launch_x2(f, w9t, wo, 8, bf16_states=True) for f in feats])
+    print(f"K8 rpn_head_x2_s16 against K1 rpn_head_s16, five levels, in turns: K8 {t8[0]:.3f} "
+          f"and {t8[1]:.3f} ms, K1 {t16[0]:.3f} and {t16[1]:.3f} ms")
+    pms = _median_ms(lambda: [k1.rpn_level_x2_plain(f, w_shared, w_out, 8, bf16_states=True)
+                              for f in feats], 3)
+    enc = sum(int(b[1].sum()) for b in ones)
+    neurons = sum(2 * h * w * 256 * 8 for h, w in levels)
+    outs = [k1._launch_x2(f, w9t, wo, 8, bf16_states=True) for f in feats]
+    _record(results, "rpn_head_x2_s16", "snn/pallas_rpn.py:710", err, min(t8), pms,
+            _bound(_nbytes(*feats, w9t, wo, *outs),
+                   2.0 * enc * 9 * 256 + sum(2.0 * 2 * h * w * 256 * 15 for h, w in levels),
+                   10.0 * neurons),
+            turns_ms={"K8 bf16 states": t8, "K1 bf16 states": t16},
+            flips={"neurons": flips, "spiked": spiked})
+
+
 # The kernel phases in the order they draw from one generator.
 KERNEL_CHECKS = (check_rpn_head, check_roi_align, check_encoder_fc6, check_box_tail, check_fpn,
                  check_stem, check_rpn_bwd, check_wide_readout, check_rpn_x2,
-                 check_box_head_fused, check_rpn_s16)
+                 check_box_head_fused, check_rpn_s16, check_rpn_s16_train, check_rpn_x2_s16)
 
 
 def _pre_nms_rows(cfg):
@@ -1313,9 +1493,8 @@ def main_path(dev, iters=3):
 
     print(f"main path: {iters} batches of {n} x {h} x {w}: launches {launches}, "
           f"plain versions on the GPU {plain_calls}")
-    want = {"rpn_head": 5 * iters, "roi_align": iters, "encoder_fc6": iters,
-            "box_tail": iters, "fpn_level": 4 * iters, "stem": iters,
-            "rpn_head_bwd": 0, "rpn_head_x2": 0, "box_head_fused": 0, "rpn_head_s16": 0}
+    want = {**{k: 0 for k in cb.KERNELS}, "rpn_head": 5 * iters, "roi_align": iters,
+            "encoder_fc6": iters, "box_tail": iters, "fpn_level": 4 * iters, "stem": iters}
     if launches != want:
         _fail(f"the main path's launches are not {want}")
     if any(v != 0 for v in plain_calls.values()):
@@ -1387,11 +1566,11 @@ def eval_path(dev, backbone, iters=3):
             print(f"{backbone}, rates off, pairing {'on' if paired else 'off'}: {iters} batches "
                   f"of {n} x {h} x {w}: launches {launches}; {n * iters / dt:.3f} images/s "
                   f"({dt / iters * 1000:.1f} ms per batch)")
-            want = {"rpn_head_x2": levels * iters if paired else 0,
+            want = {**{k: 0 for k in cb.KERNELS},
+                    "rpn_head_x2": levels * iters if paired else 0,
                     "rpn_head": 0 if paired else levels * iters,
                     "roi_align": iters, "encoder_fc6": iters, "box_tail": iters,
-                    "fpn_level": 4 * iters if resnet else 0, "stem": iters if resnet else 0,
-                    "rpn_head_bwd": 0, "box_head_fused": 0, "rpn_head_s16": 0}
+                    "fpn_level": 4 * iters if resnet else 0, "stem": iters if resnet else 0}
             if launches != want:
                 _fail(f"the launches of the rates-off path on {backbone} are not {want}")
             if any(v != 0 for v in plain_calls.values()):
@@ -1532,6 +1711,53 @@ def _check_ann_outputs(out, n, d):
         _fail("the ANN box head's outputs are not well formed")
 
 
+def _bf16_state_pairing(params, batches, cfg, iters):
+    """Rates-off evaluation with bf16 neuron states in turns with the RPN
+    head's pairing switch on and off: K8's bf16-state instance x5 per batch
+    with it on and K1's bf16-state instance x5 with it off (K2, K3, K5, K6
+    x1, x1, x4, x1, no K4: the tail is a scan), no plain version, and every
+    output the same bits either way (K8 gives K1's bits per image). Returns
+    the launches of both turns, summed."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.models.detector import detector_apply
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+
+    default = cuda_rpn.PAIR_IMAGES
+    runs = {}
+    try:
+        for paired in (True, False):
+            cuda_rpn.PAIR_IMAGES = paired
+            detector_apply(params, batches[0], cfg)      # warm-up
+            torch.cuda.synchronize()
+            cb.reset_counts()
+            t0 = time.perf_counter()
+            for i in range(iters):
+                out, _ = detector_apply(params, batches[i % 2], cfg)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = dict(cb.LAUNCHES)
+            want = {**{k: 0 for k in cb.KERNELS}, "stem": iters, "fpn_level": 4 * iters,
+                    "roi_align": iters, "encoder_fc6": iters,
+                    ("rpn_head_x2_s16" if paired else "rpn_head_s16"): 5 * iters}
+            print(f"route bf16 states, rates off, pairing {'on' if paired else 'off'}: {iters} "
+                  f"batches: launches {launches}; {2 * iters / dt:.3f} images/s")
+            if launches != want:
+                _fail(f"the bf16-state route's rates-off launches are not {want}")
+            if any(v != 0 for v in cb.PLAIN_CUDA_CALLS.values()):
+                _fail("a plain version ran on the GPU on the bf16-state route")
+            runs[paired] = (out, launches)
+    finally:
+        cuda_rpn.PAIR_IMAGES = default
+    differ = {k: int((v != runs[False][0][k]).sum()) for k, v in runs[True][0].items()}
+    print(f"route bf16 states, rates off: elements that differ between pairing on and off "
+          f"{differ}")
+    if any(differ.values()):
+        _fail("the bf16-state route's outputs differ between pairing on and off")
+    return {k: runs[True][1][k] + runs[False][1][k] for k in runs[True][1]}
+
+
 def routes_path(dev, iters=2):
     """``detector_apply`` evaluation with rates on the factory's other heads
     and states at the flagship width (2 x 768 x 1536, 9 classes, T_rpn = 8,
@@ -1540,7 +1766,9 @@ def routes_path(dev, iters=2):
     states. Exact launch counts per batch: the ANN RPN head launches no K1,
     the ANN box head no K3 or K4 (K2 still pools for it), bf16 states K1's
     bf16-state instance x5, K3 x1 and no K4; finite, well-formed outputs;
-    host-clock images/s of each. Returns the launches of all of them."""
+    host-clock images/s of each. bf16 states also run rates off in turns
+    with the pairing switch on and off (:func:`_bf16_state_pairing`).
+    Returns the launches of all of them."""
     import torch
 
     from snn_automotive_object_detection_tpu_torch.models.detector import detector_apply
@@ -1595,6 +1823,9 @@ def routes_path(dev, iters=2):
               f"{out['objectness'].max().item():.4f}")
         for k, v in launches.items():
             total[k] += v
+        if rpn_snn and det_snn and not states:
+            for k, v in _bf16_state_pairing(params, batches, cfg, iters).items():
+                total[k] += v
     return total
 
 
@@ -1609,9 +1840,15 @@ def cli_path(dev, n_images=4, image_hw=(768, 1536)):
     launches of its evaluation batches exact: rates-off K6 x1, K5 x4, K1
     x5, K2, K3, K4 x1 per batch), an ``-ext-prop-det`` dump,
     ``--extract-spike-rates`` and the T sweep over t_det 8, 12 and 40 (the
-    box head's kernels up to 32 steps, its scan above). Prints host-clock
-    images/s of the evaluation and the seconds of each run. Returns the
-    launches of all of them."""
+    box head's kernels up to 32 steps, its scan above); then the analysis
+    CLIs: the noise sweep of the epoch's weights at gaussian variance 0 and
+    0.05 and at 0 and 50 rain drops (the evaluation's launches per point),
+    new-object discovery on the dump (no panels: the card's machine has no
+    Matplotlib), the energy recompute from the rates; last one epoch with
+    ``--no-amp`` (bf16 neuron states: K1's and K7's bf16-state instances x5
+    a step, K1's x5 a validation batch). Prints host-clock images/s of the
+    evaluation and the seconds of each run. Returns the launches of all of
+    them."""
     import json
     import os
     import tempfile
@@ -1619,6 +1856,9 @@ def cli_path(dev, n_images=4, image_hw=(768, 1536)):
     import numpy as np
     import torch
 
+    from snn_automotive_object_detection_tpu_torch.cli import energy_efficiency_plot as energy
+    from snn_automotive_object_detection_tpu_torch.cli import new_object_discovery as nod
+    from snn_automotive_object_detection_tpu_torch.cli import noise_calculations as noise
     from snn_automotive_object_detection_tpu_torch.cli import test_and_energy_eff as sweep
     from snn_automotive_object_detection_tpu_torch.cli import train as cli
     from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
@@ -1708,6 +1948,47 @@ def cli_path(dev, n_images=4, image_hw=(768, 1536)):
             print(f"CLI T sweep t_det = {t_det}: {rows} in {secs:.1f} s; K3 + K4 launches {box}")
             if len(rows) != 1 or rows[0][:2] != [8, t_det] or (box == 0) != (t_det > 32):
                 _fail(f"the T sweep at t_det = {t_det} did not take the route of its steps")
+
+        # The analysis CLIs on the same set: the noise sweeps of the epoch's
+        # weights, new-object discovery on the dump, the energy recompute
+        # from the rates.
+        weights = os.path.join(out, "model_cityscapes_1.pth")
+        for kind, extra, points in (
+                ("gaussian", ["--gaussian-max", "0.05", "--gaussian-step", "0.05"], [0.0, 0.05]),
+                ("rain", ["--rain-noise", "--rain-max", "50", "--rain-step", "50"], [0, 50])):
+            rows, launches, secs = run(noise, "--load-model", weights, *extra)
+            want = {k: len(points) * batches * per_batch.get(k, 0) for k in cb.KERNELS}
+            print(f"CLI noise sweep, {kind}: {rows} in {secs:.1f} s; launches {launches}")
+            if [r[:2] for r in rows] != [[kind, p] for p in points] or launches != want \
+                    or not np.isfinite([r[2:] for r in rows]).all():
+                _fail(f"the {kind} noise sweep did not give one finite row per point with "
+                      f"the evaluation's launches {want}")
+        t0 = time.perf_counter()
+        found = nod.main(nod.get_args_parser().parse_args(
+            ["-d", os.path.join(tmp, "ds.json"), "-f",
+             os.path.join(out, "test_results_per_img_cityscapes.npz")]))
+        print(f"CLI new-object discovery: {len(found)} images, "
+              f"{sum(len(p['new_boxes']) for p in found)} candidate boxes in "
+              f"{time.perf_counter() - t0:.2f} s")
+        if len(found) != n_images or not os.path.exists(
+                os.path.join(out, "new_objects_cityscapes", "params.txt")):
+            _fail("new-object discovery did not process the dump")
+        report = energy.main(energy.get_args_parser().parse_args(
+            ["-f", os.path.join(out, "spike_rates_val_cityscapes.npz"), "-t-rpn", "8",
+             "-t-det", "12", "--bucket", "768", "1536"]))
+        if not 0 < report["reduction"] < float("inf"):
+            _fail("the energy recompute gave no finite reduction")
+        # One epoch with bf16 neuron states (--no-amp): the RPN head on K1's
+        # and K7's bf16-state instances; the validation loss runs the forward.
+        steps = n_images // 2
+        _, launches, secs = run(cli, "--epochs", "1", "--no-amp", "--out-dir",
+                                os.path.join(tmp, "out16"))
+        want = {**{k: 0 for k in cb.KERNELS}, "stem": steps + batches,
+                "rpn_head_s16_save": 5 * (steps + batches), "rpn_head_bwd_s16": 5 * steps}
+        print(f"CLI --no-amp, one epoch of {steps} steps and validation: {secs:.1f} s, launches "
+              f"{launches}")
+        if launches != want:
+            _fail(f"the --no-amp epoch's launches are not {want}")
     return total
 
 
@@ -1970,8 +2251,11 @@ def _tree_sums(leaves):
     return torch.stack([leaf.detach().double().sum() for leaf in leaves])
 
 
-def train_path(dev, steps=2):
-    """The flagship training step, frozen backbone, through make_train_step."""
+def train_path(dev, steps=2, bf16_states=False):
+    """The flagship training step, frozen backbone, through make_train_step;
+    with ``bf16_states`` the same step with bf16 neuron states
+    (``snn_state_dtype=None``, the reference's --no-amp), whose RPN head is
+    K1's and K7's bf16-state instances."""
     import torch
 
     from snn_automotive_object_detection_tpu_torch.models.factory import (
@@ -1982,7 +2266,9 @@ def train_path(dev, steps=2):
     from snn_automotive_object_detection_tpu_torch.utils.weights import (
         flatten_tree, tree_leaves)
 
-    cfg = DetectorConfig(num_classes=9, t_rpn=8, t_det=12)
+    cfg = DetectorConfig(num_classes=9, t_rpn=8, t_det=12,
+                         snn_state_dtype=None if bf16_states else torch.float32)
+    what = "training, bf16 states" if bf16_states else "training"
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     trainable, frozen = optim.split_trainable(params)
     optimizer, scheduler = optim.build_optimizer(trainable, "AdamW", 0.0025)
@@ -2017,19 +2303,19 @@ def train_path(dev, steps=2):
     launches = dict(cb.LAUNCHES)
     plain_calls = dict(cb.PLAIN_CUDA_CALLS)
 
-    print(f"training: {steps} steps of {n} x {h} x {w}: launches {launches}, plain "
+    print(f"{what}: {steps} steps of {n} x {h} x {w}: launches {launches}, plain "
           f"versions on the GPU {plain_calls}")
-    want = {"stem": steps, "rpn_head": 5 * steps, "rpn_head_bwd": 5 * steps,
-            "roi_align": 0, "encoder_fc6": 0, "box_tail": 0, "fpn_level": 0,
-            "rpn_head_x2": 0, "box_head_fused": 0, "rpn_head_s16": 0}
+    fwd, bwd = ("rpn_head_s16_save", "rpn_head_bwd_s16") if bf16_states else ("rpn_head",
+                                                                              "rpn_head_bwd")
+    want = {**{k: 0 for k in cb.KERNELS}, "stem": steps, fwd: 5 * steps, bwd: 5 * steps}
     if launches != want:
-        _fail(f"the training path's launches are not {want}")
+        _fail(f"the {what} path's launches are not {want}")
     if any(v != 0 for v in plain_calls.values()):
-        _fail("a plain version ran on the GPU in the training path")
+        _fail(f"a plain version ran on the GPU in the {what} path")
     names = ("loss_objectness", "loss_rpn_box_reg", "loss_classifier", "loss_box_reg")
     for i, losses in enumerate([first] + history):
         row = {k: round(losses[k].item(), 5) for k in names + ("loss_total",)}
-        print(f"training: step {i} losses {row}")
+        print(f"{what}: step {i} losses {row}")
         if sorted(losses) != sorted(names + ("loss_total",)) or not all(
                 torch.isfinite(v).all() for v in losses.values()):
             _fail("a training loss is missing or not finite")
@@ -2038,17 +2324,17 @@ def train_path(dev, steps=2):
             gr = leaf.grad
             if gr is None or not torch.isfinite(gr).all() or not (gr != 0).any():
                 _fail(f"the gradient of {group}/{name} is missing, not finite or all zero")
-            print(f"training: max |grad {group}/{name}| {gr.abs().max().item():.4g}")
+            print(f"{what}: max |grad {group}/{name}| {gr.abs().max().item():.4g}")
     if bool((_tree_sums(t_leaves) == t_before).any()):
         _fail("a trainable leaf did not move")
     if not torch.equal(_tree_sums(f_leaves), f_before) or any(
             leaf.grad is not None for leaf in f_leaves):
         _fail("a frozen leaf moved or got a gradient")
-    print(f"training: {steps / dt:.3f} steps/s, {n * steps / dt:.3f} images/s "
+    print(f"{what}: {steps / dt:.3f} steps/s, {n * steps / dt:.3f} images/s "
           f"({dt / steps * 1000:.1f} ms per step, peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB); {len(t_leaves)} "
           f"trainable leaves moved, {len(f_leaves)} frozen leaves did not")
-    _profile(lambda: step(trainable, frozen, batch, g), "training step")
+    _profile(lambda: step(trainable, frozen, batch, g), f"{what} step")
     return launches
 
 
@@ -2089,6 +2375,7 @@ def main() -> int:
     results = []
     check_kernels(dev, results)
     by_path = {"inference": main_path(dev), "training": train_path(dev),
+               "training_bf16_states": train_path(dev, bf16_states=True),
                "evaluation": eval_path(dev, "resnet50_fpn"),
                "mobilenet": eval_path(dev, "mobilenet_v3_large_fpn"),
                "fused_box_head": fused_head_path(dev),

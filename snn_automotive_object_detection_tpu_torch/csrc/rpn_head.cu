@@ -66,7 +66,11 @@
 // currents as cur [N, H, W, T, 256] (16-byte stores along the channels,
 // the pixel's T x 256 block contiguous), the block's own periods as
 // per [N, H, W, 256] uint8 and the spike sums. Its readout, counts and
-// spike sums are the evaluation instance's bits.
+// spike sums are the evaluation instance's bits. With bf16 states (kSave
+// and kS16, C entry rpn_level_save_s16_bf16; the reference's training VJP
+// with lif_dtype = bf16) it saves the same three tensors, the currents as
+// the bf16-state LIF took them, and its readout, counts and spike sums are
+// rpn_level_s16_bf16's bits.
 //
 // Pair instance (cluster size 4, C entry rpn_level_x2_bf16): on the TPU
 // the pair shared one copy of the weights in VMEM; here the blocks of both
@@ -78,7 +82,8 @@
 // block cannot hold both images' rows: 8 steps x 16 pixels x 256 channels
 // of f32 accumulators already fill its consumers' registers. Per image the
 // pair instance computes K1's sums in K1's order, so its readout and spike
-// sums are K1's bits; it writes no spike counts.
+// sums are K1's bits; it writes no spike counts. With bf16 states (kS16, C
+// entry rpn_level_x2_s16_bf16) it gives rpn_level_s16_bf16's bits per image.
 //
 // The plain version sums the conv in another order, so a current can
 // round to the neighbouring bf16 value and, rarely, flip a spike: the
@@ -456,6 +461,16 @@ extern "C" int rpn_level_save_bf16(const void* feat, const void* w9_t, const voi
                                       H, W, T, n_out, stream);
 }
 
+// The training instance with bf16 states: the arguments of
+// rpn_level_save_bf16; the LIF of rpn_level_s16_bf16.
+extern "C" int rpn_level_save_s16_bf16(const void* feat, const void* w9_t, const void* wout,
+                                       const float* consts, float* out, void* counts,
+                                       float* ssum, void* cur, void* per, int N, int H, int W,
+                                       int T, int n_out, void* stream) {
+  return launch_level<true, kCluster, true>(feat, w9_t, wout, consts, out, counts, ssum, cur,
+                                            per, N, H, W, T, n_out, stream);
+}
+
 // The pair instance (K8): the arguments of rpn_level_bf16 with N even and
 // no spike counts; the readout and ssum (may be null) are K1's bits.
 extern "C" int rpn_level_x2_bf16(const void* feat, const void* w9_t, const void* wout,
@@ -463,6 +478,15 @@ extern "C" int rpn_level_x2_bf16(const void* feat, const void* w9_t, const void*
                                  int W, int T, int n_out, void* stream) {
   return launch_level<false, kPairCluster>(feat, w9_t, wout, consts, out, nullptr, ssum,
                                            nullptr, nullptr, N, H, W, T, n_out, stream);
+}
+
+// The pair instance with bf16 states: the arguments of rpn_level_x2_bf16;
+// per image the readout and ssum are rpn_level_s16_bf16's bits.
+extern "C" int rpn_level_x2_s16_bf16(const void* feat, const void* w9_t, const void* wout,
+                                     const float* consts, float* out, float* ssum, int N,
+                                     int H, int W, int T, int n_out, void* stream) {
+  return launch_level<false, kPairCluster, true>(feat, w9_t, wout, consts, out, nullptr, ssum,
+                                                 nullptr, nullptr, N, H, W, T, n_out, stream);
 }
 
 // The grid and the cluster dims that the evaluation instance (pair = 0) or

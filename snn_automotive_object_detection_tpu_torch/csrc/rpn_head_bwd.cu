@@ -20,6 +20,16 @@
 //   dwout   = ssum^T @ g                                   (g in f32)
 // Pixels outside the image never spike and carry no cotangent.
 //
+// bf16-state instance (template flag kS16 of the sweep, C entry
+// rpn_level_bwd_s16_bf16; the reference's _run_level_bwd with lif_dtype =
+// bf16, from rpn_level_save_s16_bf16's tensors): the rerun takes
+// lif_element_s16, so vd_t is the bf16-rounded decayed membrane the JAX
+// kernel stores in lif_dtype, and the spike test and u = vd_t - v_th take
+// v_th = bf16(0.1); lv, lam and gw and the coefficients 0.9, 0.1 and 0.8
+// stay f32, as the JAX kernel's f32 scratch and Python-float constants
+// keep them. The weight gradient and dwout read only dc and the spike
+// sums: one code for both instances.
+//
 // IN PLACE: the sweep writes dc over the saved currents (same shape and
 // dtype; nothing reads the currents afterwards), so the buffer handed in
 // as cur holds dc when the launch returns.
@@ -90,7 +100,7 @@ __device__ __forceinline__ bool arrives_last(int* counter, int parties) {
 
 constexpr int kSweepThreads = 256;   // four pixels, four channels a thread
 
-template <int kTMax>
+template <int kTMax, bool kS16>
 __global__ void __launch_bounds__(kSweepThreads)
 sweep_kernel(bf16* __restrict__ cur_dc,          // [P, T, C]: currents in, dc out
              const float* __restrict__ g,         // [P, n_out]
@@ -123,7 +133,11 @@ sweep_kernel(bf16* __restrict__ cur_dc,          // [P, T, C]: currents in, dc o
         const bf16* c4 = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          rpn::lif_element(__bfloat162float(c4[e]), li[t], v[e], cu[e], ss[e], vd[t][e]);
+          if constexpr (kS16) {
+            rpn::lif_element_s16(__bfloat162float(c4[e]), li[t], v[e], cu[e], ss[e], vd[t][e]);
+          } else {
+            rpn::lif_element(__bfloat162float(c4[e]), li[t], v[e], cu[e], ss[e], vd[t][e]);
+          }
         }
       }
     }
@@ -151,7 +165,7 @@ sweep_kernel(bf16* __restrict__ cur_dc,          // [P, T, C]: currents in, dc o
         const float lit = li[t];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const float u = vd[t][e] - 0.1f;
+          const float u = vd[t][e] - (kS16 ? rpn::kVth16 : 0.1f);
           const float keep = (u > 0.0f) ? 0.0f : 1.0f;     // 1 - s_t
           const float d = 100.0f * fabsf(u) + 1.0f;
           const float sp = 1.0f / (d * d);
@@ -391,16 +405,16 @@ __global__ void dwout_sum_kernel(const float* __restrict__ part_out,  // [S_out,
   dwout[e] = sum;
 }
 
-template <int kTMax>
+template <int kTMax, bool kS16>
 cudaError_t launch_sweep(void* cur_dc, const float* g, const void* wout, const float* consts,
                          float* ssum_sweep, int64_t P, int T, int n_out, cudaStream_t stream) {
   const int smem = n_out * kC * 2;
   cudaError_t err = cudaFuncSetAttribute(
-      sweep_kernel<kTMax>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      sweep_kernel<kTMax, kS16>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int64_t quads = (P + 3) / 4;
   const int blocks = (int)(quads < 132 * 16 ? quads : 132 * 16);
-  sweep_kernel<kTMax><<<blocks, kSweepThreads, smem, stream>>>(
+  sweep_kernel<kTMax, kS16><<<blocks, kSweepThreads, smem, stream>>>(
       reinterpret_cast<bf16*>(cur_dc), g, reinterpret_cast<const bf16*>(wout), consts,
       ssum_sweep, P, T, n_out);
   return cudaGetLastError();
@@ -431,28 +445,14 @@ cudaError_t launch_wgrad(const void* dc, const void* per, float* part9, int* cou
   return cudaGetLastError();
 }
 
-}  // namespace
-
 // Steps per pixel in the weight gradient's K: T padded to 8, 16 or 32.
-static int padded_steps(int T) { return T <= 8 ? 8 : (T <= 16 ? 16 : 32); }
+int padded_steps(int T) { return T <= 8 ? 8 : (T <= 16 ? 16 : 32); }
 
-// cur [N, H, W, T, 256] bf16, the forward's currents, which the launch
-// overwrites with dc (same shape); per [N, H, W, 256] uint8 and ssum
-// [N, H, W, 256] f32 from the forward; wout [256, n_out] bf16; consts [2T]
-// f32 (thresholds, LI coefficients); g [N, H, W, n_out] f32. ssum_sweep
-// [N, H, W, 256] f32, the sweep's own spike sums (may be null; checks hold
-// them to the forward's). Scratch, allocated by the caller: part9
-// [S, 9, 256, 256] f32 (unused when S is 1), part_out [S_out, 256, n_out]
-// f32, counters [18] int32 zeroed. Out: dw9 [9, 256, 256] f32, dwout
-// [256, n_out] f32. S is at most the number of stages, N H ceil(W / (64 /
-// Tp)), S_out at most the number of pixels. `phases` picks the kernels
-// (bit 0 the sweep, bit 1 dw9, bit 2 dwout): 7 computes the backward, the
-// others serve timings.
-extern "C" int rpn_level_bwd_bf16(void* cur, const void* per, const float* ssum,
-                                  const void* wout, const float* consts, const float* g,
-                                  float* ssum_sweep, float* part9, float* part_out,
-                                  int* counters, float* dw9, float* dwout, int N, int H, int W,
-                                  int T, int n_out, int S, int S_out, int phases, void* stream) {
+template <bool kS16>
+int level_bwd(void* cur, const void* per, const float* ssum, const void* wout,
+              const float* consts, const float* g, float* ssum_sweep, float* part9,
+              float* part_out, int* counters, float* dw9, float* dwout, int N, int H, int W,
+              int T, int n_out, int S, int S_out, int phases, void* stream) {
   const int64_t P = (int64_t)N * H * W;
   const int tp = padded_steps(T);
   const int64_t stages = (int64_t)N * H * ((W + 64 / tp - 1) / (64 / tp));
@@ -463,9 +463,9 @@ extern "C" int rpn_level_bwd_bf16(void* cur, const void* per, const float* ssum,
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaSuccess;
   if (phases & 1) {
-    err = T <= 8    ? launch_sweep<8>(cur, g, wout, consts, ssum_sweep, P, T, n_out, st)
-          : T <= 16 ? launch_sweep<16>(cur, g, wout, consts, ssum_sweep, P, T, n_out, st)
-                    : launch_sweep<32>(cur, g, wout, consts, ssum_sweep, P, T, n_out, st);
+    err = T <= 8    ? launch_sweep<8, kS16>(cur, g, wout, consts, ssum_sweep, P, T, n_out, st)
+          : T <= 16 ? launch_sweep<16, kS16>(cur, g, wout, consts, ssum_sweep, P, T, n_out, st)
+                    : launch_sweep<32, kS16>(cur, g, wout, consts, ssum_sweep, P, T, n_out, st);
     if (err != cudaSuccess) return (int)err;
   }
   if (phases & 2) {
@@ -489,4 +489,40 @@ extern "C" int rpn_level_bwd_bf16(void* cur, const void* per, const float* ssum,
     err = cudaGetLastError();
   }
   return (int)err;
+}
+
+}  // namespace
+
+// cur [N, H, W, T, 256] bf16, the forward's currents, which the launch
+// overwrites with dc (same shape); per [N, H, W, 256] uint8 and ssum
+// [N, H, W, 256] f32 from the forward; wout [256, n_out] bf16; consts [2T]
+// f32 (thresholds, LI coefficients); g [N, H, W, n_out] f32. ssum_sweep
+// [N, H, W, 256] f32, the sweep's own spike sums (may be null; checks hold
+// them to the forward's). Scratch, allocated by the caller: part9
+// [S, 9, 256, 256] f32 (unused when S is 1), part_out [S_out, 256, n_out]
+// f32, counters [18] int32 zeroed. Out: dw9 [9, 256, 256] f32, dwout
+// [256, n_out] f32. S is at most the number of stages, N H ceil(W / (64 /
+// Tp)), S_out at most the number of pixels. `phases` picks the kernels
+// (bit 0 the sweep, bit 1 dw9, bit 2 dwout): 7 computes the backward, the
+// others serve timings.
+extern "C" int rpn_level_bwd_bf16(void* cur, const void* per, const float* ssum,
+                                  const void* wout, const float* consts, const float* g,
+                                  float* ssum_sweep, float* part9, float* part_out,
+                                  int* counters, float* dw9, float* dwout, int N, int H, int W,
+                                  int T, int n_out, int S, int S_out, int phases, void* stream) {
+  return level_bwd<false>(cur, per, ssum, wout, consts, g, ssum_sweep, part9, part_out,
+                          counters, dw9, dwout, N, H, W, T, n_out, S, S_out, phases, stream);
+}
+
+// The bf16-state instance: the arguments of rpn_level_bwd_bf16, on what
+// rpn_level_save_s16_bf16 saved; the sweep reruns the LIF with bf16 states
+// and takes its surrogate at v_th = bf16(0.1).
+extern "C" int rpn_level_bwd_s16_bf16(void* cur, const void* per, const float* ssum,
+                                      const void* wout, const float* consts, const float* g,
+                                      float* ssum_sweep, float* part9, float* part_out,
+                                      int* counters, float* dw9, float* dwout, int N, int H,
+                                      int W, int T, int n_out, int S, int S_out, int phases,
+                                      void* stream) {
+  return level_bwd<true>(cur, per, ssum, wout, consts, g, ssum_sweep, part9, part_out,
+                         counters, dw9, dwout, N, H, W, T, n_out, S, S_out, phases, stream);
 }

@@ -14,8 +14,9 @@ collected and ``snn/cuda_rpn.PAIR_IMAGES`` is on; K2 RoIAlign, K3
 encoder+fc6, K4 box tail); on the CPU they run as the kernels' plain
 PyTorch versions. With float32 they run as the reference's own scans and
 the gather RoIAlign, on either device, and launch no kernel. With bf16
-neuron states (``snn_state_dtype=None``) the RPN head is K1's instance for
-bf16 states and the box tail a scan with bf16 states after K3. ANN heads
+neuron states (``snn_state_dtype=None``) the RPN head is K1's (or K8's)
+instance for bf16 states and the box tail a scan with bf16 states after
+K3. ANN heads
 (``rpn_snn``/``detector_snn`` off) are plain convolutions and linears;
 the ANN box head takes the standard postprocess, the spiking one the
 open-set postprocess (:func:`make_head_applies` states the whole rule).
@@ -32,8 +33,9 @@ dtype, as in the reference.
 In training the route changes with what needs a gradient (see
 :func:`make_head_applies` and ``_detector_apply``): the fused stem serves
 while the stem is frozen, the FPN runs unfused, the RPN head is K1's
-training instance with K7 as its backward while the backbone is frozen,
-RoIAlign is the gather version and the box head the scan under autograd.
+training instance with K7 as its backward while the backbone is frozen
+(their bf16-state instances with bf16 neuron states), RoIAlign is the
+gather version and the box head the scan under autograd.
 """
 
 from __future__ import annotations
@@ -88,15 +90,15 @@ def make_head_applies(config, params, collect_rates: bool, training: bool = Fals
         head on K1 (K8 where the pairing switch pairs a level), the box
         head on K3 then K4.
       * bf16 states (``snn_state_dtype=None``), outside training: the RPN
-        head on K1's instance for bf16 states, the box head on K3 then
-        :func:`heads.box_tail_scan` with bf16 states, as the reference runs
-        its kernels there. K8 and K1's training instance have no bf16-state
-        instance yet, so where the pairing switch would pair a level, and in
-        training, the RPN head is the scan with bf16 states.
+        head on K1's instance for bf16 states (K8's where the pairing switch
+        pairs a level), the box head on K3 then :func:`heads.box_tail_scan`
+        with bf16 states, as the reference runs its kernels there.
       * training: the box head is the scan under autograd; the RPN head is
-        K1's training instance with K7 as its backward for bf16 compute,
-        float32 states, a frozen backbone (that gradient is for the weights
-        only) and no rate collection; otherwise the scan too.
+        K1's training instance with K7 as its backward for bf16 compute, a
+        frozen backbone (that gradient is for the weights only) and no rate
+        collection, their bf16-state instances with bf16 states, as the
+        reference takes its training VJP with either state dtype; otherwise
+        the scan too.
 
     A box head of more steps than K3 and K4 take (``t_det`` > 32) is the
     scan on either device, as the reference's gate sends such a ``t_det`` to
@@ -106,19 +108,18 @@ def make_head_applies(config, params, collect_rates: bool, training: bool = Fals
     cd, sd = config.compute_dtype, config.state_dtype
     kernels = cd == torch.bfloat16
     state16 = sd == torch.bfloat16
-    kernel_rpn_train = (kernels and not state16 and not collect_rates
+    kernel_rpn_train = (kernels and not collect_rates
                         and config.backbone_trainable_stages == 0)
 
     def rpn_head_apply(features):
         if not config.rpn_snn:
             return heads.rpn_head_ann_apply(params["rpn_head"], features, cd)
-        if (not training and kernels
-                and not (state16 and heads.pairs(features, collect_rates))):
+        if not training and kernels:
             return heads.rpn_head_snn_apply(params["rpn_head"], features,
                                             config.t_rpn, collect_rates, cd, state16)
         if training and kernel_rpn_train:
             return heads.rpn_head_snn_train_apply(params["rpn_head"], features,
-                                                  config.t_rpn, cd)
+                                                  config.t_rpn, cd, state16)
         return heads.rpn_head_snn_scan_apply(params["rpn_head"], features,
                                              config.t_rpn, collect_rates, cd,
                                              state_dtype=sd)

@@ -19,7 +19,8 @@ For training:
   * :func:`rpn_head_snn_train_apply` is the kernel-backed RPN head made
     differentiable for its weights: K1's training instance, which saves
     the per-step currents, and K7 backward on them
-    (``snn/cuda_rpn.RpnLevelTrain``), for bf16 with a frozen backbone.
+    (``snn/cuda_rpn.RpnLevelTrain``), for bf16 with a frozen backbone, with
+    f32 or (their bf16-state instances) bf16 neuron states.
   * :func:`rpn_head_snn_scan_apply` and :func:`fastrcnn_snn_scan_apply` are
     the reference's scans written as Python loops of PyTorch ops under
     autograd, with the SuperSpike surrogate in every spike. Training uses
@@ -33,8 +34,9 @@ plain convolutions and linears with biases, as the JAX package leaves them
 to XLA; no kernel.
 
 Neuron states are float32 by default; with bf16 states (the reference's
---no-amp) the RPN head at inference is K1's instance for bf16 states, and
-the box head K3 followed by the tail as a scan with bf16 states
+--no-amp) the RPN head is K1's (or K8's) instance for bf16 states at
+inference and K1's and K7's bf16-state instances in training, and the box
+head at inference K3 followed by the tail as a scan with bf16 states
 (:func:`box_tail_scan`), as the reference runs its tail with bf16 states.
 Matmul operands are in the compute dtype. Rates follow the reference
 convention: mean spikes per neuron per step, one value per image and level
@@ -73,9 +75,8 @@ def rpn_head_snn_apply(params: Dict, features: List[torch.Tensor],
     A level takes the paired kernel (K8), which keeps no spike counts, when
     ``cuda_rpn.PAIR_IMAGES`` is on, no rates are collected and the level can
     pair (an even batch); else the per-image kernel (K1). Per image the two
-    give the same bits. ``bf16_states`` takes K1's instance for bf16 neuron
-    states on every level; it has no pair instance, so the caller must not
-    ask for it where a level would pair (:func:`pairs`)."""
+    give the same bits. ``bf16_states`` takes K1's and K8's instances for
+    bf16 neuron states, which give the same bits per image too."""
     w_out, a = _fused_readout(params)
     w_shared = params["shared_conv"]["w"]
     logits, bbox_reg, enc_rates, shared_rates = [], [], [], []
@@ -83,9 +84,8 @@ def rpn_head_snn_apply(params: Dict, features: List[torch.Tensor],
         x = feat.to(compute_dtype).contiguous()
         _, h, w, c = x.shape
         if pairs([x], collect_rates):
-            if bf16_states:
-                raise ValueError("K8 has no instance for bf16 neuron states")
-            out = cuda_rpn.rpn_level_x2(x, w_shared, w_out, num_steps)
+            out = cuda_rpn.rpn_level_x2(x, w_shared, w_out, num_steps,
+                                        bf16_states=bf16_states)
         else:
             out, enc, lif = cuda_rpn.rpn_level(x, w_shared, w_out, num_steps,
                                                bf16_states=bf16_states)
@@ -109,17 +109,19 @@ def pairs(features: List[torch.Tensor], collect_rates: bool) -> bool:
 
 
 def rpn_head_snn_train_apply(params: Dict, features: List[torch.Tensor],
-                             num_steps: int, compute_dtype=torch.bfloat16):
+                             num_steps: int, compute_dtype=torch.bfloat16,
+                             bf16_states: bool = False):
     """:func:`rpn_head_snn_apply` made differentiable for the three weights:
     per level K1's training instance forward and K7 backward on what it
-    saved (on the CPU, their plain versions). The features get no gradient;
-    rates are not collected. Returns (objectness list, bbox list, None)."""
+    saved (on the CPU, their plain versions), with ``bf16_states`` their
+    instances for bf16 neuron states. The features get no gradient; rates
+    are not collected. Returns (objectness list, bbox list, None)."""
     w_out, a = _fused_readout(params)
     logits, bbox_reg = [], []
     for feat in features:
         x = feat.detach().to(compute_dtype).contiguous()
         out, _, _ = RpnLevelTrain.apply(x, params["shared_conv"]["w"], w_out,
-                                        num_steps)
+                                        num_steps, bf16_states)
         logits.append(out[..., :a])
         bbox_reg.append(out[..., a:])
     return logits, bbox_reg, None

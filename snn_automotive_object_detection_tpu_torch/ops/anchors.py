@@ -5,6 +5,7 @@ as the reference configures it). Port of
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -53,3 +54,17 @@ def generate_anchors(feature_shapes: Sequence[Tuple[int, int]],
         anchors = (shifts[:, None, :] + cell[None, :, :]).reshape(-1, 4)
         out.append(torch.as_tensor(anchors.astype(np.float32), device=device))
     return out
+
+
+def fpn_feature_shapes(image_size: Tuple[int, int], num_levels: int = 5) -> list:
+    """Spatial shapes of ResNet-FPN levels P2..P6 for a given input size.
+
+    Levels have strides 4, 8, 16, 32, 64; each is ceil(size / stride) like the
+    conv/pool arithmetic of ResNet-50+FPN on sizes divisible by 2.
+    """
+    h, w = image_size
+    shapes = []
+    for lvl in range(num_levels):
+        stride = 4 * (2 ** lvl)
+        shapes.append((math.ceil(h / stride), math.ceil(w / stride)))
+    return shapes

@@ -15,7 +15,12 @@ training instance also stores the per-step bf16 conv currents, the period
 map and the spike sums (:class:`Saved`), and K7 starts from those instead
 of replaying the conv: a sweep reruns the LIF from the currents and runs
 the reverse SuperSpike sweep, writing dc over the currents in place, and a
-spike-code GEMM on ``wgmma`` forms the weight gradient.
+spike-code GEMM on ``wgmma`` forms the weight gradient. With bf16 neuron
+states (the reference's ``lif_dtype=bf16``, its ``--no-amp``) K1, its
+training instance, K7 and K8 each have an instance of their own
+(``bf16_states=True``): the LIF v and i rounded to bf16 after every
+operation and the threshold bf16(0.1), forward, in K7's rerun and in its
+surrogate.
 :func:`rpn_level_plain`, :func:`rpn_level_x2_plain`,
 :func:`rpn_level_bwd_plain` and :func:`rpn_level_bwd_from_saved_plain`
 beside them are their plain PyTorch versions and follow the TPU kernels'
@@ -47,7 +52,12 @@ from snn_automotive_object_detection_tpu_torch.utils.constants import device_con
 NAME = "rpn_head"
 BWD_NAME = "rpn_head_bwd"
 X2_NAME = "rpn_head_x2"
-S16_NAME = "rpn_head_s16"   # K1's instance for bf16 neuron states
+# The instances for bf16 neuron states, each with its own launch counter:
+# K1's evaluation and training instances, K7's and K8's.
+S16_NAME = "rpn_head_s16"
+S16_SAVE_NAME = "rpn_head_s16_save"
+BWD_S16_NAME = "rpn_head_bwd_s16"
+X2_S16_NAME = "rpn_head_x2_s16"
 # Whether the head outside training takes the paired kernel for the levels
 # that can pair (see :func:`x2_feasible`) when no rates are collected.
 # ``chip_smoke.check_rpn_x2`` times K8 against K1 in turns on the five
@@ -124,6 +134,13 @@ def _level_steps(feat: torch.Tensor, w_shared: torch.Tensor,
     return out, enc, lif, ssum, saved
 
 
+# K1's instances by (save, bf16_states): (launch counter, C entry).
+_LEVEL = {(False, False): (NAME, "rpn_level_bf16"),
+          (True, False): (NAME, "rpn_level_save_bf16"),
+          (False, True): (S16_NAME, "rpn_level_s16_bf16"),
+          (True, True): (S16_SAVE_NAME, "rpn_level_save_s16_bf16")}
+
+
 def _returns(got, spike_sum: bool, save: bool):
     """(readout, encoder counts, LIF counts) from ``got`` = (those, spike
     sums, saved), then the spike sums with ``spike_sum``, then the saved
@@ -154,12 +171,11 @@ def rpn_level_plain(feat: torch.Tensor, w_shared: torch.Tensor,
     bf16, and what PyTorch's eager bf16 operations give; XLA on the CPU may
     keep f32 between fused operations where it allows excess precision,
     which tests/test_torch_state16.py measures. The currents are rounded to
-    bf16 first, the LI-weighted spike sum stays f32, and there is no
-    training instance (``save`` raises).
+    bf16 first and the LI-weighted spike sum stays f32; with ``save`` it is
+    the plain version of K1's training instance with bf16 states, which
+    saves what the f32-state one saves.
     """
-    cb.note_plain(S16_NAME if bf16_states else NAME, feat)
-    if save and bf16_states:
-        raise ValueError("the level with bf16 states has no training instance")
+    cb.note_plain(_LEVEL[save, bf16_states][0], feat)
     return _returns(_level_steps(feat, w_shared, w_out, num_steps, save, bf16_states),
                     spike_sum, save)
 
@@ -196,16 +212,17 @@ def x2_feasible(feat_shape) -> bool:
 
 def rpn_level_x2_plain(feat: torch.Tensor, w_shared: torch.Tensor,
                        w_out: torch.Tensor, num_steps: int,
-                       spike_sum: bool = False):
+                       spike_sum: bool = False, bf16_states: bool = False):
     """One FPN level pair by pair, plain PyTorch: images 2p and 2p + 1 go
     through the steps together. feat [N, H, W, C] with N even. Returns the
     readout [N, H, W, n_out] f32, with ``spike_sum`` (readout, spike sums
     [N, H, W, C] f32); no spike counts. Per image the values are
-    :func:`rpn_level_plain`'s."""
-    cb.note_plain(X2_NAME, feat)
+    :func:`rpn_level_plain`'s, with ``bf16_states`` those of its bf16-state
+    version."""
+    cb.note_plain(X2_S16_NAME if bf16_states else X2_NAME, feat)
     if feat.shape[0] % 2:
         raise ValueError(f"the paired level takes an even batch, got {feat.shape[0]}")
-    pairs = [_level_steps(feat[p:p + 2], w_shared, w_out, num_steps)
+    pairs = [_level_steps(feat[p:p + 2], w_shared, w_out, num_steps, bf16_states=bf16_states)
              for p in range(0, feat.shape[0], 2)]
     out = torch.cat([p[0] for p in pairs])
     return (out, torch.cat([p[3] for p in pairs])) if spike_sum else out
@@ -227,15 +244,13 @@ def _check_level(name, feat, w9, w_out, num_steps):
 def _launch(feat: torch.Tensor, w9_t: torch.Tensor, w_out: torch.Tensor,
             num_steps: int, spike_sum: bool = False, save: bool = False,
             bf16_states: bool = False):
-    """K1 on one level, its training instance with ``save``, its instance
+    """K1 on one level, its training instance with ``save``, its instances
     for bf16 neuron states with ``bf16_states``; ``w9_t`` from
     :func:`_taps_t`. Same returns as :func:`rpn_level_plain`."""
     n, h, w, c = feat.shape
     n_out = w_out.shape[1]
-    name = S16_NAME if bf16_states else NAME
+    name, entry = _LEVEL[save, bf16_states]
     _check_level(name, feat, w9_t, w_out, num_steps)
-    if save and bf16_states:
-        raise ValueError("the level with bf16 states has no training instance")
     dev = feat.device
     consts = _constants(num_steps, dev)
     out = torch.empty((n, h, w, n_out), dtype=torch.float32, device=dev)
@@ -249,8 +264,6 @@ def _launch(feat: torch.Tensor, w9_t: torch.Tensor, w_out: torch.Tensor,
         saved = Saved(torch.empty((n, h, w, num_steps, c), dtype=torch.bfloat16, device=dev),
                       torch.empty((n, h, w, c), dtype=torch.uint8, device=dev), ssum)
         args += [saved.cur.data_ptr(), saved.per.data_ptr()]
-    entry = ("rpn_level_save_bf16" if save else "rpn_level_s16_bf16" if bf16_states
-             else "rpn_level_bf16")
     fn = cb.function(name, entry,
                      [ctypes.c_void_p] * len(args) + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     code = fn(*args, n, h, w, num_steps, n_out, cb.stream_ptr(dev))
@@ -260,25 +273,27 @@ def _launch(feat: torch.Tensor, w9_t: torch.Tensor, w_out: torch.Tensor,
 
 
 def _launch_x2(feat: torch.Tensor, w9_t: torch.Tensor, w_out: torch.Tensor,
-               num_steps: int, spike_sum: bool = False):
-    """K8 on one level; ``w9_t`` from :func:`_taps_t`. Same returns as
+               num_steps: int, spike_sum: bool = False, bf16_states: bool = False):
+    """K8 on one level, its instance for bf16 neuron states with
+    ``bf16_states``; ``w9_t`` from :func:`_taps_t`. Same returns as
     :func:`rpn_level_x2_plain`."""
     n, h, w, c = feat.shape
     n_out = w_out.shape[1]
-    _check_level(X2_NAME, feat, w9_t, w_out, num_steps)
+    name = X2_S16_NAME if bf16_states else X2_NAME
+    _check_level(name, feat, w9_t, w_out, num_steps)
     if not x2_feasible(feat.shape):
-        raise ValueError(f"{X2_NAME} kernel takes an even batch, got {n}")
+        raise ValueError(f"{name} kernel takes an even batch, got {n}")
     consts = _constants(num_steps, feat.device)
     out = torch.empty((n, h, w, n_out), dtype=torch.float32, device=feat.device)
     ssum = (torch.empty((n, h, w, c), dtype=torch.float32, device=feat.device)
             if spike_sum else None)
-    fn = cb.function(X2_NAME, "rpn_level_x2_bf16",
+    fn = cb.function(name, "rpn_level_x2_s16_bf16" if bf16_states else "rpn_level_x2_bf16",
                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     code = fn(feat.data_ptr(), w9_t.data_ptr(), w_out.data_ptr(), consts.data_ptr(),
               out.data_ptr(), None if ssum is None else ssum.data_ptr(), n, h, w,
               num_steps, n_out, cb.stream_ptr(feat.device))
-    cb.check(code, X2_NAME)
-    cb.LAUNCHES[X2_NAME] += 1
+    cb.check(code, name)
+    cb.LAUNCHES[name] += 1
     return (out, ssum) if spike_sum else out
 
 
@@ -288,34 +303,39 @@ def rpn_level(feat: torch.Tensor, w_shared: torch.Tensor, w_out: torch.Tensor,
     """One level through K1 (CUDA; its training instance with ``save``, its
     instance for bf16 neuron states with ``bf16_states``) or the plain
     version (CPU). Same returns as :func:`rpn_level_plain`."""
-    if cb.dispatch_device(feat, S16_NAME if bf16_states else NAME):
+    if cb.dispatch_device(feat, _LEVEL[save, bf16_states][0]):
         return _launch(feat, _taps_t(w_shared), w_out.to(torch.bfloat16).contiguous(),
                        num_steps, spike_sum, save, bf16_states)
     return rpn_level_plain(feat, w_shared, w_out, num_steps, spike_sum, save, bf16_states)
 
 
 def rpn_level_x2(feat: torch.Tensor, w_shared: torch.Tensor, w_out: torch.Tensor,
-                 num_steps: int, spike_sum: bool = False):
-    """One level pair by pair through the paired kernel (CUDA) or its plain
-    version (CPU). Same returns as :func:`rpn_level_x2_plain`."""
-    if cb.dispatch_device(feat, X2_NAME):
+                 num_steps: int, spike_sum: bool = False, bf16_states: bool = False):
+    """One level pair by pair through the paired kernel (CUDA; its instance
+    for bf16 neuron states with ``bf16_states``) or its plain version
+    (CPU). Same returns as :func:`rpn_level_x2_plain`."""
+    if cb.dispatch_device(feat, X2_S16_NAME if bf16_states else X2_NAME):
         return _launch_x2(feat, _taps_t(w_shared), w_out.to(torch.bfloat16).contiguous(),
-                          num_steps, spike_sum)
-    return rpn_level_x2_plain(feat, w_shared, w_out, num_steps, spike_sum)
+                          num_steps, spike_sum, bf16_states)
+    return rpn_level_x2_plain(feat, w_shared, w_out, num_steps, spike_sum, bf16_states)
 
 
 def _decayed(state) -> torch.Tensor:
-    """The decayed membrane a LIF step takes its spike on."""
+    """The decayed membrane a LIF step takes its spike on, in the state's
+    dtype, by the operations of ``snnf.lif_feed_forward_step``."""
     p = snnf.LIF_PARAMS
-    return state.v + snnf.DT * p.tau_mem_inv * ((p.v_leak - state.v) + state.i)
+    return state.v + snnf._weak(snnf.DT * p.tau_mem_inv, state.v) * (
+        (p.v_leak - state.v) + state.i)
 
 
 def _reverse_sweep(vds, periods: torch.Tensor, w_out: torch.Tensor, g: torch.Tensor,
                    li: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
     """The reverse SuperSpike sweep of one level from the forward's decayed
-    membranes ``vds`` (T tensors [N, H, W, C] f32) and encoder periods
-    [N, H, W, C], with the cotangent g [N, H, W, n_out]: the 3x3 conv's
-    weight gradient [3, 3, C, C] f32."""
+    membranes ``vds`` (T tensors [N, H, W, C] in the state dtype) and
+    encoder periods [N, H, W, C], with the cotangent g [N, H, W, n_out]: the
+    3x3 conv's weight gradient [3, 3, C, C] f32. The threshold takes the
+    state dtype, as the reference's kernel rounds it (bf16(0.1) with bf16
+    states); the sweep itself is f32."""
     n, h, w, c = periods.shape
     p = snnf.LIF_PARAMS
     tau_mem, tau_syn = snnf.DT * p.tau_mem_inv, snnf.DT * p.tau_syn_inv
@@ -340,8 +360,8 @@ def _reverse_sweep(vds, periods: torch.Tensor, w_out: torch.Tensor, g: torch.Ten
             dy, dx = divmod(k, 3)
             dw9[k] += torch.matmul(
                 zp[:, dy:dy + h, dx:dx + w].reshape(-1, c).t(), dc)
-        vd = vds[t]
-        u = vd - p.v_th
+        vd = vds[t].float()
+        u = vd - snnf._weak(p.v_th, vds[t])
         sp = 1.0 / (p.alpha * u.abs() + 1.0) ** 2    # SuperSpike
         ds = li[t] * gw - vd * lv
         dvd = (1.0 - (u > 0).float()) * lv + ds * sp
@@ -352,7 +372,7 @@ def _reverse_sweep(vds, periods: torch.Tensor, w_out: torch.Tensor, g: torch.Ten
 
 def rpn_level_bwd_plain(feat: torch.Tensor, w_shared: torch.Tensor,
                         w_out: torch.Tensor, g: torch.Tensor, num_steps: int,
-                        spike_sum: bool = False):
+                        spike_sum: bool = False, bf16_states: bool = False):
     """Backward of one level for its weights, plain PyTorch, written out
     step by step (no autograd), replaying the forward's conv.
 
@@ -360,9 +380,12 @@ def rpn_level_bwd_plain(feat: torch.Tensor, w_shared: torch.Tensor,
     [3, 3, C, C]; w_out [C, n_out]; g [N, H, W, n_out] f32, the cotangent
     of the readout. Returns (dw_shared [3, 3, C, C] f32, dw_out [C, n_out]
     f32), and with ``spike_sum`` also the replay's LI-weighted spike sum
-    [N, H, W, C] f32, which must equal the forward's.
+    [N, H, W, C] f32, which must equal the forward's. ``bf16_states``: the
+    replay's LIF runs with bf16 states, as the reference's backward kernel
+    with ``lif_dtype=bf16`` does, and the surrogate takes v_th = bf16(0.1).
     """
-    cb.note_plain(BWD_NAME, feat)
+    cb.note_plain(BWD_S16_NAME if bf16_states else BWD_NAME, feat)
+    sd = torch.bfloat16 if bf16_states else torch.float32
     cd = feat.dtype
     n, h, w, c = feat.shape
     consts = _constants(num_steps, feat.device)
@@ -371,23 +394,24 @@ def rpn_level_bwd_plain(feat: torch.Tensor, w_shared: torch.Tensor,
     weight = w_shared.to(cd).permute(3, 2, 0, 1).contiguous()
 
     # Replay of the forward, keeping each step's decayed membrane.
-    state = snnf.zeros_lif_state((n, h, w, c), device=feat.device)
+    state = snnf.zeros_lif_state((n, h, w, c), sd, feat.device)
     ssum = torch.zeros((n, h, w, c), dtype=torch.float32, device=feat.device)
     vds = []
     for t in range(num_steps):
         z = snnf.encoder_spikes_at(periods, t, cd)
         cur = F.conv2d(z.permute(0, 3, 1, 2), weight, padding=1)
-        cur = cur.permute(0, 2, 3, 1).float()
+        cur = cur.permute(0, 2, 3, 1).to(sd)
         vds.append(_decayed(state))
         s, state = snnf.lif_feed_forward_step(cur, state)
-        ssum = ssum + li[t] * s
+        ssum = ssum + li[t] * s.float()
     dw_shared = _reverse_sweep(vds, periods, w_out, g, li, cd)
     dw_out = dwout_plain(ssum, g)
     return (dw_shared, dw_out, ssum) if spike_sum else (dw_shared, dw_out)
 
 
 def rpn_level_bwd_from_saved_plain(saved: Saved, w_out: torch.Tensor, g: torch.Tensor,
-                                   num_steps: int, spike_sum: bool = False):
+                                   num_steps: int, spike_sum: bool = False,
+                                   bf16_states: bool = False):
     """The plain version of K7: backward of one level for its weights from
     what the training forward saved (:class:`Saved`, from
     :func:`rpn_level_plain` with ``save``), with no replay of the conv: the
@@ -395,17 +419,20 @@ def rpn_level_bwd_from_saved_plain(saved: Saved, w_out: torch.Tensor, g: torch.T
     reverse sweep and the two products. Same returns as
     :func:`rpn_level_bwd_plain` (the spike sums are the rerun's), and the
     same bits where the saved tensors are that function's forward's. The
-    saved tensors are left as they are."""
-    cb.note_plain(BWD_NAME, saved.cur)
+    saved tensors are left as they are. ``bf16_states``: the plain version
+    of K7's bf16-state instance (the rerun with bf16 states, the threshold
+    bf16(0.1)), on what the bf16-state training forward saved."""
+    cb.note_plain(BWD_S16_NAME if bf16_states else BWD_NAME, saved.cur)
+    sd = torch.bfloat16 if bf16_states else torch.float32
     n, h, w, t, c = saved.cur.shape
     li = _constants(num_steps, saved.cur.device)[num_steps:]
-    state = snnf.zeros_lif_state((n, h, w, c), device=saved.cur.device)
+    state = snnf.zeros_lif_state((n, h, w, c), sd, saved.cur.device)
     ssum = torch.zeros((n, h, w, c), dtype=torch.float32, device=saved.cur.device)
     vds = []
     for step in range(num_steps):
         vds.append(_decayed(state))
-        s, state = snnf.lif_feed_forward_step(saved.cur[..., step, :].float(), state)
-        ssum = ssum + li[step] * s
+        s, state = snnf.lif_feed_forward_step(saved.cur[..., step, :].to(sd), state)
+        ssum = ssum + li[step] * s.float()
     dw_shared = _reverse_sweep(vds, saved.per.int(), w_out, g, li, saved.cur.dtype)
     dw_out = dwout_plain(saved.ssum, g)
     return (dw_shared, dw_out, ssum) if spike_sum else (dw_shared, dw_out)
@@ -434,12 +461,15 @@ def _padded_steps(num_steps: int) -> int:
 
 
 def _launch_bwd(saved: Saved, w_out: torch.Tensor, g: torch.Tensor, num_steps: int,
-                spike_sum: bool = False, phases: int = 7):
-    """K7 on one level from K1's saved tensors; ``w_out`` bf16. The sweep
-    writes dc over ``saved.cur`` IN PLACE. Returns (dw9 [9, C, C] f32,
-    dw_out [C, n_out] f32) and with ``spike_sum`` the sweep's own spike sums
-    (equal to ``saved.ssum``). ``phases`` picks the kernels (bit 0 the
-    sweep, bit 1 dw9, bit 2 dwout) for timings; 7 is the backward."""
+                spike_sum: bool = False, phases: int = 7, bf16_states: bool = False):
+    """K7 on one level from K1's saved tensors (with ``bf16_states`` its
+    bf16-state instance, on what K1's bf16-state training instance saved);
+    ``w_out`` bf16. The sweep writes dc over ``saved.cur`` IN PLACE.
+    Returns (dw9 [9, C, C] f32, dw_out [C, n_out] f32) and with
+    ``spike_sum`` the sweep's own spike sums (equal to ``saved.ssum``).
+    ``phases`` picks the kernels (bit 0 the sweep, bit 1 dw9, bit 2 dwout)
+    for timings; 7 is the backward."""
+    name = BWD_S16_NAME if bf16_states else BWD_NAME
     n, h, w, t, c = saved.cur.shape
     n_out = w_out.shape[1]
     cb.require(saved.cur, "cur", torch.bfloat16, (n, h, w, num_steps, 256))
@@ -448,7 +478,7 @@ def _launch_bwd(saved: Saved, w_out: torch.Tensor, g: torch.Tensor, num_steps: i
     cb.require(w_out, "w_out", torch.bfloat16, (c, n_out))
     cb.require(g, "g", torch.float32, (n, h, w, n_out))
     if not 1 <= num_steps <= MAX_T or not 1 <= n_out <= MAX_OUT:
-        raise ValueError(f"{BWD_NAME} kernel takes T <= {MAX_T} and at most "
+        raise ValueError(f"{name} kernel takes T <= {MAX_T} and at most "
                          f"{MAX_OUT} readout channels")
     dev = saved.cur.device
     f32 = torch.float32
@@ -462,57 +492,64 @@ def _launch_bwd(saved: Saved, w_out: torch.Tensor, g: torch.Tensor, num_steps: i
     dw_out = torch.empty((c, n_out), dtype=f32, device=dev)
     swept = torch.empty((n, h, w, c), dtype=f32, device=dev) if spike_sum else None
     consts = _constants(num_steps, dev)
-    fn = cb.function(BWD_NAME, "rpn_level_bwd_bf16",
+    fn = cb.function(name, "rpn_level_bwd_s16_bf16" if bf16_states else "rpn_level_bwd_bf16",
                      [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     code = fn(saved.cur.data_ptr(), saved.per.data_ptr(), saved.ssum.data_ptr(),
               w_out.data_ptr(), consts.data_ptr(), g.data_ptr(),
               None if swept is None else swept.data_ptr(), part9.data_ptr(),
               part_out.data_ptr(), counters.data_ptr(), dw9.data_ptr(), dw_out.data_ptr(),
               n, h, w, num_steps, n_out, s9, s_out, phases, cb.stream_ptr(dev))
-    cb.check(code, BWD_NAME)
-    cb.LAUNCHES[BWD_NAME] += 1
+    cb.check(code, name)
+    cb.LAUNCHES[name] += 1
     return (dw9, dw_out, swept) if spike_sum else (dw9, dw_out)
 
 
 def rpn_level_bwd_from_saved(saved: Saved, w_out: torch.Tensor, g: torch.Tensor,
-                             num_steps: int, spike_sum: bool = False):
+                             num_steps: int, spike_sum: bool = False,
+                             bf16_states: bool = False):
     """Weight gradients of one level from the training forward's saved
     tensors: K7 (CUDA; it overwrites ``saved.cur`` with dc) or
-    :func:`rpn_level_bwd_from_saved_plain` (CPU). Same returns as
-    :func:`rpn_level_bwd_plain`."""
-    if cb.dispatch_device(saved.cur, BWD_NAME):
+    :func:`rpn_level_bwd_from_saved_plain` (CPU), each with bf16 states
+    with ``bf16_states``. Same returns as :func:`rpn_level_bwd_plain`."""
+    if cb.dispatch_device(saved.cur, BWD_S16_NAME if bf16_states else BWD_NAME):
         got = _launch_bwd(saved, w_out.to(torch.bfloat16).contiguous(),
-                          g.float().contiguous(), num_steps, spike_sum)
+                          g.float().contiguous(), num_steps, spike_sum,
+                          bf16_states=bf16_states)
         c = saved.cur.shape[-1]
         return (got[0].reshape(3, 3, c, c),) + got[1:]
-    return rpn_level_bwd_from_saved_plain(saved, w_out, g, num_steps, spike_sum)
+    return rpn_level_bwd_from_saved_plain(saved, w_out, g, num_steps, spike_sum, bf16_states)
 
 
 def rpn_level_bwd(feat: torch.Tensor, w_shared: torch.Tensor, w_out: torch.Tensor,
-                  g: torch.Tensor, num_steps: int, spike_sum: bool = False):
+                  g: torch.Tensor, num_steps: int, spike_sum: bool = False,
+                  bf16_states: bool = False):
     """Weight gradients of one level: K1's training instance, then K7 on
-    what it saved (CUDA), or the replaying plain version (CPU). Same
-    returns as :func:`rpn_level_bwd_plain`; on CUDA the spike sums are K7's
-    sweep's."""
-    if cb.dispatch_device(feat, BWD_NAME):
-        *_, saved = rpn_level(feat, w_shared, w_out, num_steps, save=True)
-        return rpn_level_bwd_from_saved(saved, w_out, g, num_steps, spike_sum)
-    return rpn_level_bwd_plain(feat, w_shared, w_out, g, num_steps, spike_sum)
+    what it saved (CUDA), or the replaying plain version (CPU), each with
+    bf16 states with ``bf16_states``. Same returns as
+    :func:`rpn_level_bwd_plain`; on CUDA the spike sums are K7's sweep's."""
+    if cb.dispatch_device(feat, BWD_S16_NAME if bf16_states else BWD_NAME):
+        *_, saved = rpn_level(feat, w_shared, w_out, num_steps, save=True,
+                              bf16_states=bf16_states)
+        return rpn_level_bwd_from_saved(saved, w_out, g, num_steps, spike_sum, bf16_states)
+    return rpn_level_bwd_plain(feat, w_shared, w_out, g, num_steps, spike_sum, bf16_states)
 
 
 class RpnLevelTrain(torch.autograd.Function):
     """One differentiable level: forward is :func:`rpn_level` with ``save``
     (K1's training instance on a CUDA tensor), backward
     :func:`rpn_level_bwd_from_saved` (K7) on the tensors it saved: the
-    currents, the period map and the spike sums, not the features. K7
-    overwrites the saved currents, so the backward runs once. The features
-    get no gradient: the backbone is frozen wherever this route is taken."""
+    currents, the period map and the spike sums, not the features; with
+    ``bf16_states`` both their bf16-state instances. K7 overwrites the saved
+    currents, so the backward runs once. The features get no gradient: the
+    backbone is frozen wherever this route is taken."""
 
     @staticmethod
-    def forward(ctx, feat, w_shared, w_out, num_steps):
-        out, enc, lif, saved = rpn_level(feat, w_shared, w_out, num_steps, save=True)
+    def forward(ctx, feat, w_shared, w_out, num_steps, bf16_states=False):
+        out, enc, lif, saved = rpn_level(feat, w_shared, w_out, num_steps, save=True,
+                                         bf16_states=bf16_states)
         ctx.save_for_backward(*saved, w_out)
         ctx.num_steps = num_steps
+        ctx.bf16_states = bf16_states
         ctx.w_shape, ctx.w_dtype = w_shared.shape, w_shared.dtype
         ctx.spent = False
         ctx.mark_non_differentiable(enc, lif)
@@ -526,6 +563,6 @@ class RpnLevelTrain(torch.autograd.Function):
         ctx.spent = True
         cur, per, ssum, w_out = ctx.saved_tensors
         dw_shared, dw_out = rpn_level_bwd_from_saved(Saved(cur, per, ssum), w_out, g_out,
-                                                     ctx.num_steps)
+                                                     ctx.num_steps, bf16_states=ctx.bf16_states)
         return (None, dw_shared.reshape(ctx.w_shape).to(ctx.w_dtype), dw_out.to(w_out.dtype),
-                None)
+                None, None)

@@ -33,11 +33,15 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
 KERNELS = ("rpn_head", "roi_align", "encoder_fc6", "box_tail", "fpn_level",
-           "stem", "rpn_head_bwd", "rpn_head_x2", "box_head_fused", "rpn_head_s16")
+           "stem", "rpn_head_bwd", "rpn_head_x2", "box_head_fused", "rpn_head_s16",
+           "rpn_head_s16_save", "rpn_head_bwd_s16", "rpn_head_x2_s16")
 # The source csrc/<source>.cu, and library, of each kernel: the paired RPN
-# head (K8) and the RPN head for bf16 neuron states are instances of K1's
-# kernel and live in K1's source.
-SOURCE = {**{k: k for k in KERNELS}, "rpn_head_x2": "rpn_head", "rpn_head_s16": "rpn_head"}
+# head (K8) and the RPN head's instances for bf16 neuron states (evaluation,
+# training, pair) are instances of K1's kernel and live in K1's source; the
+# backward's bf16-state instance lives in K7's.
+SOURCE = {**{k: k for k in KERNELS}, "rpn_head_x2": "rpn_head", "rpn_head_s16": "rpn_head",
+          "rpn_head_s16_save": "rpn_head", "rpn_head_x2_s16": "rpn_head",
+          "rpn_head_bwd_s16": "rpn_head_bwd"}
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

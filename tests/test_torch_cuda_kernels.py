@@ -47,6 +47,10 @@ Tolerances, on identical bf16 inputs:
   * K8 (the paired RPN head, K1's kernel with a pair of images in one
     cluster): its readout and spike sums equal to K1's bit for bit (the
     same sums in the same order), and held to its plain version as K1 is.
+  * The bf16-state instances (K1's evaluation and training instances, K7's
+    and K8's): as the f32-state ones, against their bf16-state plain
+    versions; on weights of the 2^-10 grid (conv sums exact in any order)
+    the currents and spikes are the plain version's bits.
   * K9 (the fused box head): spike by spike
     (``kernel_checks.box_head_fused_report``): its fc6 spike trains against
     the plain version's and its fc7 trains against the plain tail's on its
@@ -173,8 +177,19 @@ def test_rpn_head_s16_kernel_matches_plain(dev, n, h, w, t, n_out, grid):
     # bf16 states give other spikes than f32 states on the same inputs.
     f32 = k1.rpn_level(feat, w_shared, w_out, t, spike_sum=True)
     assert not torch.equal(f32[3], got[3])
-    with pytest.raises(ValueError):
-        k1.rpn_level(feat, w_shared, w_out, t, save=True, bf16_states=True)
+    # The training instance with bf16 states: the evaluation instance's bits,
+    # the plain version's periods, and on grid weights its currents.
+    before = dict(cb.LAUNCHES)
+    *trained, saved = k1.rpn_level(feat, w_shared, w_out, t, spike_sum=True, save=True,
+                                   bf16_states=True)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES[k1.S16_SAVE_NAME] == before[k1.S16_SAVE_NAME] + 1
+    assert cb.LAUNCHES[k1.S16_NAME] == before[k1.S16_NAME]
+    assert all(torch.equal(a, b) for a, b in zip(trained, got))
+    p_saved = k1.rpn_level_plain(feat, w_shared, w_out, t, save=True, bf16_states=True)[3]
+    assert torch.equal(saved.per, p_saved.per)
+    if grid:
+        assert torch.equal(saved.cur, p_saved.cur)
 
 
 def test_roi_align_kernel_matches_plain(dev):
@@ -367,10 +382,10 @@ def test_stem_kernel_matches_plain(dev, n, h, w):
     assert kc.differing(got, want) <= kc.MAX_DIFFERING * want.numel()
 
 
-def _hold_rpn_bwd(got, again, want, fwd_ssum, cot, own):
+def _hold_rpn_bwd(got, again, want, fwd_ssum, cot, own, replay=True):
     """K7's (dw, dw_out, the sweep's spike sums) against the replaying plain
-    version's ``want`` and, tighter, against its plain version on K1's own
-    saved tensors ``own``; ``again`` is a second run."""
+    version's ``want`` (with ``replay``) and, tighter, against its plain
+    version on K1's own saved tensors ``own``; ``again`` is a second run."""
     dw, dwo, ssum = got
     p_dw, p_dwo, p_ssum = want
     assert torch.equal(ssum, fwd_ssum)
@@ -378,7 +393,8 @@ def _hold_rpn_bwd(got, again, want, fwd_ssum, cot, own):
     assert flips <= 1e-3 * int((p_ssum != 0).sum())
     if flips:   # dwout is linear in the spike sums: hold it to K1's own
         p_dwo = k1.dwout_plain(fwd_ssum, cot)
-    assert kc.grad_excess(dw, p_dw) <= 1 and kc.grad_excess(dwo, p_dwo) <= 1
+    if replay:
+        assert kc.grad_excess(dw, p_dw) <= 1 and kc.grad_excess(dwo, p_dwo) <= 1
     assert kc.grad_excess(dw, own[0], rel=1e-4) <= 1
     assert kc.grad_excess(dwo, own[1], rel=1e-4) <= 1
     assert torch.equal(dw, again[0]) and torch.equal(dwo, again[1])
@@ -458,6 +474,93 @@ def test_rpn_level_train_backward_is_the_kernel(dev):
     assert kc.grad_excess(params["conv_bbox"]["w"].grad.reshape(256, 12), want_dwo[:, 3:]) <= 1
 
 
+# K7's bf16-state instance on what K1's bf16-state training instance saved:
+# the shapes of the f32-state test above. Against its plain version on K1's
+# own saved tensors everywhere; against the replaying plain version only on
+# grid weights (2^-10 grid: conv sums exact in any order, so the currents
+# and spikes are the replay's bits): elsewhere the replay's conv sums in
+# another order, and a current one bf16 ulp apart moves the bf16 states of
+# every later step by an ulp (with f32 states by 2^-16 of it), which moves
+# the stored membranes and the surrogate's slope (1.49 of the bound at
+# [1, 9, 70, 256], T = 12, on an H100).
+@pytest.mark.parametrize("n,h,w,t,grid", [(1, 5, 7, 1, False), (1, 13, 37, 5, True),
+                                          (2, 3, 45, 8, False), (2, 3, 45, 8, True),
+                                          (1, 9, 70, 12, False), (1, 4, 11, 20, True)])
+def test_rpn_head_bwd_s16_kernel_matches_plain(dev, n, h, w, t, grid):
+    g = torch.Generator(device=dev).manual_seed(n * h * w + t + 16)
+    feat = (torch.rand((n, h, w, 256), generator=g, device=dev) * 3).to(BF)
+    if grid:
+        w_shared = torch.randint(-10, 11, (3, 3, 256, 256), generator=g,
+                                 device=dev).float() * 2.0 ** -10
+    else:
+        w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.02
+    w_out = torch.randn((256, 15), generator=g, device=dev) * 0.05
+    cot = torch.randn((n, h, w, 15), generator=g, device=dev)
+    names = (k1.NAME, k1.BWD_NAME, k1.S16_SAVE_NAME, k1.BWD_S16_NAME)
+    before = [cb.LAUNCHES[k] for k in names]
+    dw, dwo, ssum = k1.rpn_level_bwd(feat, w_shared, w_out, cot, t, spike_sum=True,
+                                     bf16_states=True)
+    again = k1.rpn_level_bwd(feat, w_shared, w_out, cot, t, bf16_states=True)
+    torch.cuda.synchronize()
+    assert [cb.LAUNCHES[k] - b for k, b in zip(names, before)] == [0, 0, 2, 2]
+    *_, fwd_ssum, saved = k1.rpn_level(feat, w_shared, w_out, t, spike_sum=True, save=True,
+                                       bf16_states=True)
+    own = k1.rpn_level_bwd_from_saved_plain(saved, w_out, cot, t, bf16_states=True)
+    want = k1.rpn_level_bwd_plain(feat, w_shared, w_out, cot, t, spike_sum=True,
+                                  bf16_states=True)
+    if grid:
+        assert torch.equal(fwd_ssum, want[2])
+    assert t == 1 or float(ssum.max()) > 0
+    _hold_rpn_bwd((dw, dwo, ssum), again, want, fwd_ssum, cot, own, replay=grid)
+    assert t == 1 or (float(want[1].abs().max()) > 0 and float(want[0].abs().max()) > 0)
+    # bf16 states are another backward than f32 states on the same inputs.
+    assert t == 1 or not torch.equal(dw, k1.rpn_level_bwd(feat, w_shared, w_out, cot, t)[0])
+
+
+def test_rpn_level_train_bf16_states_backward_is_the_kernel(dev):
+    """``rpn_head_snn_train_apply(..., bf16_states=True)`` under autograd:
+    K1's bf16-state training instance forward, K7's bf16-state instance
+    backward, the three weights' gradients against the replaying plain
+    version with bf16 states (the conv weights on the 2^-10 grid, so that
+    the replay's currents are K1's bits), no plain version on the card."""
+    from snn_automotive_object_detection_tpu_torch.models import heads
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    feats = [(torch.rand((2, h, w, 256), generator=g, device=dev) * 3) for h, w in ((9, 33),
+                                                                                   (4, 17))]
+    w_grid = torch.randint(-10, 11, (3, 3, 256, 256), generator=g, device=dev).float()
+    params = {"shared_conv": {"w": w_grid * 2.0 ** -10},
+              "conv_cls": {"w": torch.randn((1, 1, 256, 3), generator=g, device=dev) * 0.05},
+              "conv_bbox": {"w": torch.randn((1, 1, 256, 12), generator=g, device=dev) * 0.05}}
+    for v in params.values():
+        v["w"].requires_grad_()
+    cots = [torch.randn((2, f.shape[1], f.shape[2], 15), generator=g, device=dev) for f in feats]
+    cb.reset_counts()
+    obj, box, _ = heads.rpn_head_snn_train_apply(params, feats, 8, bf16_states=True)
+    loss = sum((torch.cat([o, b], -1) * c).sum() for o, b, c in zip(obj, box, cots))
+    loss.backward()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cb.LAUNCHES.items() if v} == {k1.S16_SAVE_NAME: 2,
+                                                          k1.BWD_S16_NAME: 2}
+    assert all(v == 0 for v in cb.PLAIN_CUDA_CALLS.values())
+    w_out, _ = heads._fused_readout(params)
+    want_dw, want_dwo = 0.0, 0.0
+    for f, o, b, c in zip(feats, obj, box, cots):
+        x = f.to(BF)
+        plain = k1.rpn_level_plain(x, params["shared_conv"]["w"].detach(), w_out.detach(), 8,
+                                   spike_sum=True, bf16_states=True)
+        kernel = k1.rpn_level(x, params["shared_conv"]["w"].detach(), w_out.detach(), 8,
+                              spike_sum=True, bf16_states=True)
+        assert torch.equal(torch.cat([o, b], -1).detach(), kernel[0])
+        _hold_rpn_eval(kernel, plain, w_out.detach())
+        dw, dwo = k1.rpn_level_bwd_plain(x, params["shared_conv"]["w"].detach(), w_out.detach(),
+                                         c, 8, bf16_states=True)
+        want_dw, want_dwo = want_dw + dw, want_dwo + dwo
+    assert kc.grad_excess(params["shared_conv"]["w"].grad, want_dw) <= 1
+    assert kc.grad_excess(params["conv_cls"]["w"].grad.reshape(256, 3), want_dwo[:, :3]) <= 1
+    assert kc.grad_excess(params["conv_bbox"]["w"].grad.reshape(256, 12), want_dwo[:, 3:]) <= 1
+
+
 # 75 and 128 readout channels (15 and 25 anchors per location), on rows that
 # end inside a 32-pixel tile.
 @pytest.mark.parametrize("n_out", [75, 128])
@@ -527,6 +630,73 @@ def test_rpn_head_x2_equals_rpn_head_bit_for_bit(dev, levels, n, n_out):
         one = k1.rpn_level(feat, w_shared, w_out, 8, spike_sum=True)
         assert int((one[3] != 0).sum()) > 0
         assert torch.equal(out, one[0]) and torch.equal(ssum, one[3])
+
+
+# K8's bf16-state instance: K1's bf16-state instance's bits, on the flagship
+# levels, a ragged level and two pairs.
+@pytest.mark.parametrize("levels,n,n_out", [
+    ([(192, 384), (96, 192), (48, 96), (24, 48), (12, 24)], 2, 15),
+    ([(3, 45), (5, 17)], 4, 75)])
+def test_rpn_head_x2_s16_equals_rpn_head_s16_bit_for_bit(dev, levels, n, n_out):
+    g = torch.Generator(device=dev).manual_seed(len(levels) + n + n_out + 16)
+    w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.01
+    w_out = torch.randn((256, n_out), generator=g, device=dev) * 0.01
+    for h, w in levels:
+        feat = (torch.rand((n, h, w, 256), generator=g, device=dev) * 2).to(BF)
+        before = cb.LAUNCHES[k1.X2_S16_NAME], cb.LAUNCHES[k1.X2_NAME]
+        out, ssum = k1.rpn_level_x2(feat, w_shared, w_out, 8, spike_sum=True, bf16_states=True)
+        torch.cuda.synchronize()
+        assert (cb.LAUNCHES[k1.X2_S16_NAME], cb.LAUNCHES[k1.X2_NAME]) == (before[0] + 1,
+                                                                          before[1])
+        one = k1.rpn_level(feat, w_shared, w_out, 8, spike_sum=True, bf16_states=True)
+        assert int((one[3] != 0).sum()) > 0
+        assert torch.equal(out, one[0]) and torch.equal(ssum, one[3])
+        p_out, p_ssum = k1.rpn_level_x2_plain(feat, w_shared, w_out, 8, spike_sum=True,
+                                              bf16_states=True)
+        _hold_rpn_eval((out, one[1], None, ssum), (p_out, one[1], None, p_ssum), w_out)
+
+
+def test_bf16_state_training_step_launches(dev):
+    """One training step with bf16 states at 64 x 128 (frozen backbone): per
+    step the stem once, K1's and K7's bf16-state instances once per level,
+    no other kernel and no plain version; finite losses, nonzero RPN
+    gradients."""
+    from snn_automotive_object_detection_tpu_torch.models.factory import (
+        DetectorConfig, init_params)
+    from snn_automotive_object_detection_tpu_torch.models.roi_heads import RoIConfig
+    from snn_automotive_object_detection_tpu_torch.models.rpn import RPNConfig
+    from snn_automotive_object_detection_tpu_torch.train import optim
+    from snn_automotive_object_detection_tpu_torch.train.steps import make_train_step
+
+    cfg = DetectorConfig(num_classes=4, t_rpn=8, t_det=4, min_size=64, max_size=128,
+                         snn_state_dtype=None,
+                         rpn=RPNConfig(pre_nms_top_n_train=64, post_nms_top_n_train=32,
+                                       batch_size_per_image=64),
+                         roi=RoIConfig(batch_size_per_image=16))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    for k in ("shared_conv", "conv_cls"):
+        params["rpn_head"][k]["w"].mul_(6.0)
+    trainable, frozen = optim.split_trainable(params)
+    opt, sched = optim.build_optimizer(trainable, "SGD", 0.01, momentum=0.9)
+    g = torch.Generator(device=dev).manual_seed(4)
+    batch = {"images": torch.rand((2, 64, 128, 3), generator=g, device=dev),
+             "image_sizes": torch.tensor([[64, 128]] * 2, device=dev),
+             "original_sizes": torch.tensor([[64, 128]] * 2, device=dev),
+             "targets": {"boxes": torch.tensor([[[10.0, 8.0, 50.0, 40.0], [60.0, 20.0, 110.0,
+                                                                          60.0]]] * 2,
+                                               device=dev),
+                         "labels": torch.tensor([[1, 2]] * 2, device=dev),
+                         "valid": torch.tensor([[True, True]] * 2, device=dev)}}
+    cb.reset_counts()
+    losses = make_train_step(cfg, opt, sched)(trainable, frozen, batch, g)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cb.LAUNCHES.items() if v} == {"stem": 1, k1.S16_SAVE_NAME: 5,
+                                                          k1.BWD_S16_NAME: 5}
+    assert all(v == 0 for v in cb.PLAIN_CUDA_CALLS.values())
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
+    for k in ("shared_conv", "conv_cls", "conv_bbox"):
+        gr = trainable["rpn_head"][k]["w"].grad
+        assert bool(torch.isfinite(gr).all()) and bool((gr != 0).any()), k
 
 
 def test_rpn_head_x2_refuses_an_odd_batch(dev):

@@ -3,7 +3,8 @@
 The H100 machine has PyTorch, numpy and scipy but no JAX, OpenCV, PyYAML,
 Pillow or Matplotlib. In a subprocess where importing any of those fails,
 the port's data, evaluation, checkpoint, logging, config, energy and
-plotting modules and its two CLIs must import, and none of them may bring
+plotting modules, its anchors and its CLIs (training, T sweep, noise
+sweeps, new-object discovery, energy and noise plots) must import, and none of them may bring
 in the JAX package. The training CLI also runs there, ``--test-only`` on
 the CPU, on a COCO-format set whose configs are JSON and whose images are
 ``.npy`` files, as ``chip_smoke.py`` gives it on the card's machine.
@@ -20,7 +21,9 @@ MODULES = ("data", "data.coco", "data.idd", "data.loader", "data.registry", "dat
            "data.transforms", "evaluation", "evaluation.coco_metrics",
            "evaluation.evaluator", "evaluation._native", "utils.checkpoint",
            "utils.logging", "utils.config", "utils.energy", "utils.plotting",
-           "utils.parallel", "models.transform", "cli.train", "cli.test_and_energy_eff")
+           "utils.parallel", "models.transform", "ops.anchors", "cli.train",
+           "cli.test_and_energy_eff", "cli.noise_calculations", "cli.new_object_discovery",
+           "cli.energy_efficiency_plot", "cli.noise_plots")
 
 BLOCK = f"""
 import importlib, importlib.abc, sys
