@@ -6,7 +6,9 @@
 For each mutant below, the script copies the repository's files into a
 temporary directory, breaks one line of one CUDA source in the copy, and
 runs there (a) that kernel's phase of ``chip_smoke.py`` and (b) that
-kernel's card tests. Both must fail on every mutant; the script prints the
+kernel's card tests. Both must fail on every mutant. The mutants of the
+data-parallel step (``DP_MUTANTS``: a line of a Python file of the package)
+run the ``dist`` phase only, which must fail. The script prints the
 phase's own report (how far outside the bound the broken kernel lands) and
 exits non-zero if any mutant passes a check. A run killed at its time limit
 (``TIMEOUT``, or ``HANG_TIMEOUT`` for a mutant that breaks a barrier
@@ -206,14 +208,33 @@ MUTANTS = [
     for k, phase, tests in (("K4", "check_box_tail", "box_tail"),
                             ("K9", "check_box_head_fused", "box_head_fused"))]
 
+# (name, file under the package, the lines as they stand, the broken
+# lines): the data-parallel step, held by chip_smoke.dist_path alone.
+DP_MUTANTS = [
+    ("DP: the gradient all-reduce left out (each rank steps on its own gradients)",
+     "parallel/collectives.py",
+     "        dist.all_reduce(flat)\n        for p, g in zip(group",
+     "        for p, g in zip(group"),
+    ("DP: the losses divided by the rank's own counts (no count summed over the ranks)",
+     "parallel/collectives.py",
+     "    if group_active():\n        dist.all_reduce(t)\n    return t",
+     "    return t"),
+]
+
 # The mutants to run can be named by the kernel their description begins
-# with (``python3 chip_mutants.py K8 K9``); none named means all.
+# with (``python3 chip_mutants.py K8 K9``, ``DP`` for the data-parallel
+# ones); none named means all.
 
 PHASE = """
 import torch, chip_smoke
 chip_smoke.reference_numerics()
 dev = torch.device("cuda:0")
 chip_smoke.{phase}(dev, torch.Generator(device=dev).manual_seed(1234), [])
+"""
+DIST_PHASE = """
+import torch, chip_smoke
+chip_smoke.reference_numerics()
+chip_smoke.dist_path(torch.device("cuda:0"))
 """
 
 
@@ -236,31 +257,38 @@ def main() -> int:
         print("chip_mutants: no CUDA device", file=sys.stderr)
         return 1
     survived = 0
-    chosen = [m for m in MUTANTS if not sys.argv[1:] or m[0].split(":")[0] in sys.argv[1:]]
-    for name, src, old, new, phase, tests in chosen:
+    every = [("csrc/" + src, old, new, name, PHASE.format(phase=phase), tests)
+             for name, src, old, new, phase, tests in MUTANTS] + [
+        (src, old, new, name, DIST_PHASE, None) for name, src, old, new in DP_MUTANTS]
+    chosen = [m for m in every if not sys.argv[1:] or m[3].split(":")[0] in sys.argv[1:]]
+    for src, old, new, name, phase, tests in chosen:
         with tempfile.TemporaryDirectory() as tmp:
             tree = Path(tmp) / "tree"
             shutil.copytree(ROOT, tree, ignore=shutil.ignore_patterns(
                 ".git", "_build", "__pycache__"))
-            path = tree / PKG / "csrc" / src
+            path = tree / PKG / src
             text = path.read_text()
             if text.count(old) != 1:
                 print(f"chip_mutants: {src}: the line to break is not there once")
                 return 1
             path.write_text(text.replace(old, new))
             limit = HANG_TIMEOUT if "hangs" in name else TIMEOUT
-            smoke = _run([sys.executable, "-c", PHASE.format(phase=phase)], tree, limit)
-            card = _run([sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider",
-                         "-q", "tests/test_torch_cuda_kernels.py", "-k", tests], tree, limit)
+            smoke = _run([sys.executable, "-c", phase], tree, limit)
+            card = None if tests is None else _run(
+                [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider",
+                 "-q", "tests/test_torch_cuda_kernels.py", "-k", tests], tree, limit)
         print(f"mutant {name}")
         for line in (smoke.stdout + smoke.stderr).strip().splitlines()[-6:]:
             print(f"  smoke: {line}")
-        print(f"  smoke exit {smoke.returncode}; card tests exit {card.returncode}: "
-              f"{card.stdout.strip().splitlines()[-1] if card.stdout.strip() else ''}")
+        if card is None:
+            print(f"  smoke exit {smoke.returncode}; no card tests")
+        else:
+            print(f"  smoke exit {smoke.returncode}; card tests exit {card.returncode}: "
+                  f"{card.stdout.strip().splitlines()[-1] if card.stdout.strip() else ''}")
         # pytest exits 1 when tests ran and failed (5 would mean none ran);
         # -9 is a run killed at the time limit.
         if ("chip_smoke: FAILED" not in smoke.stderr and smoke.returncode != -9) \
-                or card.returncode not in (1, -9):
+                or (card is not None and card.returncode not in (1, -9)):
             survived += 1
             print("  SURVIVED a check")
     print(f"chip_mutants: {len(chosen) - survived} of {len(chosen)} mutants fail both checks")

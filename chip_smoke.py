@@ -143,6 +143,38 @@ Phases, in order; any failure exits non-zero and prints no result line:
                sweeps (gaussian 0 and 0.05, rain 0 and 50), new-object
                discovery on the dump, the energy recompute from the rates
                and one --no-amp epoch (K1's and K7's bf16-state instances).
+ 12. dist    - data parallelism on torch.distributed at the flagship width
+               (frozen backbone, bf16, seeded batch of two at 768 x 1536):
+               (i) two gloo ranks on this one card (NCCL refuses two ranks
+               on one card; gloo stages CUDA tensors through the host), one
+               image each by the sampler-draw rule: their losses and
+               updated leaves bit-equal; each rank's RPN input features
+               equal to one process's on its image alone; their losses
+               within 1e-2 relative (DIST_LOSS_RTOL) of one process's step
+               on both images with those features as the frozen body's
+               output (a batch of two takes other cuDNN kernels in the
+               body, which move most features by ulps and flip encoder
+               spikes: that step's losses, the differing features and the
+               flipped spikes are printed beside), per rank and step K6 x1, K1's
+               training instance x5, K7 x5 and no plain version; each
+               rank's steps/s, device time and all-reduce time from its
+               profile (two ranks share the card: not a one-card figure);
+               (ii) a one-rank NCCL group running the same step: the same
+               bits as without a group, four NCCL all-reduce ops a step in
+               the profile (two loss counts, the gradients, the losses) and
+               NCCL's device kernels counted; (iii) cli/train.py
+               --test-only on two gloo ranks of -b 1 over 3 seeded images
+               (one padded by the loader's wrap-around), exactly the 12
+               stats of one process, rates-off launches per rank.
+ 13. bench_weights - tools/make_bench_weights.py of the port at the
+               flagship configuration: 700 AdamW steps on fresh batches of
+               the synthetic shape set (about a minute), launches per step
+               K6 x1, K1's training instance x5, K7 x5, the held-out
+               evaluation's
+               rates-off launches, 12 finite stats, the .pth read back by
+               --eval-only --load giving the same stats; prints the
+               held-out mAP, the foreground detections and in how many
+               evaluation batches the full NMS branch ran.
 
 The line before last is a JSON object listing the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -152,6 +184,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -184,6 +217,7 @@ def _fail(msg):
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+LOSS_NAMES = ("loss_objectness", "loss_rpn_box_reg", "loss_classifier", "loss_box_reg")
 
 
 def _nbytes(*tensors):
@@ -1849,7 +1883,6 @@ def cli_path(dev, n_images=4, image_hw=(768, 1536)):
     a step, K1's x5 a validation batch). Prints host-clock images/s of the
     evaluation and the seconds of each run. Returns the launches of all of
     them."""
-    import json
     import os
     import tempfile
 
@@ -1878,19 +1911,7 @@ def cli_path(dev, n_images=4, image_hw=(768, 1536)):
         return got, launches, time.perf_counter() - t0
 
     with tempfile.TemporaryDirectory() as tmp:
-        coco, pixels = _synthetic_coco(n_images, image_hw, 8, seed=13)
-        for img in coco["images"]:
-            img["file_name"] = f"{img['id']}.npy"
-            np.save(os.path.join(tmp, img["file_name"]), pixels[img["id"]])
-        with open(os.path.join(tmp, "ann.json"), "w") as f:
-            json.dump(coco, f)
-        out = os.path.join(tmp, "out")
-        with open(os.path.join(tmp, "ds.json"), "w") as f:
-            json.dump({"dataset": "cityscapes", "images_dir": tmp,
-                       "ann_file_train": os.path.join(tmp, "ann.json"),
-                       "ann_file_val": os.path.join(tmp, "ann.json"), "out_dir": out,
-                       "num_classes": 9,
-                       "classes": {str(c): f"class{c}" for c in range(9)}}, f)
+        out = _write_cli_set(tmp, n_images, image_hw)
         common = ["-d", os.path.join(tmp, "ds.json"), "--rpn-snn", "--detector-snn",
                   "-t-rpn", "8", "-t-det", "12", "-b", "2", "-j", "4", "--print-freq", "1",
                   "--device", str(dev)]
@@ -1990,6 +2011,32 @@ def cli_path(dev, n_images=4, image_hw=(768, 1536)):
         if launches != want:
             _fail(f"the --no-amp epoch's launches are not {want}")
     return total
+
+
+def _write_cli_set(tmp, n_images, image_hw):
+    """A seeded COCO-format set in ``tmp`` that the CLIs read without OpenCV
+    or PyYAML: ``_synthetic_coco``'s images as ``.npy`` files, its
+    annotations and the dataset config (``ds.json``) as JSON. Returns the
+    output directory the config names."""
+    import json
+    import os
+
+    import numpy as np
+
+    coco, pixels = _synthetic_coco(n_images, image_hw, 8, seed=13)
+    for img in coco["images"]:
+        img["file_name"] = f"{img['id']}.npy"
+        np.save(os.path.join(tmp, img["file_name"]), pixels[img["id"]])
+    with open(os.path.join(tmp, "ann.json"), "w") as f:
+        json.dump(coco, f)
+    out = os.path.join(tmp, "out")
+    with open(os.path.join(tmp, "ds.json"), "w") as f:
+        json.dump({"dataset": "cityscapes", "images_dir": tmp,
+                   "ann_file_train": os.path.join(tmp, "ann.json"),
+                   "ann_file_val": os.path.join(tmp, "ann.json"), "out_dir": out,
+                   "num_classes": 9,
+                   "classes": {str(c): f"class{c}" for c in range(9)}}, f)
+    return out
 
 
 def _smi():
@@ -2251,6 +2298,26 @@ def _tree_sums(leaves):
     return torch.stack([leaf.detach().double().sum() for leaf in leaves])
 
 
+def _seeded_train_batch(dev, cfg, g):
+    """Two images of ``cfg``'s bucket drawn from ``g``, with 3 and 5 valid
+    target boxes inside the image, labels in 1..8, padded to 8 rows per
+    image."""
+    import torch
+
+    n, (h, w), n_gt = 2, cfg.bucket, 8
+    ctr = torch.rand((n, n_gt, 2), generator=g, device=dev) * torch.tensor(
+        [w - 400.0, h - 300.0], device=dev) + torch.tensor([200.0, 150.0], device=dev)
+    half = torch.rand((n, n_gt, 2), generator=g, device=dev) * torch.tensor(
+        [170.0, 120.0], device=dev) + 20.0
+    valid = torch.arange(n_gt, device=dev)[None] < torch.tensor([[3], [5]], device=dev)
+    return {"images": torch.rand((n, h, w, 3), generator=g, device=dev),
+            "image_sizes": torch.tensor([[h, w]] * n, device=dev),
+            "original_sizes": torch.tensor([[1024, 2048]] * n, device=dev),
+            "targets": {"boxes": torch.cat([ctr - half, ctr + half], dim=-1),
+                        "labels": torch.randint(1, 9, (n, n_gt), generator=g, device=dev),
+                        "valid": valid}}
+
+
 def train_path(dev, steps=2, bf16_states=False):
     """The flagship training step, frozen backbone, through make_train_step;
     with ``bf16_states`` the same step with bf16 neuron states
@@ -2273,22 +2340,9 @@ def train_path(dev, steps=2, bf16_states=False):
     trainable, frozen = optim.split_trainable(params)
     optimizer, scheduler = optim.build_optimizer(trainable, "AdamW", 0.0025)
     step = make_train_step(cfg, optimizer, scheduler)
-
-    n, (h, w), n_gt = 2, cfg.bucket, 8
+    n, (h, w) = 2, cfg.bucket
     g = torch.Generator(device=dev).manual_seed(2)
-    # Targets: 3 and 5 valid boxes inside the image, labels in 1..8, padded
-    # to 8 rows per image.
-    ctr = torch.rand((n, n_gt, 2), generator=g, device=dev) * torch.tensor(
-        [w - 400.0, h - 300.0], device=dev) + torch.tensor([200.0, 150.0], device=dev)
-    half = torch.rand((n, n_gt, 2), generator=g, device=dev) * torch.tensor(
-        [170.0, 120.0], device=dev) + 20.0
-    valid = torch.arange(n_gt, device=dev)[None] < torch.tensor([[3], [5]], device=dev)
-    batch = {"images": torch.rand((n, h, w, 3), generator=g, device=dev),
-             "image_sizes": torch.tensor([[h, w]] * n, device=dev),
-             "original_sizes": torch.tensor([[1024, 2048]] * n, device=dev),
-             "targets": {"boxes": torch.cat([ctr - half, ctr + half], dim=-1),
-                         "labels": torch.randint(1, 9, (n, n_gt), generator=g, device=dev),
-                         "valid": valid}}
+    batch = _seeded_train_batch(dev, cfg, g)
     t_leaves, f_leaves = tree_leaves(trainable), tree_leaves(frozen)
     t_before, f_before = _tree_sums(t_leaves), _tree_sums(f_leaves)
 
@@ -2312,11 +2366,10 @@ def train_path(dev, steps=2, bf16_states=False):
         _fail(f"the {what} path's launches are not {want}")
     if any(v != 0 for v in plain_calls.values()):
         _fail(f"a plain version ran on the GPU in the {what} path")
-    names = ("loss_objectness", "loss_rpn_box_reg", "loss_classifier", "loss_box_reg")
     for i, losses in enumerate([first] + history):
-        row = {k: round(losses[k].item(), 5) for k in names + ("loss_total",)}
+        row = {k: round(losses[k].item(), 5) for k in LOSS_NAMES + ("loss_total",)}
         print(f"{what}: step {i} losses {row}")
-        if sorted(losses) != sorted(names + ("loss_total",)) or not all(
+        if sorted(losses) != sorted(LOSS_NAMES + ("loss_total",)) or not all(
                 torch.isfinite(v).all() for v in losses.values()):
             _fail("a training loss is missing or not finite")
     for group in ("rpn_head", "box_head"):
@@ -2338,6 +2391,424 @@ def train_path(dev, steps=2, bf16_states=False):
     return launches
 
 
+# Phase 12 (``dist``). Two ranks share the one card through gloo, which
+# stages CUDA tensors through the host (NCCL refuses two ranks on one
+# card); NCCL runs in a group of one rank. A batch of one image takes other
+# cuDNN kernels in the frozen bf16 body than a batch of two: about 77% of
+# the RPN's input features differ by ulps and about 0.45 M encoder spikes
+# flip per image (measured on the H100), which moves the box loss by a
+# fifth. So each rank's features must equal one process's on its image
+# alone bit for bit, and the ranks' losses are held within DIST_LOSS_RTOL
+# (relative, each loss) to one process's step on both images whose frozen
+# body's output is those same features; the step on both images with its
+# own features is printed beside it, with the differing features and the
+# flipped spikes. The ranks agree with each other bit for bit.
+DIST_LOSS_RTOL = 1e-2
+DIST_STEPS = 2
+
+
+def _dp_setup(dev):
+    """The flagship step of the ``dist`` phase from fixed seeds, alike in
+    every process: (trainable, frozen, step, the batch of two images, a
+    fresh sampler generator)."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.models.factory import (
+        DetectorConfig, init_params)
+    from snn_automotive_object_detection_tpu_torch.parallel.mesh import replicate
+    from snn_automotive_object_detection_tpu_torch.train import optim
+    from snn_automotive_object_detection_tpu_torch.train.steps import make_train_step
+
+    cfg = DetectorConfig(num_classes=9, t_rpn=8, t_det=12)
+    params = replicate(init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    trainable, frozen = optim.split_trainable(params)
+    optimizer, scheduler = optim.build_optimizer(trainable, "AdamW", 0.0025)
+    step = make_train_step(cfg, optimizer, scheduler)
+    batch = _seeded_train_batch(dev, cfg, torch.Generator(device=dev).manual_seed(2))
+    return trainable, frozen, step, batch, lambda: torch.Generator(device=dev).manual_seed(3)
+
+
+def _rows(batch, rows):
+    return {k: ({kk: vv[rows] for kk, vv in v.items()} if isinstance(v, dict) else v[rows])
+            for k, v in batch.items()}
+
+
+def _with_rpn_features(run):
+    """(``run()``, the RPN's input features in it, detached copies)."""
+    from snn_automotive_object_detection_tpu_torch.models import rpn as rpn_mod
+
+    real, got = rpn_mod.rpn_forward, []
+
+    def spy(head_apply, features, *args, **kw):
+        got.append([f.detach().clone() for f in features])
+        return real(head_apply, features, *args, **kw)
+
+    rpn_mod.rpn_forward = spy
+    try:
+        out = run()
+    finally:
+        rpn_mod.rpn_forward = real
+    return out, got[0]
+
+
+def _profile_dp(run, what):
+    """Device time of ``run()`` and its all-reduce: the host-side
+    collective ops (``gloo:all_reduce`` / ``nccl:all_reduce``) and NCCL's
+    device kernels, by count and time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_us, nccl, host = 0.0, [0, 0.0], [0, 0.0]
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            device_us += us
+            if "nccl" in e.key.lower():
+                nccl = [nccl[0] + e.count, nccl[1] + us / 1e3]
+        elif e.key.endswith(":all_reduce"):
+            host = [host[0] + e.count, host[1] + e.cpu_time_total / 1e3]
+    out = dict(wall_ms=wall_ms, device_ms=device_us / 1e3, allreduce_ops=host[0],
+               allreduce_host_ms=host[1], nccl_kernels=nccl[0], nccl_kernel_ms=nccl[1])
+    print(f"{what}: profiled step {wall_ms:.3f} ms wall, {out['device_ms']:.3f} ms of device "
+          f"time; {host[0]} all-reduce ops, {host[1]:.3f} ms host time in them; {nccl[0]} "
+          f"NCCL device kernels, {nccl[1]:.3f} ms")
+    return out
+
+
+def _dp_rank_step(dev, rank, tmp):
+    """One rank of the two-rank step: the compared step, then DIST_STEPS
+    timed ones and a profiled one; writes what the parent checks."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+    from snn_automotive_object_detection_tpu_torch.utils.weights import flatten_tree
+
+    trainable, frozen, step, batch, gen = _dp_setup(dev)
+    mine = _rows(batch, slice(rank, rank + 1))
+    losses, feats = _with_rpn_features(lambda: step(trainable, frozen, mine, gen()))
+    leaves = {k: v.detach().cpu() for k, v in flatten_tree(trainable).items()}
+    g = gen()
+    step(trainable, frozen, mine, g)      # warm-up
+    torch.cuda.synchronize()
+    cb.reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(DIST_STEPS):
+        step(trainable, frozen, mine, g)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, plain = dict(cb.LAUNCHES), dict(cb.PLAIN_CUDA_CALLS)
+    prof = _profile_dp(lambda: step(trainable, frozen, mine, g), f"dist rank {rank} (gloo)")
+    print(f"dist rank {rank}: {DIST_STEPS / dt:.3f} steps/s with the other rank on the same "
+          f"card ({dt / DIST_STEPS * 1e3:.1f} ms a step, host clock)")
+    torch.save({"losses": {k: float(v) for k, v in losses.items()}, "leaves": leaves,
+                "feats": [f.cpu() for f in feats], "launches": launches, "plain": plain,
+                "steps_per_s": DIST_STEPS / dt, "profile": prof},
+               os.path.join(tmp, f"step_rank{rank}.pt"))
+
+
+def _dp_rank_test_only(dev, rank, tmp):
+    """One rank of ``cli/train.py --test-only``: its stats and launches."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.cli import train as cli
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+
+    with open(os.path.join(tmp, "argv.json")) as f:
+        argv = json.load(f)
+    cb.reset_counts()
+    stats = cli.main(cli.get_args_parser().parse_args(argv))
+    torch.cuda.synchronize()
+    torch.save({"stats": stats, "launches": dict(cb.LAUNCHES),
+                "plain": dict(cb.PLAIN_CUDA_CALLS)}, os.path.join(tmp, f"eval_rank{rank}.pt"))
+
+
+def _dist_rank(mode, tmp):
+    """A rank of the ``dist`` phase (``python3 -m chip_smoke --dist-rank
+    <mode> <dir>``, the rank in the environment): gloo on the card."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.parallel.collectives import parallel_world
+    from snn_automotive_object_detection_tpu_torch.parallel.mesh import (
+        init_distributed, rank_device)
+
+    reference_numerics()
+    if not init_distributed("cuda", backend="gloo"):
+        _fail("dist: no process group from the environment")
+    rank, _ = parallel_world()
+    dev = rank_device("cuda")
+    print(f"dist rank {rank}: backend {torch.distributed.get_backend()}, device {dev}")
+    {"step": _dp_rank_step, "test_only": _dp_rank_test_only}[mode](dev, rank, tmp)
+    torch.distributed.destroy_process_group()
+    print(f"[rank {rank}] ALL OK")
+    return 0
+
+
+def _spawn_ranks(mode, tmp):
+    """Two ranks of ``mode`` on this card (both local rank 0), gloo."""
+    from snn_automotive_object_detection_tpu_torch.parallel.dryrun import run_ranks
+
+    t0 = time.perf_counter()
+    outs = run_ranks("chip_smoke", 2, ["--dist-rank", mode, tmp], timeout=600,
+                     env_extra={"LOCAL_RANK": "0"})
+    for rank, out in enumerate(outs):
+        for line in out.strip().splitlines():
+            if line.startswith("dist rank") or "profile" in line:
+                print(f"  {line}")
+        if f"[rank {rank}] ALL OK" not in out:
+            _fail(f"dist: rank {rank} did not finish:\n{out[-3000:]}")
+    print(f"dist: two ranks of {mode} in {time.perf_counter() - t0:.1f} s")
+
+
+def _with_body_output(feats, run):
+    """``run()`` with the frozen ResNet body's output (the FPN levels of
+    the bf16 training route) replaced by ``feats``; the stem still runs."""
+    from snn_automotive_object_detection_tpu_torch.models import detector
+
+    real = detector.resnet50_fpn_apply_from_p1
+    detector.resnet50_fpn_apply_from_p1 = lambda *args, **kw: feats
+    try:
+        return run()
+    finally:
+        detector.resnet50_fpn_apply_from_p1 = real
+
+
+def _encoder_flips(a, b, t_rpn):
+    """Encoder spikes that differ between two feature maps over ``t_rpn``
+    steps (the closed-form periods)."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.snn import functional as snnf
+
+    pa, pb = snnf.encoder_periods(a.float()), snnf.encoder_periods(b.float())
+    return sum(int((snnf.encoder_spikes_at(pa, t) != snnf.encoder_spikes_at(pb, t)).sum())
+               for t in range(t_rpn)) if not torch.equal(pa, pb) else 0
+
+
+def dist_path(dev):
+    """Phase 12: (i) the flagship step on two gloo ranks of one image each
+    on this card against one process on both images; (ii) the same step in
+    a one-rank NCCL group against the step without a group; (iii)
+    ``cli/train.py --test-only`` on two gloo ranks of ``-b 1`` against one
+    process. Returns the launches of all processes."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from snn_automotive_object_detection_tpu_torch.cli import train as cli
+    from snn_automotive_object_detection_tpu_torch.parallel.dryrun import free_port
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+    from snn_automotive_object_detection_tpu_torch.utils.weights import flatten_tree
+
+    total = {k: 0 for k in cb.KERNELS}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    # (i) one process on both images, then two gloo ranks of one each.
+    trainable, frozen, step, batch, gen = _dp_setup(dev)
+    cb.reset_counts()
+    own, feats = _with_rpn_features(lambda: step(trainable, frozen, batch, gen()))
+    add(cb.LAUNCHES)
+    ref_leaves = {k: v.detach().clone() for k, v in flatten_tree(trainable).items()}
+    own = {k: float(v) for k, v in own.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        _spawn_ranks("step", tmp)
+        ranks = [torch.load(os.path.join(tmp, f"step_rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    print(f"dist (i): backend gloo, two ranks on {torch.cuda.get_device_name(0)} "
+          f"({_smi()}), one image each")
+    same_losses = ranks[0]["losses"] == ranks[1]["losses"]
+    same_leaves = all(torch.equal(ranks[0]["leaves"][k], ranks[1]["leaves"][k])
+                      for k in ranks[0]["leaves"])
+    print(f"dist (i): ranks bit-equal: losses {same_losses}, updated leaves {same_leaves} "
+          f"({len(ranks[0]['leaves'])} leaves)")
+    if not (same_losses and same_leaves):
+        _fail("dist: the two ranks' losses or updated leaves differ")
+    cb.reset_counts()
+    for r, rk in enumerate(ranks):
+        trainable, frozen, step, batch, gen = _dp_setup(dev)
+        _, alone = _with_rpn_features(lambda: step(trainable, frozen,
+                                                   _rows(batch, slice(r, r + 1)), gen()))
+        same = all(torch.equal(a, b.to(dev)) for a, b in zip(alone, rk["feats"]))
+        diff = [int((a != b[r:r + 1].cpu()).sum()) for a, b in zip(rk["feats"], feats)]
+        flips = [_encoder_flips(a.to(dev), b[r:r + 1], 8) for a, b in zip(rk["feats"], feats)]
+        print(f"dist (i): rank {r}'s RPN features equal one process's on image {r} alone: "
+              f"{same}; against row {r} of one process's batch of two: elements differing "
+              f"per level {diff}, flipped encoder spikes per level {flips}")
+        if not same:
+            _fail(f"dist: rank {r}'s features are not one process's on its image alone")
+    shared = [torch.cat([a, b]).to(dev) for a, b in zip(ranks[0]["feats"], ranks[1]["feats"])]
+    trainable, frozen, step, batch, gen = _dp_setup(dev)
+    want = _with_body_output(shared, lambda: step(trainable, frozen, batch, gen()))
+    add(cb.LAUNCHES)
+    worst = 0.0
+    for k in LOSS_NAMES + ("loss_total",):
+        got, w = ranks[0]["losses"][k], float(want[k])
+        rel = abs(got - w) / abs(w)
+        worst = max(worst, rel)
+        print(f"dist (i): {k} two ranks {got:.7f}, one process on both images with the "
+              f"ranks' features {w:.7f}, relative difference {rel:.3g} (tolerance "
+              f"{DIST_LOSS_RTOL}); with its own features {own[k]:.7f} "
+              f"({abs(got - own[k]) / abs(own[k]):.3g})")
+    if not worst <= DIST_LOSS_RTOL:
+        _fail(f"dist: the ranks' losses are {worst:.3g} from one process's (relative)")
+    per_step = {**{k: 0 for k in cb.KERNELS}, "stem": 1, "rpn_head": 5, "rpn_head_bwd": 5}
+    for r, rk in enumerate(ranks):
+        got = {k: v // DIST_STEPS for k, v in rk["launches"].items()}
+        print(f"dist (i): rank {r} launches per step {got}; {rk['steps_per_s']:.3f} steps/s, "
+              f"{rk['profile']['device_ms']:.3f} ms of device time a step, all-reduce "
+              f"{rk['profile']['allreduce_host_ms']:.3f} ms host time in "
+              f"{rk['profile']['allreduce_ops']} ops (two ranks share the card: not a "
+              f"one-card figure)")
+        if rk["launches"] != {k: DIST_STEPS * v for k, v in per_step.items()} or any(
+                rk["plain"].values()):
+            _fail(f"dist: rank {r}'s launches are not {per_step} a step, or a plain version "
+                  f"ran on the card")
+        add(rk["launches"])
+
+    # (ii) a one-rank NCCL group: the same step's bits, NCCL in the profile.
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        print(f"dist (ii): backend {dist.get_backend()}, world size {dist.get_world_size()}")
+        trainable, frozen, step, batch, gen = _dp_setup(dev)
+        cb.reset_counts()
+        got = {k: float(v) for k, v in step(trainable, frozen, batch, gen()).items()}
+        same = all(torch.equal(v, ref_leaves[k]) for k, v in flatten_tree(trainable).items())
+        print(f"dist (ii): updated leaves equal to the step's without a group: {same}; losses "
+              f"equal: {got == own}")
+        if not (same and got == own):
+            _fail("dist: the one-rank NCCL step changed the step's bits")
+        g = gen()
+        step(trainable, frozen, batch, g)
+        prof = _profile_dp(lambda: [step(trainable, frozen, batch, g)
+                                    for _ in range(DIST_STEPS)], "dist (ii) NCCL")
+        add(cb.LAUNCHES)
+        # Each step sums two loss counts, the gradients and the losses.
+        if prof["allreduce_ops"] != 4 * DIST_STEPS:
+            _fail(f"dist: {prof['allreduce_ops']} NCCL all-reduce ops in {DIST_STEPS} steps, "
+                  f"not {4 * DIST_STEPS}")
+    finally:
+        dist.destroy_process_group()
+
+    # (iii) the evaluation CLI on two gloo ranks of -b 1 against one process.
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_cli_set(tmp, 3, (768, 1536))
+        argv = ["-d", os.path.join(tmp, "ds.json"), "--rpn-snn", "--detector-snn", "-t-rpn",
+                "8", "-t-det", "12", "-b", "1", "-j", "2", "--print-freq", "1", "--test-only"]
+        with open(os.path.join(tmp, "argv.json"), "w") as f:
+            json.dump(argv, f)
+        cb.reset_counts()
+        one = np.asarray(cli.main(cli.get_args_parser().parse_args(argv)))
+        add(cb.LAUNCHES)
+        _spawn_ranks("test_only", tmp)
+        ranks = [torch.load(os.path.join(tmp, f"eval_rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    per_batch = {"rpn_head": 5, "roi_align": 1, "encoder_fc6": 1, "box_tail": 1,
+                 "fpn_level": 4, "stem": 1}
+    want = {k: 2 * per_batch.get(k, 0) for k in cb.KERNELS}   # 2 of 3 images a rank
+    for r, rk in enumerate(ranks):
+        same = np.array_equal(np.asarray(rk["stats"]), one)
+        print(f"dist (iii): backend gloo, rank {r} of 2, -b 1: stats equal to one process's "
+              f"{same}; launches {rk['launches']}")
+        if not same or rk["launches"] != want or any(rk["plain"].values()):
+            _fail(f"dist: rank {r}'s --test-only stats differ from one process's or its "
+                  f"launches are not {want}")
+        add(rk["launches"])
+    print(f"dist (iii): stats {[round(float(x), 4) for x in one]}")
+    return total
+
+
+def bench_weights_path(dev, steps=700, eval_images=8):
+    """Phase 13: the port's ``tools/make_bench_weights.py`` at the flagship
+    configuration for ``steps`` AdamW steps on fresh shape-set batches,
+    then its held-out evaluation: launches per step (K6 x1, K1's training
+    instance x5, K7 x5) and per evaluation batch (rates off), 12 finite
+    stats, the ``.pth`` read back by ``--eval-only --load`` giving the same
+    stats; prints the held-out mAP, the foreground detections and whether
+    the postprocess took its full NMS branch."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.ops import nms as nms_ops
+    from snn_automotive_object_detection_tpu_torch.tools import make_bench_weights as mbw
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+
+    batches = -(-eval_images // 2)
+    real_step, real_pruned = mbw.make_eval_step, nms_ops.nms_mask_pruned
+    fg, pruned = [], []
+
+    def counting_step(config, collect_rates=False):
+        run = real_step(config, collect_rates)
+
+        def step(params, batch):
+            det = run(params, batch)
+            fg.append(int((det["valid"] & (det["labels"] > 0)).sum()))
+            return det
+        return step
+
+    def counting_pruned(*args, **kw):
+        pruned.append(1)
+        return real_pruned(*args, **kw)
+
+    total = {k: 0 for k in cb.KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "bench_weights.pth")
+        argv = ["--out", out, "--steps", str(steps), "--opt", "adamw", "--lr", "1e-3",
+                "--eval-images", str(eval_images), "--save-every", str(steps // 2),
+                "--device", str(dev)]
+        mbw.make_eval_step, nms_ops.nms_mask_pruned = counting_step, counting_pruned
+        try:
+            cb.reset_counts()
+            t0 = time.perf_counter()
+            stats, cls_ap, _ = mbw.main(mbw.get_args_parser().parse_args(argv))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            mbw.make_eval_step, nms_ops.nms_mask_pruned = real_step, real_pruned
+        launches = dict(cb.LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        partial_left = os.path.exists(out + ".partial")
+        cb.reset_counts()
+        again, _, _ = mbw.main(mbw.get_args_parser().parse_args(
+            argv + ["--eval-only", "--load", out]))
+        for k, v in cb.LAUNCHES.items():
+            total[k] += v
+        eval_launches = dict(cb.LAUNCHES)
+    per_batch = {"rpn_head": 5, "roi_align": 1, "encoder_fc6": 1, "box_tail": 1,
+                 "fpn_level": 4, "stem": 1}
+    want_eval = {k: batches * per_batch.get(k, 0) for k in cb.KERNELS}
+    want = {k: v + {"stem": steps, "rpn_head": 5 * steps, "rpn_head_bwd": 5 * steps}.get(k, 0)
+            for k, v in want_eval.items()}
+    print(f"bench_weights: {steps} steps of 2 x 768 x 1536 and {eval_images} held-out images "
+          f"in {secs:.1f} s ({_smi()}); launches {launches}")
+    print(f"bench_weights: held-out mAP@[.5:.95] {stats[0]:.4f}, AP50 {stats[1]:.4f}, per "
+          f"class {cls_ap}; {sum(fg)} foreground detections in {len(fg)} batches; the full "
+          f"NMS branch ran in {len(fg) - len(pruned)} of {len(fg)} batches")
+    if launches != want or any(cb.PLAIN_CUDA_CALLS.values()):
+        _fail(f"bench_weights: launches are not {want}, or a plain version ran on the card")
+    if eval_launches != want_eval:
+        _fail(f"bench_weights: the --eval-only launches are not {want_eval}")
+    if len(stats) != 12 or not np.isfinite(stats).all() or partial_left:
+        _fail("bench_weights: no 12 finite stats, or the .partial file was left")
+    if not np.array_equal(np.asarray(again), np.asarray(stats)):
+        _fail("bench_weights: the .pth read back gave other held-out stats")
+    return total
+
+
 def reference_numerics():
     """f32 products and convolutions run in full f32, not TF32: the plain
     versions are the references the kernels are held against, and the f32
@@ -2357,6 +2828,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dist-rank"]:
+        return _dist_rank(*sys.argv[2:4])
     from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
 
     reference_numerics()
@@ -2382,7 +2855,9 @@ def main() -> int:
                "float32_evaluation": float32_eval_path(dev),
                "dataset_eval": dataset_eval_path(dev),
                "routes": routes_path(dev),
-               "cli": cli_path(dev)}
+               "cli": cli_path(dev),
+               "dist": dist_path(dev),
+               "bench_weights": bench_weights_path(dev)}
     for r in results:
         r["launches_by_path"] = {k: v[r["name"]] for k, v in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -29,6 +29,7 @@ from snn_automotive_object_detection_tpu_torch.cli.train import (
     compute_mean_avg_precision,
     get_args_parser as train_args,
     load_weights,
+    run_device,
 )
 from snn_automotive_object_detection_tpu_torch.train.steps import make_eval_step
 
@@ -55,11 +56,7 @@ def sweep_points(args):
 
 def main(args):
     """Runs the sweep; returns the rows written."""
-    import torch
-
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
+    device = run_device(args)
     noise_name, out_name, points = sweep_points(args)
     if args.save_name:
         out_name += f"_{args.save_name}"

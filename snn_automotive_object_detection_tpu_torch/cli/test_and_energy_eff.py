@@ -31,6 +31,7 @@ from snn_automotive_object_detection_tpu_torch.cli.train import (
     extract_spike_rates_run,
     get_args_parser as train_args,
     load_weights,
+    run_device,
 )
 from snn_automotive_object_detection_tpu_torch.train.steps import make_eval_step
 
@@ -50,9 +51,7 @@ def get_args_parser():
 
 def main(args):
     """Runs the sweep; returns the rows written."""
-    import torch
-
-    device = torch.device(args.device)
+    device = run_device(args)
     results = []
     out_name = f"sweep_{args.option}" + (f"_{args.save_name}" if args.save_name else "")
     out_path = None

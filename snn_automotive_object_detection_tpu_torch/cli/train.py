@@ -5,8 +5,8 @@ reference's train.py flag surface): training with checkpoints and resume,
 COCO evaluation, the new-object-discovery dump, spike-rate extraction and
 the energy report, noise, prediction panels and a ``torch.profiler`` trace.
 It runs on the CUDA device unless ``--device cpu`` is given (the tests do),
-in one process (``utils/parallel.parallel_world()``), and needs neither
-JAX, OpenCV, PyYAML, Pillow nor Matplotlib where its inputs do not: a
+and needs neither JAX, OpenCV, PyYAML, Pillow nor Matplotlib where its
+inputs do not: a
 dataset or model config given as ``.json`` and images stored as ``.npy``
 load with the standard library and numpy; ``--plot-images`` draws with
 Matplotlib.
@@ -29,6 +29,19 @@ Checkpoints: after every epoch ``model_<save name>_<epoch>.pth`` holds the
 weights ({"params", "args"}, for ``--load-model``) and ``checkpoint.pth``
 the whole training state (weights, optimizer, scheduler, epoch; for
 ``--resume``), both written with ``torch.save``.
+
+Several processes, one card each (torchrun's or SLURM's variables,
+``parallel/mesh.py``; NCCL between cards, gloo with ``--device cpu``)::
+
+    torchrun --nproc_per_node=4 -m snn_automotive_object_detection_tpu_torch.cli.train \
+        -d cityscapes --rpn-snn --detector-snn -b 2 --epochs 25
+
+Each rank loads its shard of every split (``-b`` images a step on each
+rank), starts from rank 0's weights and takes data-parallel steps over the
+global batch (``train/steps.py``); evaluation gathers every rank's
+detections, so all ranks report the same stats. Rank 0 writes the
+checkpoints; every rank writes the hyperparameter dump and its scalars, as
+the JAX package's CLI does.
 """
 
 from __future__ import annotations
@@ -54,6 +67,12 @@ from snn_automotive_object_detection_tpu_torch.data.transforms import (
 )
 from snn_automotive_object_detection_tpu_torch.evaluation import CocoEvaluator
 from snn_automotive_object_detection_tpu_torch.models.factory import create_model
+from snn_automotive_object_detection_tpu_torch.parallel.collectives import parallel_world
+from snn_automotive_object_detection_tpu_torch.parallel.mesh import (
+    init_distributed,
+    rank_device,
+    replicate,
+)
 from snn_automotive_object_detection_tpu_torch.train.optim import (
     build_optimizer,
     build_schedule,
@@ -79,7 +98,6 @@ from snn_automotive_object_detection_tpu_torch.utils.config import (
     load_model_yaml,
 )
 from snn_automotive_object_detection_tpu_torch.utils.logging import MetricLogger, ScalarWriter
-from snn_automotive_object_detection_tpu_torch.utils.parallel import parallel_world
 from snn_automotive_object_detection_tpu_torch.utils.weights import tree_leaves
 
 RATE_KEYS = ("rpn_rates", "det_rates")
@@ -201,9 +219,19 @@ class _Profile:
 # --------------------------------------------------------------- helpers
 
 
+def run_device(args) -> torch.device:
+    """Start the process group from the environment, if the launcher
+    started several processes (the JAX package's CLI does so first), and
+    return this rank's device: ``--device cuda`` is the rank's card."""
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
+    init_distributed(args.device)
+    return rank_device(args.device)
+
+
 def build_everything(args):
     """(dataset config, output directory, model config, parameters on
-    ``args.device``, make_loader(split, training) -> (dataset, loader))."""
+    this rank's device (:func:`run_device`), make_loader(split, training) -> (dataset, loader))."""
     cfg = load_dataset_config(args.dataset, args.data_root or None)
     out_dir = args.out_dir_override or cfg.get("out_dir", f"outputs/{cfg['dataset']}")
     os.makedirs(out_dir, exist_ok=True)
@@ -215,7 +243,7 @@ def build_everything(args):
         num_steps_detector=args.num_steps_detector, only_one_bbox=args.only_one_bbox,
         seed=args.seed, compute_dtype=torch.float32 if args.fp32 else torch.bfloat16,
         snn_state_dtype=torch.float32 if args.amp and not args.fp32 else None,
-        model_yaml=model_yaml, backbone=args.backbone, device=args.device)
+        model_yaml=model_yaml, backbone=args.backbone, device=run_device(args))
     if args.trainable_backbone_layers:
         config = dataclasses.replace(config,
                                      trainable_backbone_layers=args.trainable_backbone_layers)
@@ -257,14 +285,15 @@ def _read_weights(path: str, config, device):
 
 def load_weights(args, config, params):
     """``--pretrained-backbone`` (the trunk only), then ``--load-model``
-    over it, both lenient: leaves of another shape keep their values."""
+    over it, both lenient: leaves of another shape keep their values. With
+    a process group, every rank then holds rank 0's weights."""
     device = tree_leaves(params)[0].device
     if args.pretrained_backbone:
         params = load_weights_lenient(params, {"backbone": load_torch_backbone(
             args.pretrained_backbone, device=device)})
-    if not args.load_model:
-        return params
-    return load_weights_lenient(params, _read_weights(args.load_model, config, device))
+    if args.load_model:
+        params = load_weights_lenient(params, _read_weights(args.load_model, config, device))
+    return replicate(params)
 
 
 def _host_det(det):
@@ -417,9 +446,7 @@ def save_panels(eval_step, params, loader, names, out_dir, option, max_images, d
 
 
 def main(args):
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
+    device = run_device(args)
     cfg, out_dir, config, params, make_loader = build_everything(args)
     params = load_weights(args, config, params)
     dump_hyperparams(os.path.join(out_dir, "hyperparams.txt"), args, config, params)
@@ -465,7 +492,7 @@ def main(args):
             raise NotImplementedError("--resume with --load-model is not supported (as in "
                                       "the reference, train.py:651)")
         state = load_checkpoint(args.resume, map_location=device)
-        params = load_weights_lenient(params, state["params"])
+        params = replicate(load_weights_lenient(params, state["params"]))
         start_epoch = int(state["epoch"]) + 1
     trainable, frozen = split_trainable(
         params, args.freeze_fpn, args.freeze_rpn, args.freeze_detector,
@@ -484,6 +511,8 @@ def main(args):
             scheduler.load_state_dict(state["scheduler"])
     train_step = make_train_step(config, optimizer, scheduler)
     val_step = make_val_loss_step(config)
+    # One seed on every rank: each draws the global batch's sampler draws
+    # and keeps its own rows (parallel/collectives.rank_rand).
     generator = torch.Generator(device=device).manual_seed(args.seed)
     writer = ScalarWriter(os.path.join(out_dir, "runs",
                                        datetime.datetime.now().strftime("%y%m%d_%H%M")))

@@ -2,8 +2,8 @@
 
 Port of ``snn_automotive_object_detection_tpu/evaluation/evaluator.py``;
 detections may be torch tensors on any device (they are copied to the host
-here) or numpy arrays. The cross-process merge goes through
-``utils/parallel.py``, which reports one process for now.
+here) or numpy arrays. The cross-process merge gathers every rank's
+detections (``parallel/collectives.py``) when a process group is up.
 
 API mirror of the reference's evaluator (its coco_eval.py:14-57):
 ``update({image_id: detection_dict})`` -> ``synchronize_between_processes()``
@@ -22,7 +22,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from snn_automotive_object_detection_tpu_torch.evaluation.coco_metrics import COCOEval
-from snn_automotive_object_detection_tpu_torch.utils.parallel import (
+from snn_automotive_object_detection_tpu_torch.parallel.collectives import (
     all_gather_objects,
     parallel_world,
 )
@@ -107,8 +107,8 @@ class CocoEvaluator:
 
         Where each process evaluated its shard, this gathers every
         process's detection dict so that all ranks compute the same global
-        metrics; in one process (``parallel_world()`` (0, 1)) nothing is
-        gathered. ``others`` additionally merges explicit evaluators."""
+        metrics; without a process group (``parallel_world()`` (0, 1))
+        nothing is gathered. ``others`` additionally merges explicit evaluators."""
         if others:
             self.eval.merge_from([o.eval for o in others])
         me, size = parallel_world()

@@ -36,6 +36,11 @@ from snn_automotive_object_detection_tpu_torch.ops.roi_align import multiscale_r
 from snn_automotive_object_detection_tpu_torch.ops.sampler import (
     balanced_sample_from_draws,
 )
+from snn_automotive_object_detection_tpu_torch.parallel.collectives import (
+    rank_rand,
+    rank_rows,
+    sum_over_ranks,
+)
 from snn_automotive_object_detection_tpu_torch.utils.constants import device_constant
 
 # Per-class NMS over the top-K rows when no foreground class has more than
@@ -67,8 +72,9 @@ def select_training_samples(proposals: torch.Tensor, prop_valid: torch.Tensor,
     """Proposal sampling (reference roi_heads.py:1037-1073), batched.
 
     proposals [N, P, 4]; prop_valid [N, P]; gt_boxes [N, G, 4]; gt_labels
-    [N, G] int; gt_valid [N, G]. The uniform draws, each [N, P + G], come
-    from ``generator`` or are given as ``draws`` = (rp, rn, r_pack): the
+    [N, G] int; gt_valid [N, G]. The uniform draws, each [W N, P + G] for
+    the global batch of W ranks (this rank takes its N rows), come from
+    ``generator`` or are given as ``draws`` = (rp, rn, r_pack): the
     sampler's two and the one that orders the packed slots. Returns the
     sampled set of S = batch_size_per_image slots per image, positives
     first: boxes [N, S, 4], labels [N, S] (0 background), regression targets
@@ -78,8 +84,10 @@ def select_training_samples(proposals: torch.Tensor, prop_valid: torch.Tensor,
     all_boxes = torch.cat([proposals, gt_boxes], dim=1)
     all_valid = torch.cat([prop_valid, gt_valid], dim=1)
     if draws is None:
-        draws = tuple(torch.rand(all_valid.shape, generator=generator,
-                                 device=all_valid.device) for _ in range(3))
+        draws = tuple(rank_rand(all_valid.shape, generator, all_valid.device)
+                      for _ in range(3))
+    else:
+        draws = tuple(rank_rows(d, all_valid.shape[0]) for d in draws)
     rp, rn, r_pack = draws
 
     quality = box_ops.box_iou(gt_boxes, all_boxes)
@@ -123,8 +131,9 @@ def fastrcnn_loss(class_logits: torch.Tensor, box_regression: torch.Tensor,
                   valid: torch.Tensor):
     """Classification and box loss (reference roi_heads.py:11-53), masked.
     class_logits [S, C]; box_regression [S, 4C]; labels, valid [S];
-    reg_targets [S, 4]. Returns (loss_classifier, loss_box_reg)."""
-    num = valid.sum().clamp(min=1)
+    reg_targets [S, 4]. Both are this rank's sums over the sampled count of
+    the global batch. Returns (loss_classifier, loss_box_reg)."""
+    num = sum_over_ranks(valid.sum()).clamp(min=1)
     logp = torch.log_softmax(class_logits, dim=-1)
     ce = -torch.gather(logp, 1, labels[:, None])[:, 0]
     loss_cls = (ce * valid).sum() / num

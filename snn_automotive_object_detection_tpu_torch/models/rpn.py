@@ -9,8 +9,10 @@ best. Shapes are fixed with validity masks. The pre-NMS proposals and their
 scores go out for new-object discovery. In training the anchors are
 matched at 0.7/0.3 with low-quality matches, 256 per image are sampled at
 50% positive, and the loss is BCE on the objectness plus smooth-L1
-(beta 1/9) on the positives' deltas, both over the sampled count; proposals
-are selected from detached head outputs.
+(beta 1/9) on the positives' deltas, both over the sampled count of the
+global batch (summed over the ranks of a process group, as the JAX
+package's SPMD step sums it); proposals are selected from detached head
+outputs.
 """
 
 from __future__ import annotations
@@ -26,6 +28,10 @@ from snn_automotive_object_detection_tpu_torch.ops.matcher import match_boxes
 from snn_automotive_object_detection_tpu_torch.ops.sampler import (
     balanced_sample,
     balanced_sample_from_draws,
+)
+from snn_automotive_object_detection_tpu_torch.parallel.collectives import (
+    rank_rows,
+    sum_over_ranks,
 )
 
 
@@ -154,18 +160,21 @@ def rpn_loss(objectness: torch.Tensor, pred_deltas: torch.Tensor,
              draws: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """RPN loss (reference rpn.py:527-561). objectness, labels [N, K];
     pred_deltas, reg_targets [N, K, 4]. The sampler's uniform draws come
-    from ``generator``, or are given as ``draws`` = (rp, rn), each [N, K].
-    Returns (loss_objectness, loss_rpn_box_reg)."""
+    from ``generator``, or are given as ``draws`` = (rp, rn), each [W N, K]
+    for the global batch of W ranks, of which this rank takes its N rows.
+    Both losses are this rank's sums over the sampled count of the global
+    batch. Returns (loss_objectness, loss_rpn_box_reg)."""
     pos_mask, neg_mask = labels == 1.0, labels == 0.0
     if draws is None:
         pos, neg = balanced_sample(generator, pos_mask, neg_mask,
                                    cfg.batch_size_per_image, cfg.positive_fraction)
     else:
         pos, neg = balanced_sample_from_draws(
-            pos_mask, neg_mask, draws[0], draws[1], cfg.batch_size_per_image,
+            pos_mask, neg_mask, rank_rows(draws[0], labels.shape[0]),
+            rank_rows(draws[1], labels.shape[0]), cfg.batch_size_per_image,
             cfg.positive_fraction)
     sampled = pos | neg
-    num_sampled = sampled.sum().clamp(min=1)
+    num_sampled = sum_over_ranks(sampled.sum()).clamp(min=1)
 
     box_l = smooth_l1(pred_deltas - reg_targets, beta=1.0 / 9).sum(dim=-1)
     loss_box = (box_l * pos).sum() / num_sampled

@@ -127,13 +127,11 @@ def _launch(c_feat: torch.Tensor, merged_next: Optional[torch.Tensor],
         if store_merged else None
     fn = cb.function(NAME, "fpn_level_bf16",
                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    code = fn(c_feat.data_ptr(),
-              None if merged_next is None else merged_next.data_ptr(),
-              wlat_t.data_ptr(), blat.data_ptr(), w9_t.data_ptr(), bout.data_ptr(),
-              out_p.data_ptr(), None if out_m is None else out_m.data_ptr(),
-              n, h, w, cin, rows, cb.stream_ptr(c_feat.device))
-    cb.check(code, NAME)
-    cb.LAUNCHES[NAME] += 1
+    cb.launch(NAME, fn, [c_feat.data_ptr(),
+                         None if merged_next is None else merged_next.data_ptr(),
+                         wlat_t.data_ptr(), blat.data_ptr(), w9_t.data_ptr(), bout.data_ptr(),
+                         out_p.data_ptr(), None if out_m is None else out_m.data_ptr(),
+                         n, h, w, cin, rows], c_feat.device)
     return out_p, out_m
 
 

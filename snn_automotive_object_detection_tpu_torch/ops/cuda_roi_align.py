@@ -91,10 +91,8 @@ def _launch(features: Sequence[torch.Tensor], boxes: torch.Tensor,
                       device=boxes.device)
     ptrs += ptrs[:1] * (MAX_LEVELS - len(ptrs))
     fn = cb.function(NAME, "roi_align_bf16", _ARGTYPES)
-    code = fn(*ptrs, ctypes.addressof(geo), boxes.data_ptr(), n * r, r, c,
-              out.data_ptr(), cb.stream_ptr(boxes.device))
-    cb.check(code, NAME)
-    cb.LAUNCHES[NAME] += 1
+    cb.launch(NAME, fn, [*ptrs, ctypes.addressof(geo), boxes.data_ptr(), n * r, r, c,
+                         out.data_ptr()], boxes.device)
     return out
 
 

@@ -125,11 +125,9 @@ def _launch(images: torch.Tensor, w_k: torch.Tensor, bias: torch.Tensor,
     out = torch.empty((n, h // 4, w // 4, 64), dtype=torch.bfloat16,
                       device=images.device)
     fn = cb.function(NAME, "stem_bf16", _ARGTYPES)
-    code = fn(images.data_ptr(), w_k.data_ptr(), bias.data_ptr(),
-              out.data_ptr(), *[float(m) for m in image_mean], n, h, w,
-              cb.stream_ptr(images.device))
-    cb.check(code, NAME)
-    cb.LAUNCHES[NAME] += 1
+    cb.launch(NAME, fn, [images.data_ptr(), w_k.data_ptr(), bias.data_ptr(),
+                         out.data_ptr(), *[float(m) for m in image_mean], n, h, w],
+              images.device)
     return out
 
 

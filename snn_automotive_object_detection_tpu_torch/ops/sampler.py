@@ -5,12 +5,16 @@ Port of ``snn_automotive_object_detection_tpu/ops/sampler.py`` (torchvision
 boolean masks: each element gets a uniform random key and the largest keys
 win. :func:`balanced_sample_from_draws` is the pure part, on given draws, so
 that two libraries with different generators can be held to the same sample;
-:func:`balanced_sample` draws the keys from a ``torch.Generator``.
+:func:`balanced_sample` draws the keys from a ``torch.Generator``, by the
+data-parallel rule (``parallel/collectives.rank_rand``): the rank's rows of
+draws made at the global batch's shape.
 """
 
 from __future__ import annotations
 
 import torch
+
+from snn_automotive_object_detection_tpu_torch.parallel.collectives import rank_rand
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -48,8 +52,9 @@ def balanced_sample(generator: torch.Generator, positive: torch.Tensor,
                     negative: torch.Tensor, batch_size: int,
                     positive_fraction: float):
     """:func:`balanced_sample_from_draws` on draws from ``generator``, which
-    lives on the masks' device."""
-    rp = torch.rand(positive.shape, generator=generator, device=positive.device)
-    rn = torch.rand(positive.shape, generator=generator, device=positive.device)
+    lives on the masks' device (this rank's rows of the global batch's
+    draws)."""
+    rp = rank_rand(positive.shape, generator, positive.device)
+    rn = rank_rand(positive.shape, generator, positive.device)
     return balanced_sample_from_draws(positive, negative, rp, rn, batch_size,
                                       positive_fraction)

@@ -81,11 +81,8 @@ def _launch(x: torch.Tensor, w6: torch.Tensor, num_steps: int):
     codes = torch.empty((planes(num_steps), r, d), dtype=torch.int16, device=x.device)
     fn = cb.function(NAME, "encoder_fc6_bf16",
                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    code = fn(x.data_ptr(), w6.data_ptr(), thr.data_ptr(), cur6.data_ptr(),
-              counts.data_ptr(), codes.data_ptr(), r, d, rep, num_steps,
-              cb.stream_ptr(x.device))
-    cb.check(code, NAME)
-    cb.LAUNCHES[NAME] += 1
+    cb.launch(NAME, fn, [x.data_ptr(), w6.data_ptr(), thr.data_ptr(), cur6.data_ptr(),
+                         counts.data_ptr(), codes.data_ptr(), r, d, rep, num_steps], x.device)
     return cur6, counts.long()
 
 

@@ -178,12 +178,10 @@ def _launch(periods: torch.Tensor, w6: torch.Tensor, w7: torch.Tensor,
     code67 = torch.empty((2, n_planes, r, rep), dtype=torch.int16, device=dev)
     state = torch.empty((2, r, rep) if n_planes > 1 else (0,), dtype=torch.float32, device=dev)
     fn = cb.function(NAME, "box_head_fused_bf16", _ARGTYPES)
-    code = fn(periods.data_ptr(), w6.data_ptr(), w7.data_ptr(), wro.data_ptr(),
-              out.data_ptr(), counts.data_ptr(), code_x.data_ptr(), code67[0].data_ptr(),
-              code67[1].data_ptr(), state.data_ptr(), r, d, num_steps, n_out,
-              cb.stream_ptr(dev))
-    cb.check(code, NAME)
-    cb.LAUNCHES[NAME] += 1
+    cb.launch(NAME, fn, [periods.data_ptr(), w6.data_ptr(), w7.data_ptr(), wro.data_ptr(),
+                         out.data_ptr(), counts.data_ptr(), code_x.data_ptr(),
+                         code67[0].data_ptr(), code67[1].data_ptr(), state.data_ptr(), r, d,
+                         num_steps, n_out], dev)
     counts = counts.long()
     got = (out[:, :n_cls], out[:, n_cls:], counts[:, 0], counts[:, 1])
     return got + (code67[0], code67[1]) if codes else got

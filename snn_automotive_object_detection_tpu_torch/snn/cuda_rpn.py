@@ -266,9 +266,7 @@ def _launch(feat: torch.Tensor, w9_t: torch.Tensor, w_out: torch.Tensor,
         args += [saved.cur.data_ptr(), saved.per.data_ptr()]
     fn = cb.function(name, entry,
                      [ctypes.c_void_p] * len(args) + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    code = fn(*args, n, h, w, num_steps, n_out, cb.stream_ptr(dev))
-    cb.check(code, name)
-    cb.LAUNCHES[name] += 1
+    cb.launch(name, fn, [*args, n, h, w, num_steps, n_out], dev)
     return _returns((out, counts[:, 0], counts[:, 1], ssum, saved), spike_sum, save)
 
 
@@ -289,11 +287,9 @@ def _launch_x2(feat: torch.Tensor, w9_t: torch.Tensor, w_out: torch.Tensor,
             if spike_sum else None)
     fn = cb.function(name, "rpn_level_x2_s16_bf16" if bf16_states else "rpn_level_x2_bf16",
                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    code = fn(feat.data_ptr(), w9_t.data_ptr(), w_out.data_ptr(), consts.data_ptr(),
-              out.data_ptr(), None if ssum is None else ssum.data_ptr(), n, h, w,
-              num_steps, n_out, cb.stream_ptr(feat.device))
-    cb.check(code, name)
-    cb.LAUNCHES[name] += 1
+    cb.launch(name, fn, [feat.data_ptr(), w9_t.data_ptr(), w_out.data_ptr(), consts.data_ptr(),
+                         out.data_ptr(), None if ssum is None else ssum.data_ptr(), n, h, w,
+                         num_steps, n_out], feat.device)
     return (out, ssum) if spike_sum else out
 
 
@@ -494,13 +490,12 @@ def _launch_bwd(saved: Saved, w_out: torch.Tensor, g: torch.Tensor, num_steps: i
     consts = _constants(num_steps, dev)
     fn = cb.function(name, "rpn_level_bwd_s16_bf16" if bf16_states else "rpn_level_bwd_bf16",
                      [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    code = fn(saved.cur.data_ptr(), saved.per.data_ptr(), saved.ssum.data_ptr(),
-              w_out.data_ptr(), consts.data_ptr(), g.data_ptr(),
-              None if swept is None else swept.data_ptr(), part9.data_ptr(),
-              part_out.data_ptr(), counters.data_ptr(), dw9.data_ptr(), dw_out.data_ptr(),
-              n, h, w, num_steps, n_out, s9, s_out, phases, cb.stream_ptr(dev))
-    cb.check(code, name)
-    cb.LAUNCHES[name] += 1
+    cb.launch(name, fn, [saved.cur.data_ptr(), saved.per.data_ptr(), saved.ssum.data_ptr(),
+                         w_out.data_ptr(), consts.data_ptr(), g.data_ptr(),
+                         None if swept is None else swept.data_ptr(), part9.data_ptr(),
+                         part_out.data_ptr(), counters.data_ptr(), dw9.data_ptr(),
+                         dw_out.data_ptr(), n, h, w, num_steps, n_out, s9, s_out, phases],
+              dev)
     return (dw9, dw_out, swept) if spike_sum else (dw9, dw_out)
 
 

@@ -135,11 +135,9 @@ def _launch(cur6: torch.Tensor, w7: torch.Tensor, wro: torch.Tensor,
                         device=cur6.device)
     fn = cb.function(NAME, "box_tail_bf16",
                      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    code = fn(cur6.data_ptr(), w7.data_ptr(), wro.data_ptr(), out.data_ptr(),
-              counts.data_ptr(), codes[0].data_ptr(), codes[1].data_ptr(), state.data_ptr(),
-              r, t, rep, n_out, cb.stream_ptr(cur6.device))
-    cb.check(code, NAME)
-    cb.LAUNCHES[NAME] += 1
+    cb.launch(NAME, fn, [cur6.data_ptr(), w7.data_ptr(), wro.data_ptr(), out.data_ptr(),
+                         counts.data_ptr(), codes[0].data_ptr(), codes[1].data_ptr(),
+                         state.data_ptr(), r, t, rep, n_out], cur6.device)
     counts = counts.long()
     return out[:, :n_cls], out[:, n_cls:], counts[:, 0], counts[:, 1]
 

@@ -30,7 +30,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from snn_automotive_object_detection_tpu_torch.utils.parallel import parallel_world
+from snn_automotive_object_detection_tpu_torch.parallel.mesh import group_active, is_main_process
 from snn_automotive_object_detection_tpu_torch.utils.weights import (
     flatten_tree,
     from_numpy_tree,
@@ -57,10 +57,16 @@ def save_checkpoint(path: str, state: Dict[str, Any],
     """Write ``state`` = {"params": tree, "optimizer": optimizer or its
     state_dict, "scheduler": scheduler or its state_dict, "epoch": int}
     (any of them may be left out) and the run's flags ``args`` to ``path``
-    with ``torch.save``. Rank 0 writes; other ranks return (the reference's
-    save_on_master)."""
-    if parallel_world()[0] != 0:
-        return
+    with ``torch.save``. Rank 0 writes (the reference's save_on_master);
+    with a process group every rank then waits at a barrier, so that no
+    rank reads ``path`` before it is in place."""
+    if is_main_process():
+        _write(path, state, args)
+    if group_active():
+        torch.distributed.barrier()
+
+
+def _write(path, state, args):
     payload = {k: _state_dict(v) for k, v in state.items()}
     if "params" in payload:
         payload["params"] = _detached(payload["params"])
@@ -83,8 +89,12 @@ def load_checkpoint(path: str, map_location=None) -> Dict[str, Any]:
     """What :func:`save_checkpoint` wrote: {"params", "optimizer",
     "scheduler", "epoch", "args"} (those it was given), the tensors on
     ``map_location`` (``torch.load``'s: None keeps the devices they were
-    saved from). Restore an optimizer or scheduler with its
-    ``load_state_dict``."""
+    saved from, except that with a process group up tensors saved on any
+    card go to this rank's card). Restore an optimizer or scheduler with
+    its ``load_state_dict``."""
+    if map_location is None and group_active() and torch.cuda.is_available():
+        card = f"cuda:{torch.cuda.current_device()}"
+        map_location = {f"cuda:{i}": card for i in range(torch.cuda.device_count())}
     return torch.load(path, map_location=map_location, weights_only=True)
 
 

@@ -12,9 +12,15 @@ build happens at first use (or all at once, in parallel, through
 the neuron-state arithmetic matches the plain PyTorch versions (and the
 JAX reference) operation for operation.
 
-Every wrapper that launches a kernel adds one to ``LAUNCHES[name]`` and
-nowhere else; every plain version that runs on a CUDA tensor adds one to
+Every wrapper launches its kernel through :func:`launch`, which runs it on
+its tensors' card and adds one to ``LAUNCHES[name]`` (nowhere else adds to
+it); every plain version that runs on a CUDA tensor adds one to
 ``PLAIN_CUDA_CALLS[name]``, so a run can show which path it took.
+
+Ranks of one machine may build at the same time: a library and its
+compiler log are each written under a name of their own process and then
+moved into place (``os.replace``), so that no rank loads or reads a file
+that another is still writing.
 """
 
 from __future__ import annotations
@@ -101,7 +107,9 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     for name, (proc, tmp) in procs.items():
         out, _ = proc.communicate()
         _, lib, log = _paths(name)
-        log.write_text(out)
+        log_tmp = log.with_suffix(f".log.{os.getpid()}")
+        log_tmp.write_text(out)
+        os.replace(log_tmp, log)
         if proc.returncode != 0:
             failed.append(f"{name}:\n{out}")
         else:
@@ -148,6 +156,18 @@ def check(code: int, name: str) -> None:
     """Raise on a nonzero ``cudaGetLastError`` code from a launch."""
     if code != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {code}")
+
+
+def launch(name: str, fn: ctypes._CFuncPtr, args, device: torch.device) -> None:
+    """``fn(*args, stream)``, the C entry of kernel ``name``, on the
+    current stream of ``device``, the card its tensors live on, inside
+    ``torch.cuda.device(device)``: the launch runs in that card's context
+    whatever the current device is. Raises on a failed launch and counts a
+    good one."""
+    with torch.cuda.device(device):
+        code = fn(*args, stream_ptr(device))
+    check(code, name)
+    LAUNCHES[name] += 1
 
 
 def require(t: torch.Tensor, what: str, dtype: torch.dtype, shape=None) -> None:

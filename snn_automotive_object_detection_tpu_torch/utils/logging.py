@@ -1,7 +1,8 @@
 """Console metric logging + scalar writers.
 
 Port of ``snn_automotive_object_detection_tpu/utils/logging.py``; the
-all-reduce goes through ``utils/parallel.py`` (one process for now).
+all-reduce goes through ``parallel/collectives.py`` (a no-op without a
+process group).
 
 Equivalent of the reference's ``SmoothedValue`` / ``MetricLogger``
 (its utils.py:19-208): windowed medians/averages, an iteration
@@ -21,7 +22,7 @@ import time
 from collections import defaultdict, deque
 from typing import Iterable
 
-from snn_automotive_object_detection_tpu_torch.utils.parallel import all_reduce_sum
+from snn_automotive_object_detection_tpu_torch.parallel.collectives import all_reduce_sum
 
 
 class SmoothedValue:

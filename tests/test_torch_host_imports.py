@@ -3,9 +3,11 @@
 The H100 machine has PyTorch, numpy and scipy but no JAX, OpenCV, PyYAML,
 Pillow or Matplotlib. In a subprocess where importing any of those fails,
 the port's data, evaluation, checkpoint, logging, config, energy and
-plotting modules, its anchors and its CLIs (training, T sweep, noise
-sweeps, new-object discovery, energy and noise plots) must import, and none of them may bring
-in the JAX package. The training CLI also runs there, ``--test-only`` on
+plotting modules, its anchors, its CLIs (training, T sweep, noise
+sweeps, new-object discovery, energy and noise plots), its data
+parallelism (``parallel/``) and its tools (the synthetic shape set and the
+bench-weight trainer) must import, and none of them may bring in the JAX
+package. The training CLI also runs there, ``--test-only`` on
 the CPU, on a COCO-format set whose configs are JSON and whose images are
 ``.npy`` files, as ``chip_smoke.py`` gives it on the card's machine.
 """
@@ -23,7 +25,9 @@ MODULES = ("data", "data.coco", "data.idd", "data.loader", "data.registry", "dat
            "utils.logging", "utils.config", "utils.energy", "utils.plotting",
            "utils.parallel", "models.transform", "ops.anchors", "cli.train",
            "cli.test_and_energy_eff", "cli.noise_calculations", "cli.new_object_discovery",
-           "cli.energy_efficiency_plot", "cli.noise_plots")
+           "cli.energy_efficiency_plot", "cli.noise_plots", "parallel", "parallel.mesh",
+           "parallel.collectives", "parallel.dryrun", "tools", "tools.synth_shapes",
+           "tools.make_bench_weights")
 
 BLOCK = f"""
 import importlib, importlib.abc, sys
