@@ -5,7 +5,7 @@ NVIDIA GPU.
     python3 chip_diagnose.py            # K1, K5, K3, K4, K7, K2, K6, K8 and K9
     python3 chip_diagnose.py K2 K6      # only those kernels' variants
     python3 chip_diagnose.py K9         # also K9's check on the input where it once failed
-    python3 chip_diagnose.py ptxas DIR  # ptxas figures of K1, K7, K3, K4, K9 against DIR's csrc/
+    python3 chip_diagnose.py ptxas DIR  # ptxas figures of K1, K7, K3, K4, K9, K6 against DIR's csrc/
 
 Shows what limits K1, K5, K3, K4, K7's weight gradient, K2, K6, K8 and K9.
 Each variant below replaces lines of ``csrc/rpn_head.cu`` (K1 and its pair
@@ -37,8 +37,10 @@ trains differ it prints the flips per step.
 
 ``ptxas DIR`` builds no variant and needs no card, only ``nvcc``: it
 compiles the RPN head's two sources (``rpn_head.cu``, ``rpn_head_bwd.cu``)
-and the spike-code GEMM's three (``encoder_fc6.cu``, ``box_tail.cu``,
-``box_head_fused.cu``) from this tree's ``csrc/`` and from ``DIR`` (another
+the spike-code GEMM's three (``encoder_fc6.cu``, ``box_tail.cu``,
+``box_head_fused.cu``) and the stem's (``stem.cu``, whose production
+instance ``stem_kernel<false>`` is named as its untemplated predecessor)
+from this tree's ``csrc/`` and from ``DIR`` (another
 checkout's ``csrc/``) with the package's flags, and prints each entry
 function's registers, barriers and spill bytes side by side. An instance
 that ``DIR`` has under the same name (the T <= 16 instances: an epilogue
@@ -379,7 +381,7 @@ def k9_replay(dev) -> None:
 
 
 PTXAS_SOURCES = ("rpn_head.cu", "rpn_head_bwd.cu", "encoder_fc6.cu", "box_tail.cu",
-                 "box_head_fused.cu")
+                 "box_head_fused.cu", "stem.cu")
 # (bf16-state instance, its f32-state instance), as ptxas_entries names them.
 STATE16_PAIRS = [
     (f"(anonymous namespace)::rpn_level_kernel<{save}, {cl}, true>",
@@ -415,6 +417,7 @@ def ptxas_entries(report: str) -> dict:
         pretty = re.sub(r"(\w+)T<0>", r"\1", pretty)
         pretty = re.sub(r"(encoder_code_kernel|lif6_kernel|period_code_kernel)<1>", r"\1", pretty)
         pretty = re.sub(r"sweep_kernel<(\d+), false>", r"sweep_kernel<\1>", pretty)
+        pretty = re.sub(r"stem_kernel<false>", "stem_kernel", pretty)   # K6's production instance
         # A function template's name demangles with its return type.
         pretty = re.sub(r"^void ", "", re.sub(r"\s+>", ">", pretty))
         out[pretty] = tuple(raw[mangled])
@@ -422,7 +425,7 @@ def ptxas_entries(report: str) -> dict:
 
 
 def ptxas_compare(other: Path) -> int:
-    """This tree's ptxas figures of K1, K7, K3, K4 and K9 against
+    """This tree's ptxas figures of K1, K7, K3, K4, K9 and K6 against
     ``other``'s, and each bf16-state instance beside its f32-state one."""
     from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
 

@@ -8,7 +8,9 @@ temporary directory, breaks one line of one CUDA source in the copy, and
 runs there (a) that kernel's phase of ``chip_smoke.py`` and (b) that
 kernel's card tests. Both must fail on every mutant. The mutants of the
 data-parallel step (``DP_MUTANTS``: a line of a Python file of the package)
-run the ``dist`` phase only, which must fail. The script prints the
+run the ``dist`` phase only, which must fail; the mutants of the training
+route with trainable backbone stages (``JOINT_MUTANTS``, Python lines too)
+run the ``joint`` phase and its card test, which must both fail. The script prints the
 phase's own report (how far outside the bound the broken kernel lands) and
 exits non-zero if any mutant passes a check. A run killed at its time limit
 (``TIMEOUT``, or ``HANG_TIMEOUT`` for a mutant that breaks a barrier
@@ -49,6 +51,9 @@ MUTANTS = [
     ("K6: the mean substitution dropped at the right border (the TMA's zeros kept)",
      "stem.cu", "const bool in = row_in && ix >= 0 && ix < W;",
      "const bool in = row_in && ix >= 0;", "check_stem", "stem_kernel"),
+    ("K6: the wait on the window's full barrier at the top of the tile loop removed",
+     "stem.cu", "    mbar_wait(&full[slot], (s / kStages) & 1);\n", "",
+     "check_stem", "stem_kernel or stem_check_instance"),
     ("K6: a window read from the other ring stage",
      "stem.cu", "const float* st = ring + slot * (kStageBytes / 4);",
      "const float* st = ring + ((slot + 1) % kStages) * (kStageBytes / 4);",
@@ -221,9 +226,21 @@ DP_MUTANTS = [
      "    return t"),
 ]
 
+# (name, file under the package, the lines as they stand, the broken
+# lines): the training route with trainable backbone stages, held by
+# chip_smoke.joint_path and by its card test.
+JOINT_MUTANTS = [
+    ("Joint: the features detached for N > 0 (no gradient reaches the backbone)",
+     "models/detector.py",
+     "    if not (training and tbl > 0):\n        feats = [f.detach() for f in feats]",
+     "    if True:\n        feats = [f.detach() for f in feats]"),
+]
+JOINT_TESTS = "joint_training_step"
+
 # The mutants to run can be named by the kernel their description begins
 # with (``python3 chip_mutants.py K8 K9``, ``DP`` for the data-parallel
-# ones); none named means all.
+# ones, ``Joint`` for the training route with trainable stages); none named
+# means all.
 
 PHASE = """
 import torch, chip_smoke
@@ -235,6 +252,11 @@ DIST_PHASE = """
 import torch, chip_smoke
 chip_smoke.reference_numerics()
 chip_smoke.dist_path(torch.device("cuda:0"))
+"""
+JOINT_PHASE = """
+import torch, chip_smoke
+chip_smoke.reference_numerics()
+chip_smoke.joint_path(torch.device("cuda:0"))
 """
 
 
@@ -259,7 +281,8 @@ def main() -> int:
     survived = 0
     every = [("csrc/" + src, old, new, name, PHASE.format(phase=phase), tests)
              for name, src, old, new, phase, tests in MUTANTS] + [
-        (src, old, new, name, DIST_PHASE, None) for name, src, old, new in DP_MUTANTS]
+        (src, old, new, name, DIST_PHASE, None) for name, src, old, new in DP_MUTANTS] + [
+        (src, old, new, name, JOINT_PHASE, JOINT_TESTS) for name, src, old, new in JOINT_MUTANTS]
     chosen = [m for m in every if not sys.argv[1:] or m[3].split(":")[0] in sys.argv[1:]]
     for src, old, new, name, phase, tests in chosen:
         with tempfile.TemporaryDirectory() as tmp:

@@ -76,7 +76,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
                levels of one stride; one call must run one device kernel
                and nothing else. K2 and the stem (K6) print the time of a
                call (wrapper included) beside that of a bare launch
-               through the C interface (``bare_ms`` in the JSON line).
+               through the C interface (``bare_ms`` in the JSON line). K6's
+               check instance (``stem_late_bf16``), which asks for each
+               image window only at its own tile, is held to the plain
+               version too: it gives the right results only if every block
+               waits for each window on its barrier.
   4. main    - the flagship detector (ResNet-50-FPN, spiking RPN and box
                heads, bf16 GEMMs, f32 neuron states, random weights from a
                seed) on synthetic 2 x 768 x 1536 batches through
@@ -175,6 +179,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
                --eval-only --load giving the same stats; prints the
                held-out mAP, the foreground detections and in how many
                evaluation batches the full NMS branch ran.
+ 14. joint   - training with trainable backbone stages at the flagship
+               width (bf16, f32 states, the seeded batch of phase 5):
+               torchvision's default N = 3 stages, then train_backbone (N
+               = 5), each a warm-up and two timed steps through
+               make_train_step (AdamW). The RPN head runs as the scan under
+               autograd (the feature gradient through the encoder's
+               surrogate), the FPN unfused, RoIAlign the gather version;
+               per step K6 x1 for N = 3 (the frozen stem) and no launch at
+               all for N = 5, no plain version on the card; finite losses,
+               every trainable leaf moved (each trained stage, the FPN, the
+               heads; for N = 5 the stem), every frozen leaf bit-equal
+               without a gradient. Prints steps/s, peak memory and one
+               profiled step. Then one epoch of cli/train.py with
+               --trainable-backbone-layers 3 on the seeded set of phase 11
+               (K6 x1 a step and a validation batch; layer2-4, the FPN and
+               the RPN head moved in its checkpoint, the stem and layer1
+               not).
+ 15. chain   - the bench recipe (scripts/chain_recipe.sh) through the
+               port's tools: its three phases through make_bench_weights
+               with the script's arguments, 30 steps and 8 held-out images
+               each (phase 1 joint: no launch a step; phases 2 and 3
+               frozen: K6 x1, K1's training instance x5, K7 x5), each
+               loading the one before; ablate_bf16 over 8 held-out images
+               with its five variants (launches exact per variant; the
+               kernels-off names refused), then parity_vs_reference on the
+               seeded set of phase 11 with a .pth in the reference's layout
+               (tools/torch_mirror.py's detector, gains on its weights so
+               that every layer spikes): its four CLI runs' launches exact,
+               every line of both tools' output checked. Prints each
+               phase's held-out mAP and foreground detections.
 
 The line before last is a JSON object listing the kernels; the last line is
 {"ok": true, "device": {...}}.
@@ -751,6 +785,17 @@ def check_stem(dev, g, results):
     if worst > 1 or diff > kc.MAX_DIFFERING * want.numel() or got.dtype != torch.bfloat16 \
             or tuple(got.shape) != (2, 192, 384, 64) or not (want > 0).any():
         _fail("K6 disagrees with its plain version")
+    # The check instance loads each window only at its own tile: it gives
+    # these results only if every block waits for each window on its
+    # barrier (in the production instance the windows land early anyway).
+    late = k6._launch(images, wk, bias, mean, late=True)
+    late_worst, late_diff = kc.chain_excess(late, want, 2, (bias,)), kc.differing(late, want)
+    late_ms = _median_ms(lambda: k6._launch(images, wk, bias, mean, late=True), 5)
+    print(f"K6 stem, check instance (each window loaded at its own tile, {late_ms:.4f} ms): "
+          f"{late_worst:.3g} of the bound, {late_diff} elements differ; "
+          f"{int((late != got).sum())} differ from the production instance's")
+    if late_worst > 1 or late_diff > kc.MAX_DIFFERING * want.numel():
+        _fail("K6's check instance disagrees with its plain version")
 
     def library():
         x = transform.normalize_images(images, mean, std).to(torch.bfloat16)
@@ -2809,6 +2854,415 @@ def bench_weights_path(dev, steps=700, eval_images=8):
     return total
 
 
+# Phase 14 (``joint``): the configurations of the joint phase, each with
+# the launches of one of its steps: the stem kernel while the stem is
+# frozen, nothing else (the RPN head is the scan, the FPN unfused).
+JOINT_RUNS = (("N = 3", dict(trainable_backbone_layers=3), {"stem": 1}),
+              ("N = 5", dict(train_backbone=True), {}))
+
+
+def joint_path(dev, steps=2):
+    """Phase 14: the flagship training step with trainable backbone stages
+    (torchvision's default N = 3, then ``train_backbone``, N = 5) through
+    make_train_step (AdamW) on the seeded batch of ``train_path``: one
+    warm-up step and ``steps`` timed ones each. Exact launches, finite
+    losses, every trainable leaf moved (each trained ResNet stage, the FPN,
+    for N = 5 the stem), every frozen leaf bit-equal without a gradient;
+    steps/s, peak memory and one profiled step."""
+    import dataclasses
+
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.models.factory import (
+        DetectorConfig, init_params)
+    from snn_automotive_object_detection_tpu_torch.train import optim
+    from snn_automotive_object_detection_tpu_torch.train.steps import make_train_step
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+    from snn_automotive_object_detection_tpu_torch.utils.weights import flatten_tree
+
+    base = DetectorConfig(num_classes=9, t_rpn=8, t_det=12)
+    total = {k: 0 for k in cb.KERNELS}
+    for label, overrides, per_step in JOINT_RUNS:
+        cfg = dataclasses.replace(base, **overrides)
+        what = f"joint training, {label}"
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        trainable, frozen = optim.split_trainable(
+            params, train_backbone=cfg.train_backbone,
+            trainable_backbone_layers=cfg.trainable_backbone_layers)
+        optimizer, scheduler = optim.build_optimizer(trainable, "AdamW", 1e-4)
+        step = make_train_step(cfg, optimizer, scheduler)
+        g = torch.Generator(device=dev).manual_seed(2)
+        batch = _seeded_train_batch(dev, cfg, g)
+        t_leaves, f_leaves = flatten_tree(trainable), flatten_tree(frozen)
+        t_before = {k: v.detach().clone() for k, v in t_leaves.items()}
+        f_before = {k: v.detach().clone() for k, v in f_leaves.items()}
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        cb.reset_counts()
+        first = step(trainable, frozen, batch, g)          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        history = [step(trainable, frozen, batch, g) for _ in range(steps)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(cb.LAUNCHES)
+        plain_calls = dict(cb.PLAIN_CUDA_CALLS)
+        print(f"{what}: {steps + 1} steps of 2 x 768 x 1536: launches {launches}, plain "
+              f"versions on the GPU {plain_calls}")
+        want = {k: (steps + 1) * per_step.get(k, 0) for k in cb.KERNELS}
+        if launches != want:
+            _fail(f"the {what} path's launches are not {want}")
+        if any(v != 0 for v in plain_calls.values()):
+            _fail(f"a plain version ran on the GPU in the {what} path")
+        for i, losses in enumerate([first] + history):
+            row = {k: round(losses[k].item(), 5) for k in LOSS_NAMES + ("loss_total",)}
+            print(f"{what}: step {i} losses {row}")
+            if sorted(losses) != sorted(LOSS_NAMES + ("loss_total",)) or not all(
+                    torch.isfinite(v).all() for v in losses.values()):
+                _fail(f"{what}: a training loss is missing or not finite")
+        unmoved = [k for k, v in t_leaves.items() if torch.equal(v.detach(), t_before[k])]
+        if unmoved:
+            _fail(f"{what}: {len(unmoved)} trainable leaves did not move, e.g. {unmoved[:3]}")
+        moved = [k for k, v in f_leaves.items()
+                 if not torch.equal(v, f_before[k]) or v.grad is not None]
+        if moved:
+            _fail(f"{what}: frozen leaves moved or got a gradient: {moved[:3]}")
+        stages = sorted({k.split("/")[0] for k in flatten_tree(trainable["backbone"])})
+        print(f"{what}: {steps / dt:.3f} steps/s, {2 * steps / dt:.3f} images/s "
+              f"({dt / steps * 1000:.1f} ms per step, peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; {_smi()}); "
+              f"{len(t_leaves)} trainable leaves moved (backbone {stages}, the FPN, the "
+              f"heads), {len(f_leaves)} frozen leaves did not")
+        _profile(lambda: step(trainable, frozen, batch, g), f"{what} step")
+        for k, v in launches.items():
+            total[k] += v
+        del params, trainable, frozen, optimizer, step, t_before, f_before
+        torch.cuda.empty_cache()
+    for k, v in _joint_cli(dev).items():
+        total[k] += v
+    return total
+
+
+def _joint_cli(dev, n_images=4):
+    """One epoch of ``cli/train.py --trainable-backbone-layers 3`` on the
+    seeded set of ``cli_path``: K6 x1 a step and a validation batch, nothing
+    else; layer2-4, the FPN and the RPN head moved from the initial
+    weights, the stem and layer1 bit-equal."""
+    import tempfile
+
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.cli import train as cli
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+    from snn_automotive_object_detection_tpu_torch.utils.checkpoint import load_checkpoint
+    from snn_automotive_object_detection_tpu_torch.utils.weights import flatten_tree
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = _write_cli_set(tmp, n_images, (768, 1536))
+        args = cli.get_args_parser().parse_args(
+            ["-d", os.path.join(tmp, "ds.json"), "--rpn-snn", "--detector-snn", "-t-rpn", "8",
+             "-t-det", "12", "-b", "2", "-j", "2", "--epochs", "1", "--opt", "SGD", "--lr",
+             "0.01", "--trainable-backbone-layers", "3", "--device", str(dev)])
+        init = {k: v.clone() for k, v in flatten_tree(cli.build_everything(args)[3]).items()}
+        cb.reset_counts()
+        t0 = time.perf_counter()
+        cli.main(args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(cb.LAUNCHES)
+        saved = flatten_tree(load_checkpoint(os.path.join(out, "model_cityscapes_1.pth"),
+                                             map_location=dev)["params"])
+    batches = n_images // 2
+    want = {k: 2 * batches if k == "stem" else 0 for k in cb.KERNELS}
+    print(f"joint CLI, one epoch of {batches} steps and validation with "
+          f"--trainable-backbone-layers 3: {secs:.1f} s, launches {launches}")
+    if launches != want or any(cb.PLAIN_CUDA_CALLS.values()):
+        _fail(f"the joint CLI epoch's launches are not {want}, or a plain version ran")
+    for k, v in saved.items():
+        top = k.split("/")[1] if k.startswith("backbone/") else k.split("/")[0]
+        if top in ("layer2", "layer3", "layer4", "fpn", "rpn_head") and torch.equal(v, init[k]):
+            _fail(f"the joint CLI epoch left {k} where it was")
+        if top in ("stem", "layer1") and not torch.equal(v, init[k]):
+            _fail(f"the joint CLI epoch moved the frozen {k}")
+    return launches
+
+
+def _tee_lines(fn):
+    """(fn()'s result, the lines it printed), printed as they come."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+
+    class Tee(io.TextIOBase):
+        def write(self, text):
+            buf.write(text)
+            return sys.__stdout__.write(text)
+
+        def flush(self):
+            sys.__stdout__.flush()
+
+    with contextlib.redirect_stdout(Tee()):
+        result = fn()
+    return result, buf.getvalue().splitlines()
+
+
+# Phase 15 (``chain``): the recipe's three phases (snn_automotive_object_
+# detection_tpu_torch/scripts/chain_recipe.sh) with their argument lists,
+# the steps cut here; the ablation's variants with the launches of one of
+# their evaluation batches (rates off).
+CHAIN_STEPS = 30
+CHAIN_EVAL_IMAGES = 8
+# Gains on the reference-layout weights of ``tools/torch_mirror.py`` so that
+# every spiking layer fires (its FPN outputs stay under the encoder's
+# threshold otherwise). tests/test_torch_recipe_tools.py imports them too.
+MIRROR_GAINS = {"backbone.fpn.layer_blocks": 100.0, "rpn.head.shared_conv": 8.0,
+                "roi_heads.box_head_and_predictor.fc6": 8.0,
+                "roi_heads.box_head_and_predictor.fc7": 8.0,
+                "roi_heads.box_head_and_predictor.cls_score": 30.0}
+
+
+def apply_mirror_gains(sd):
+    """``sd`` (a mirror state dict) with ``MIRROR_GAINS`` applied."""
+    return {k: v * next((f for key, f in MIRROR_GAINS.items() if k.startswith(key)), 1)
+            for k, v in sd.items()}
+_EVAL_KERNELS = {"stem": 1, "fpn_level": 4, "rpn_head": 5, "roi_align": 1, "encoder_fc6": 1,
+                 "box_tail": 1}
+ABLATION_LAUNCHES = {
+    "fp32": {},
+    "state32": _EVAL_KERNELS,
+    "bf16": {"stem": 1, "fpn_level": 4, "rpn_head_s16": 5, "roi_align": 1, "encoder_fc6": 1},
+    "bb32_heads_bf16": {"rpn_head_s16": 5, "roi_align": 1, "encoder_fc6": 1},
+    "bb16_heads_f32": {"stem": 1, "fpn_level": 4},
+}
+
+
+def _check_ablation_lines(lines, names, n_images):
+    """Every line the ablation printed: one JSON line per variant with the
+    JAX tool's keys, then the deltas against fp32."""
+    rows = [json.loads(x) for x in lines if x.startswith("{")]
+    if [r["variant"] for r in rows] != list(names):
+        _fail(f"chain: the ablation printed the variants {[r['variant'] for r in rows]}")
+    for r in rows:
+        if sorted(r) != ["AP50", "AP75", "images", "mAP", "per_class", "variant", "wall_s"] \
+                or r["images"] != n_images or len(r["per_class"]) != 5 \
+                or not all(-1 <= r[k] <= 1 for k in ("mAP", "AP50", "AP75")):
+            _fail(f"chain: a malformed ablation line {r}")
+    deltas = lines[lines.index("deltas vs fp32 mAP:") + 1:]
+    if [d.split()[0] for d in deltas] != list(names) or any(
+            abs(float(d.split()[1]) - (r["mAP"] - rows[0]["mAP"])) > 1e-3
+            for d, r in zip(deltas, rows)):
+        _fail(f"chain: the ablation's deltas {deltas} do not follow its lines")
+    return rows
+
+
+def _check_parity_report(lines):
+    """The parity report: 12 stats with the bf16 - fp32 difference, 7 rate
+    means of each mode, the mAP delta line. Returns (stats, rates) by mode."""
+    from snn_automotive_object_detection_tpu_torch.tools import parity_vs_reference as pvr
+
+    at = lines.index("================ PARITY REPORT ================")
+    if lines[at + 1].split() != ["stat", "fp32", "bf16", "diff"]:
+        _fail(f"chain: the parity header is {lines[at + 1]!r}")
+    stats = {"fp32": [], "bf16": []}
+    for name, line in zip(pvr.STAT_NAMES, lines[at + 2:at + 14]):
+        words = line.split()
+        if words[0] != name or len(words) != 4:
+            _fail(f"chain: the parity row {line!r}")
+        a, b, d = (float(w) for w in words[1:])
+        if abs((b - a) - d) > 2e-4:
+            _fail(f"chain: the parity row {line!r} has a wrong difference")
+        stats["fp32"].append(a)
+        stats["bf16"].append(b)
+    if lines[at + 14] != "" or lines[at + 15].split() != ["spike", "rate", "fp32", "bf16"]:
+        _fail("chain: no spike-rate table in the parity report")
+    rates = {"fp32": [], "bf16": []}
+    for name, line in zip(pvr.RATE_NAMES, lines[at + 16:at + 23]):
+        words = line.split()
+        if words[0] != name or len(words) != 3 or not all(0 <= float(w) <= 1 for w in words[1:]):
+            _fail(f"chain: the rate row {line!r}")
+        rates["fp32"].append(float(words[1]))
+        rates["bf16"].append(float(words[2]))
+    delta = [x for x in lines[at + 23:] if x.startswith("bf16-vs-fp32 mAP delta: ")]
+    if len(delta) != 1 or abs(float(delta[0].split()[3]) - (stats["bf16"][0]
+                                                           - stats["fp32"][0])) > 2e-4:
+        _fail(f"chain: the parity delta line {delta}")
+    return stats, rates
+
+
+def chain_path(dev):
+    """Phase 15: the bench recipe through the port's tools at the flagship
+    configuration: its three phases through ``make_bench_weights.main``
+    with the recipe script's arguments, cut to CHAIN_STEPS steps and
+    CHAIN_EVAL_IMAGES held-out images each (phase 1 joint with
+    ``--train-backbone``: no launch a step; phases 2 and 3 frozen: K6 x1,
+    K1's training instance x5, K7 x5), each loading the one before; then
+    ``ablate_bf16`` over 8 held-out images with its five variants (the
+    launches of each exact), then ``parity_vs_reference`` on the seeded
+    set of ``cli_path`` with a ``.pth`` in the reference's layout
+    (``tools/torch_mirror.py``'s detector, plain torch), its four CLI runs'
+    launches exact. Every line the two tools print is checked. Prints each
+    phase's held-out mAP and foreground detections."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.tools import ablate_bf16 as ablate
+    from snn_automotive_object_detection_tpu_torch.tools import make_bench_weights as mbw
+    from snn_automotive_object_detection_tpu_torch.tools import parity_vs_reference as pvr
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+    from snn_automotive_object_detection_tpu_torch.utils.checkpoint import load_checkpoint
+    from snn_automotive_object_detection_tpu_torch.utils.weights import flatten_tree
+    from tools.torch_mirror import MirrorDetector
+
+    total = {k: 0 for k in cb.KERNELS}
+
+    def count(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    batches = -(-CHAIN_EVAL_IMAGES // 2)
+    real_step = mbw.make_eval_step
+    fg = []
+
+    def counting_step(config, collect_rates=False):
+        run = real_step(config, collect_rates)
+
+        def step(params, batch):
+            det = run(params, batch)
+            fg.append(int((det["valid"] & (det["labels"] > 0)).sum()))
+            return det
+        return step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "bench_weights")
+        phases = (   # scripts/chain_recipe.sh's phases, the steps cut
+            ("p1", ["--out", f"{out}_p1.pth", "--lr", "5e-3", "--train-backbone",
+                    "--save-every", "1000"], {}),
+            ("p2", ["--out", f"{out}_p2.pth", "--lr", "2e-3", "--load", f"{out}_p1.pth",
+                    "--save-every", "1000"],
+             {"stem": 1, "rpn_head": 5, "rpn_head_bwd": 5}),
+            ("p3", ["--out", f"{out}.pth", "--lr", "1e-3", "--load", f"{out}_p2.pth",
+                    "--save-every", "1000"],
+             {"stem": 1, "rpn_head": 5, "rpn_head_bwd": 5}))
+        before = None
+        mbw.make_eval_step = counting_step
+        try:
+            for name, argv, per_step in phases:
+                argv = argv + ["--steps", str(CHAIN_STEPS), "--eval-images",
+                               str(CHAIN_EVAL_IMAGES), "--device", str(dev)]
+                fg.clear()
+                cb.reset_counts()
+                t0 = time.perf_counter()
+                stats, cls_ap, params = mbw.main(mbw.get_args_parser().parse_args(argv))
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launches = dict(cb.LAUNCHES)
+                count(launches)
+                want = {k: CHAIN_STEPS * per_step.get(k, 0) + batches * _EVAL_KERNELS.get(k, 0)
+                        for k in cb.KERNELS}
+                print(f"chain {name}: {CHAIN_STEPS} steps and {CHAIN_EVAL_IMAGES} held-out "
+                      f"images in {secs:.1f} s ({_smi()}); launches {launches}; held-out "
+                      f"mAP {stats[0]:.4f}, AP50 {stats[1]:.4f}; {sum(fg)} foreground "
+                      f"detections in {len(fg)} batches")
+                if launches != want or any(cb.PLAIN_CUDA_CALLS.values()):
+                    _fail(f"chain {name}: launches are not {want}, or a plain version ran")
+                if len(stats) != 12 or not np.isfinite(stats).all():
+                    _fail(f"chain {name}: no 12 finite stats")
+                saved = flatten_tree(load_checkpoint(argv[1], map_location=dev)["params"])
+                if any(not torch.equal(saved[k], v) for k, v in flatten_tree(params).items()):
+                    _fail(f"chain {name}: the saved weights are not the trained ones")
+                if before is not None and all(torch.equal(before[k], v)
+                                              for k, v in flatten_tree(params).items()):
+                    _fail(f"chain {name}: the weights did not move from the phase before")
+                before = {k: v.detach().clone() for k, v in flatten_tree(params).items()}
+                del params
+        finally:
+            mbw.make_eval_step = real_step
+
+        # The ablation at the trained operating point, its launches per variant.
+        by_variant = {}
+        real_run = ablate.run_variant
+
+        def counting_run(name, *args):
+            cb.reset_counts()
+            result = real_run(name, *args)
+            by_variant[name] = dict(cb.LAUNCHES)
+            return result
+
+        names = tuple(ablate.VARIANTS)
+        ablate.run_variant = counting_run
+        try:
+            _, lines = _tee_lines(lambda: ablate.main(ablate.get_args_parser().parse_args(
+                ["--load", f"{out}.pth", "--images", str(CHAIN_EVAL_IMAGES), "--variants",
+                 ",".join(names), "--out", os.path.join(tmp, "ablation.jsonl"),
+                 "--device", str(dev)])))
+        finally:
+            ablate.run_variant = real_run
+        _check_ablation_lines(lines, names, CHAIN_EVAL_IMAGES)
+        for name in names:
+            count(by_variant[name])
+            want = {k: batches * ABLATION_LAUNCHES[name].get(k, 0) for k in cb.KERNELS}
+            if by_variant[name] != want:
+                _fail(f"chain: the ablation's {name} launched {by_variant[name]}, not {want}")
+        if any(cb.PLAIN_CUDA_CALLS.values()):
+            _fail("chain: a plain version ran on the card in the ablation")
+        try:
+            ablate.make_variant_config(mbw.bench_config(), "bf16_xla")
+            _fail("chain: the ablation took a kernels-off variant")
+        except ValueError as e:
+            print(f"chain: ablate_bf16 refuses bf16_xla: {e}")
+
+        # The parity harness on the CLI set with a reference-layout .pth.
+        n_images = 4
+        set_dir = os.path.join(tmp, "set")
+        os.makedirs(set_dir)
+        _write_cli_set(set_dir, n_images, (768, 1536))
+        torch.manual_seed(0)
+        pth = os.path.join(tmp, "reference.pth")
+        sd = apply_mirror_gains(MirrorDetector(num_classes=9, t_rpn=8, t_det=12).state_dict())
+        torch.save({"model": sd}, pth)
+        real_main = pvr.train_cli.main
+        by_run = []
+
+        def counting_main(args):
+            cb.reset_counts()
+            result = real_main(args)
+            by_run.append(dict(cb.LAUNCHES))
+            return result
+
+        pvr.train_cli.main = counting_main
+        try:
+            t0 = time.perf_counter()
+            (stats, rates), lines = _tee_lines(lambda: pvr.main(pvr.get_args_parser().parse_args(
+                [pth, "-d", os.path.join(set_dir, "ds.json"), "-b", "2", "-j", "2",
+                 "--out-dir", os.path.join(tmp, "parity"), "--device", str(dev)])))
+            secs = time.perf_counter() - t0
+        finally:
+            pvr.train_cli.main = real_main
+        got_stats, got_rates = _check_parity_report(lines)
+        for mode in ("fp32", "bf16"):
+            if np.abs(np.asarray(got_stats[mode]) - stats[mode]).max() > 5e-5 \
+                    or np.abs(np.asarray(got_rates[mode]) - rates[mode]).max() > 5e-6:
+                _fail(f"chain: the parity report's {mode} column is not what the runs gave")
+        pb = -(-n_images // 2)
+        per_run = {k: pb * v for k, v in _EVAL_KERNELS.items()}   # with rates or without
+        want_runs = [{}, {}, per_run, per_run]
+        got_runs = [{k: v for k, v in r.items() if v} for r in by_run]
+        gap = max(abs(a - b) for a, b in zip(rates["fp32"], rates["bf16"]))
+        print(f"chain: parity harness, four CLI runs over {n_images} images in {secs:.1f} s; "
+              f"launches {got_runs}; the 7 rate means of bf16 within {gap:.2g} of fp32's "
+              f"(fp32 {[round(r, 5) for r in rates['fp32']]})")
+        if not min(rates["fp32"]) > 0:
+            _fail("chain: a layer of the reference-layout weights did not spike")
+        if got_runs != want_runs:
+            _fail(f"chain: the parity harness's runs launched {got_runs}, not {want_runs}")
+        for r in by_run:
+            count(r)
+    return total
+
+
 def reference_numerics():
     """f32 products and convolutions run in full f32, not TF32: the plain
     versions are the references the kernels are held against, and the f32
@@ -2857,7 +3311,9 @@ def main() -> int:
                "routes": routes_path(dev),
                "cli": cli_path(dev),
                "dist": dist_path(dev),
-               "bench_weights": bench_weights_path(dev)}
+               "bench_weights": bench_weights_path(dev),
+               "joint": joint_path(dev),
+               "chain": chain_path(dev)}
     for r in results:
         r["launches_by_path"] = {k: v[r["name"]] for k, v in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

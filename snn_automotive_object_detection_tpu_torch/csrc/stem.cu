@@ -46,6 +46,14 @@
 // and rounding into shared memory, and the pool reads it from there, 8
 // channels (16 bytes) a thread, in 16-byte stores. The host-side setup (the
 // SM count, the shared-memory attribute) runs once per process and device.
+//
+// A second instance, kLate, exists for the checks only: its thread 0 asks
+// for each window at the top of the window's own tile, after a pause, in
+// place of two tiles ahead. The window then lands only after the block has
+// begun to wait for it, so a block that skipped the wait on the full
+// barrier would convert the stage's previous window, and the check against
+// the plain version sees it. In the production instance every window has
+// landed long before it is converted, whether the block waits or not.
 
 #include "hopper.cuh"
 
@@ -96,6 +104,7 @@ constexpr int kOffBar = kOffBias + kCo * 4;
 constexpr int kSmemBytes = kOffBar + kStages * 8;
 constexpr int kSmemAlloc = kSmemBytes + 1024;      // the base is aligned to 1024 by hand
 constexpr int kMaxDevices = 64;
+constexpr int kLatePauses = 8;           // kLate: 8 x ~1 us before each window's load
 
 static_assert(kWarps % 4 == 0, "whole warpgroups");
 static_assert(kLdi >= 6 * (kCC - 1) + kKRow, "the zero-weight taps must stay inside the row");
@@ -128,6 +137,7 @@ __device__ __forceinline__ Tile tile_at(int tile, int tiles_y, int tiles_x) {
   return t;
 }
 
+template <bool kLate>
 __global__ void __launch_bounds__(kThreads, 1)
 stem_kernel(const __grid_constant__ CUtensorMap map_img,   // img [N, H, 3 W] f32
             const bf16* __restrict__ wk,                    // [64, kK]
@@ -173,7 +183,9 @@ stem_kernel(const __grid_constant__ CUtensorMap map_img,   // img [N, H, 3 W] f3
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
     fence_barrier_init();
-    for (int s = 0; s < kStages; ++s) load_window(s);
+    if (!kLate) {
+      for (int s = 0; s < kStages; ++s) load_window(s);
+    }
   }
 
   for (int q = tid; q < kWBlocks * kCo * 8; q += kThreads) {
@@ -202,6 +214,10 @@ stem_kernel(const __grid_constant__ CUtensorMap map_img,   // img [N, H, 3 W] f3
     const int ix0 = 2 * cx0 - 3;
     const int slot = s % kStages;
 
+    if (kLate && tid == 0) {
+      for (int i = 0; i < kLatePauses; ++i) __nanosleep(1000);
+      load_window(s);
+    }
     // Window -> bf16, the raw mean outside the image; then the stage is free.
     mbar_wait(&full[slot], (s / kStages) & 1);
     const float* st = ring + slot * (kStageBytes / 4);
@@ -234,7 +250,7 @@ stem_kernel(const __grid_constant__ CUtensorMap map_img,   // img [N, H, 3 W] f3
       }
     }
     __syncthreads();   // window ready, the stage read; the previous tile's pool is done
-    if (tid == 0) load_window(s + kStages);
+    if (!kLate && tid == 0) load_window(s + kStages);
 
     // Implicit GEMM on wgmma: conv pixel m = r * kCC + c reads window row
     // 2r + dy from element 6c on, k = 0 .. 31 (dx * 3 + cin for k < 21).
@@ -348,15 +364,9 @@ stem_kernel(const __grid_constant__ CUtensorMap map_img,   // img [N, H, 3 W] f3
   }
 }
 
-}  // namespace
-
-// img [N, H, W, 3] f32 raw in [0, 1], 16-byte aligned; wk [64, 224] bf16
-// folded weights, column = dy * 32 + dx * 3 + cin, other columns zero;
-// bias [64] f32; out [N, H/4, W/4, 64] bf16; mean: the per-channel raw mean
-// (rounded to bf16 here). H and W are multiples of 4.
-extern "C" int stem_bf16(const float* img, const void* wk, const float* bias, void* out,
-                         float mean0, float mean1, float mean2, int N, int H, int W,
-                         void* stream) {
+template <bool kLate>
+int launch_stem(const float* img, const void* wk, const float* bias, void* out, float mean0,
+                float mean1, float mean2, int N, int H, int W, void* stream) {
   static int sm_count[kMaxDevices] = {};
   if (N <= 0 || H <= 0 || W <= 0 || H % 4 || W % 4) return (int)cudaErrorInvalidValue;
   int dev = 0;
@@ -366,8 +376,8 @@ extern "C" int stem_bf16(const float* img, const void* wk, const float* bias, vo
   if (sms == 0) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(stem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemAlloc);
+    err = cudaFuncSetAttribute(stem_kernel<kLate>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemAlloc);
     if (err != cudaSuccess) return (int)err;
     if (dev < kMaxDevices) sm_count[dev] = sms;
   }
@@ -381,8 +391,28 @@ extern "C" int stem_bf16(const float* img, const void* wk, const float* bias, vo
     return (int)cudaErrorInvalidValue;
   }
   const int grid = (int)(tiles < sms ? tiles : sms);
-  stem_kernel<<<grid, kThreads, kSmemAlloc, (cudaStream_t)stream>>>(
+  stem_kernel<kLate><<<grid, kThreads, kSmemAlloc, (cudaStream_t)stream>>>(
       map, reinterpret_cast<const bf16*>(wk), bias, reinterpret_cast<bf16*>(out), mean0, mean1,
       mean2, N, H, W);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// img [N, H, W, 3] f32 raw in [0, 1], 16-byte aligned; wk [64, 224] bf16
+// folded weights, column = dy * 32 + dx * 3 + cin, other columns zero;
+// bias [64] f32; out [N, H/4, W/4, 64] bf16; mean: the per-channel raw mean
+// (rounded to bf16 here). H and W are multiples of 4.
+extern "C" int stem_bf16(const float* img, const void* wk, const float* bias, void* out,
+                         float mean0, float mean1, float mean2, int N, int H, int W,
+                         void* stream) {
+  return launch_stem<false>(img, wk, bias, out, mean0, mean1, mean2, N, H, W, stream);
+}
+
+// The check instance (kLate): the same arguments and results, each window
+// loaded only at its own tile.
+extern "C" int stem_late_bf16(const float* img, const void* wk, const float* bias, void* out,
+                              float mean0, float mean1, float mean2, int N, int H, int W,
+                              void* stream) {
+  return launch_stem<true>(img, wk, bias, out, mean0, mean1, mean2, N, H, W, stream);
 }

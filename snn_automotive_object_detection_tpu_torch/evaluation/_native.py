@@ -1,4 +1,4 @@
-"""ctypes loader for the C++ COCO matcher (the repository's
+"""ctypes loader for the C++ COCO matcher (this package's
 ``csrc/coco_eval.cpp``).
 
 Port of ``snn_automotive_object_detection_tpu/evaluation/_native.py``: the
@@ -22,7 +22,7 @@ _LIB = None
 _TRIED = False
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "csrc", "coco_eval.cpp")
+_SRC = os.path.join(os.path.dirname(_HERE), "csrc", "coco_eval.cpp")
 _BUILD = os.path.join(os.path.dirname(_HERE), "_build")
 
 

@@ -170,11 +170,10 @@ def detector_apply(params: Dict, batch: Dict[str, torch.Tensor], config,
                                collect_rates, {})
 
 
-def _detector_apply(params, batch, config, training, generator, collect_rates,
-                    draws):
-    images = batch["images"]
+def backbone_features(params, images, config, training):
+    """The FPN levels of ``images`` [N, Hb, Wb, 3] in the compute dtype, by
+    the route the dtype, the backbone and the trainable stages pick."""
     cd = config.compute_dtype
-    _, hb, wb, _ = images.shape
     # Top trainable backbone stages; 0 outside training. The fused stem has
     # no gradient, which is fine while the stem is frozen; the fused FPN is
     # for inference.
@@ -195,6 +194,14 @@ def _detector_apply(params, batch, config, training, generator, collect_rates,
     # With no trainable stage the whole backbone, FPN included, is frozen.
     if not (training and tbl > 0):
         feats = [f.detach() for f in feats]
+    return feats
+
+
+def _detector_apply(params, batch, config, training, generator, collect_rates,
+                    draws):
+    images = batch["images"]
+    _, hb, wb, _ = images.shape
+    feats = backbone_features(params, images, config, training)
 
     shapes = tuple((f.shape[1], f.shape[2]) for f in feats)
     anchors, anchor_counts = _anchors(shapes, (hb, wb), config.anchor_spec,

@@ -1,13 +1,13 @@
-"""Dataset and model YAML configs.
+"""Dataset and model configs.
 
 Port of ``snn_automotive_object_detection_tpu/utils/config.py``: the
 reference's ``load_config_dict`` with its UPPERCASE keys accepted as
-aliases, and ``model.yaml``. The YAML files are the JAX package's own
-(``CONFIG_DIR`` points at its ``configs/`` directory, read as files; nothing
-of that package is imported). PyYAML is imported inside the functions that
-read YAML, so that the modules which import this one load on a machine
-without it; a config given as a dict, or as a ``.json`` file (YAML is a
-superset of JSON, so the same keys), needs no YAML at all.
+aliases, and the model hyperparameters. The named configs are this
+package's own ``configs/*.json`` (the same facts as the JAX package's YAML
+files of those names), so a run by dataset name needs no PyYAML. A JSON
+object's decimal keys come back as integers, as YAML reads ``{0:
+background}``. A user's ``.yaml`` path still works: PyYAML is imported only
+to read one.
 """
 
 from __future__ import annotations
@@ -17,8 +17,7 @@ import os
 from pathlib import Path
 from typing import Any, Dict, Optional
 
-CONFIG_DIR = str(Path(__file__).resolve().parents[2]
-                 / "snn_automotive_object_detection_tpu" / "configs")
+CONFIG_DIR = str(Path(__file__).resolve().parents[1] / "configs")
 
 _KEY_ALIASES = {
     "IMAGES_DIR": "images_dir",
@@ -33,23 +32,28 @@ _KEY_ALIASES = {
 }
 
 
+def _int_keys(pairs):
+    """A JSON object with its decimal keys as integers (YAML's reading)."""
+    return {int(k) if k.isdigit() else k: v for k, v in pairs}
+
+
 def _read(path: str) -> Dict[str, Any]:
-    """A YAML file, or a JSON one (``.json``, read without PyYAML)."""
+    """A JSON file (read without PyYAML), or a YAML one."""
     with open(path) as f:
         if path.endswith(".json"):
-            return json.load(f)
+            return json.load(f, object_pairs_hook=_int_keys)
         import yaml
 
         return yaml.safe_load(f)
 
 
 def load_dataset_config(name_or_path: str, data_root: Optional[str] = None) -> Dict[str, Any]:
-    """A dataset config by name (cityscapes/bdd/idd/pascal/coco) or path of
-    a YAML or JSON file; ``data_root`` is prepended to every relative data
-    path."""
+    """A dataset config by name (cityscapes/bdd/idd/pascal/coco: ``<name>.json``
+    of ``CONFIG_DIR``) or path of a JSON or YAML file; ``data_root`` is
+    prepended to every relative data path."""
     path = name_or_path
     if not os.path.exists(path):
-        path = os.path.join(CONFIG_DIR, f"{name_or_path}.yaml")
+        path = os.path.join(CONFIG_DIR, f"{name_or_path}.json")
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"no dataset config named {name_or_path!r} (looked in {CONFIG_DIR})")
@@ -65,9 +69,9 @@ def load_dataset_config(name_or_path: str, data_root: Optional[str] = None) -> D
 
 
 def load_model_yaml(path: Optional[str] = None) -> Dict[str, Any]:
-    """Model hyperparameters (``model.yaml`` of ``CONFIG_DIR`` by default; a
-    ``.json`` file of the same keys is read without PyYAML)."""
-    return _read(path or os.path.join(CONFIG_DIR, "model.yaml"))
+    """Model hyperparameters (``model.json`` of ``CONFIG_DIR`` by default, or
+    a JSON or YAML file of the same keys)."""
+    return _read(path or os.path.join(CONFIG_DIR, "model.json"))
 
 
 def class_names(cfg: Dict[str, Any]) -> Dict[int, str]:

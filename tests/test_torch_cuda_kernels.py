@@ -382,6 +382,26 @@ def test_stem_kernel_matches_plain(dev, n, h, w):
     assert kc.differing(got, want) <= kc.MAX_DIFFERING * want.numel()
 
 
+@pytest.mark.parametrize("n,h,w", [(1, 68, 132), (2, 768, 1536)])
+def test_stem_check_instance_matches_plain(dev, n, h, w):
+    """K6's check instance, which loads each window only at its own tile:
+    the same results as the plain version, which it gives only if every
+    block waits for each window on its barrier."""
+    g = torch.Generator(device=dev).manual_seed(h + w + 1)
+    mean, std = (0.2869, 0.3251, 0.2839), (0.1870, 0.1902, 0.1872)
+    images = torch.rand((n, h, w, 3), generator=g, device=dev)
+    stem = {"w": torch.randn((7, 7, 3, 64), generator=g, device=dev) * 0.025,
+            "bn": {"scale": torch.rand(64, generator=g, device=dev) + 0.5,
+                   "bias": torch.randn(64, generator=g, device=dev) * 0.2}}
+    wf, bias = k6.fold_stem_weights(stem["w"], stem["bn"]["scale"], stem["bn"]["bias"],
+                                    mean, std)
+    got = k6._launch(images, k6.kernel_weights(wf), bias.contiguous(), mean, late=True)
+    want = k6._folded_plain(images, wf, bias, mean)
+    assert float(want.float().max()) > 0
+    assert kc.chain_excess(got, want, 2, (bias,)) <= 1
+    assert kc.differing(got, want) <= kc.MAX_DIFFERING * want.numel()
+
+
 def _hold_rpn_bwd(got, again, want, fwd_ssum, cot, own, replay=True):
     """K7's (dw, dw_out, the sweep's spike sums) against the replaying plain
     version's ``want`` (with ``replay``) and, tighter, against its plain
@@ -697,6 +717,54 @@ def test_bf16_state_training_step_launches(dev):
     for k in ("shared_conv", "conv_cls", "conv_bbox"):
         gr = trainable["rpn_head"][k]["w"].grad
         assert bool(torch.isfinite(gr).all()) and bool((gr != 0).any()), k
+
+
+@pytest.mark.parametrize("overrides,want", [(dict(trainable_backbone_layers=3), {"stem": 1}),
+                                             (dict(train_backbone=True), {})])
+def test_joint_training_step_launches(dev, overrides, want):
+    """One training step with trainable backbone stages at 64 x 128: the
+    stem kernel once while the stem is frozen (N = 3) and no launch at all
+    with N = 5, no plain version; every trainable leaf (the top stages, the
+    FPN, the heads) moved, every frozen leaf bit-equal without a
+    gradient."""
+    from snn_automotive_object_detection_tpu_torch.models.factory import (
+        DetectorConfig, init_params)
+    from snn_automotive_object_detection_tpu_torch.models.roi_heads import RoIConfig
+    from snn_automotive_object_detection_tpu_torch.models.rpn import RPNConfig
+    from snn_automotive_object_detection_tpu_torch.train import optim
+    from snn_automotive_object_detection_tpu_torch.train.steps import make_train_step
+    from snn_automotive_object_detection_tpu_torch.utils.weights import flatten_tree
+
+    cfg = DetectorConfig(num_classes=4, t_rpn=4, t_det=4, min_size=64, max_size=128,
+                         rpn=RPNConfig(pre_nms_top_n_train=64, post_nms_top_n_train=32,
+                                       batch_size_per_image=64),
+                         roi=RoIConfig(batch_size_per_image=16), **overrides)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    trainable, frozen = optim.split_trainable(
+        params, train_backbone=cfg.train_backbone,
+        trainable_backbone_layers=cfg.trainable_backbone_layers)
+    opt, sched = optim.build_optimizer(trainable, "AdamW", 1e-4)
+    g = torch.Generator(device=dev).manual_seed(4)
+    batch = {"images": torch.rand((2, 64, 128, 3), generator=g, device=dev),
+             "image_sizes": torch.tensor([[64, 128]] * 2, device=dev),
+             "original_sizes": torch.tensor([[64, 128]] * 2, device=dev),
+             "targets": {"boxes": torch.tensor([[[10.0, 8.0, 50.0, 40.0], [60.0, 20.0, 110.0,
+                                                                          60.0]]] * 2,
+                                               device=dev),
+                         "labels": torch.tensor([[1, 2]] * 2, device=dev),
+                         "valid": torch.tensor([[True, True]] * 2, device=dev)}}
+    t_leaves, f_leaves = flatten_tree(trainable), flatten_tree(frozen)
+    t_before = {k: v.detach().clone() for k, v in t_leaves.items()}
+    f_before = {k: v.detach().clone() for k, v in f_leaves.items()}
+    cb.reset_counts()
+    losses = make_train_step(cfg, opt, sched)(trainable, frozen, batch, g)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cb.LAUNCHES.items() if v} == want
+    assert all(v == 0 for v in cb.PLAIN_CUDA_CALLS.values())
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
+    assert [k for k, v in t_leaves.items() if torch.equal(v.detach(), t_before[k])] == []
+    assert all(torch.equal(v, f_before[k]) and v.grad is None for k, v in f_leaves.items())
+    assert ("stem" in trainable["backbone"]) == bool(cfg.train_backbone)
 
 
 def test_rpn_head_x2_refuses_an_odd_batch(dev):

@@ -57,8 +57,15 @@ MEAN, STD = (0.2869, 0.3251, 0.2839), (0.1870, 0.1902, 0.1872)
 
 
 def _scaled_params(cfg):
+    return _scale(jax.tree.map(lambda a: np.array(a, np.float32),
+                               j_init(cfg, jax.random.PRNGKey(0))))
+
+
+def _scale(p):
+    """Seeded frozen-BN affines and gains on the FPN outputs and the heads,
+    so that every spiking layer fires; ``p`` is a numpy tree, changed in
+    place and returned."""
     rng = np.random.default_rng(0)
-    p = jax.tree.map(lambda a: np.array(a, np.float32), j_init(cfg, jax.random.PRNGKey(0)))
 
     def bn(tree):
         if isinstance(tree, dict):

@@ -5,8 +5,9 @@ Pillow or Matplotlib. In a subprocess where importing any of those fails,
 the port's data, evaluation, checkpoint, logging, config, energy and
 plotting modules, its anchors, its CLIs (training, T sweep, noise
 sweeps, new-object discovery, energy and noise plots), its data
-parallelism (``parallel/``) and its tools (the synthetic shape set and the
-bench-weight trainer) must import, and none of them may bring in the JAX
+parallelism (``parallel/``) and its tools (the synthetic shape set, the
+bench-weight trainer, the numerics ablation and the parity harness) must
+import, and none of them may bring in the JAX
 package. The training CLI also runs there, ``--test-only`` on
 the CPU, on a COCO-format set whose configs are JSON and whose images are
 ``.npy`` files, as ``chip_smoke.py`` gives it on the card's machine.
@@ -27,7 +28,7 @@ MODULES = ("data", "data.coco", "data.idd", "data.loader", "data.registry", "dat
            "cli.test_and_energy_eff", "cli.noise_calculations", "cli.new_object_discovery",
            "cli.energy_efficiency_plot", "cli.noise_plots", "parallel", "parallel.mesh",
            "parallel.collectives", "parallel.dryrun", "tools", "tools.synth_shapes",
-           "tools.make_bench_weights")
+           "tools.make_bench_weights", "tools.ablate_bf16", "tools.parity_vs_reference")
 
 BLOCK = f"""
 import importlib, importlib.abc, sys
