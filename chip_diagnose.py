@@ -6,6 +6,7 @@ NVIDIA GPU.
     python3 chip_diagnose.py K2 K6      # only those kernels' variants
     python3 chip_diagnose.py K9         # also K9's check on the input where it once failed
     python3 chip_diagnose.py ptxas DIR  # ptxas figures of K1, K7, K3, K4, K9, K6 against DIR's csrc/
+    python3 chip_diagnose.py graphs [CELL]  # the benchmark's cell with 0 .. 5 graphed functions
 
 Shows what limits K1, K5, K3, K4, K7's weight gradient, K2, K6, K8 and K9.
 Each variant below replaces lines of ``csrc/rpn_head.cu`` (K1 and its pair
@@ -49,6 +50,17 @@ untemplated ones before them; K7's f32-state sweep as the sweep before its
 state flag) must show the same figures, or the script exits non-zero. Each
 instance for bf16 neuron states (K1's evaluation and training instances,
 K8's, K7's sweep) is printed beside its f32-state instance.
+
+``graphs [CELL]`` times the benchmark's cell CELL (``r50_eval_b2`` by
+default) as ``python -m bench_torch --cell CELL`` does, six times, each in
+a process of its own: with none of the five functions that evaluation
+replays as CUDA graphs graphed (their originals, ``__wrapped__``, patched
+in, as ``chip_smoke.eager_functions`` does), then with the first one, two,
+... five of them graphed, in the order they were graphed
+(``chip_smoke.GRAPHED``). It prints each run's JSON line, then a table of
+images/s, the traced wall ms, launches, device busy ms and busy share a
+batch, and peak memory by step; it exits non-zero if a run fails or is not
+correct.
 
 The ``as built`` timings of K1, K7 and K8 also time their instances for
 bf16 neuron states in turns with the f32-state ones: K1's training
@@ -467,11 +479,60 @@ def ptxas_compare(other: Path) -> int:
     return 1 if differ else 0
 
 
+def graph_steps(cell: str) -> int:
+    """``graphs [CELL]``: the cell timed with the first k of the graphed
+    functions graphed, k = 0 .. 5, each run a process of its own (this
+    script with ``graphs CELL k``); prints every JSON line and a table."""
+    import json
+
+    import chip_smoke
+
+    rows = []
+    for k in range(len(chip_smoke.GRAPHED) + 1):
+        out = subprocess.run([sys.executable, __file__, "graphs", cell, str(k)],
+                             capture_output=True, text=True)
+        lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
+        if out.returncode != 0 or not lines:
+            print(out.stdout[-4000:], out.stderr[-4000:], file=sys.stderr)
+            print(f"chip_diagnose graphs: step {k} failed", file=sys.stderr)
+            return 1
+        print(lines[-1], flush=True)
+        rows.append((k, json.loads(lines[-1])))
+    print("step | graphed last | images/s | wall ms a batch (traced) | launches a batch | "
+          "device busy ms a batch | busy share | peak GiB | correct")
+    for k, line in rows:
+        layers, m = line["layers"], line["metrics"]
+        last = chip_smoke.GRAPHED[k - 1][1] if k else "none"
+        print(f"{k} | {last} | {m['images_per_s']['value']:.3f} | "
+              f"{layers['wall_ms_per_batch']:.3f} | {layers['launches_per_batch']:.1f} | "
+              f"{layers['device_busy_ms_per_batch']:.3f} | {layers['device_busy_share']:.3f} | "
+              f"{m['peak_mem_gib']['value']:.4f} | {line['correct']}")
+    return 0 if all(line["correct"] for _, line in rows) else 1
+
+
+def _graph_step(cell: str, k: int) -> int:
+    """One step of :func:`graph_steps`: ``python -m bench_torch --cell
+    CELL`` with only the first ``k`` graphed functions graphed."""
+    import chip_smoke
+    from bench_torch.__main__ import main as bench_main
+
+    with chip_smoke.eager_functions(chip_smoke.GRAPHED[k:]):
+        return bench_main(["--cell", cell])
+
+
 def main() -> int:
     import torch
 
     if sys.argv[1:2] == ["ptxas"]:
         return ptxas_compare(Path(sys.argv[2]))
+    if sys.argv[1:2] == ["graphs"]:
+        cell = sys.argv[2] if len(sys.argv) > 2 else "r50_eval_b2"
+        if len(sys.argv) > 3:
+            return _graph_step(cell, int(sys.argv[3]))
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout.strip())
+        return graph_steps(cell)
     if not torch.cuda.is_available():
         print("chip_diagnose: no CUDA device", file=sys.stderr)
         return 1

@@ -218,13 +218,28 @@ Phases, in order; any failure exits non-zero and prints no result line:
                on a second run) and one short timed window of 3 batches or
                steps, untraced; prints each cell's JSON line.
 
+ 17. graphs  - evaluation's box postprocess (proposal filtering, the
+               detection NMS, the outputs around them) as CUDA graph
+               replays: the flagship with rates on and off, MobileNet and
+               the float32 route, 4 seeded batches in turn, twice, each
+               turn eager (the graphed functions' originals patched in)
+               and graphed; every output the same bits and the same kernel
+               launches either way; prints the wall ms a batch of both, the
+               host's and the device's ms in each segment of a batch (the
+               backbone, the RPN, the RoI heads with the branch test's
+               sync, the outputs; CUDA events at the boundaries) and, from
+               one profiled batch each, the host's kernel launches, CUDA
+               graph launches and synchronisations.
+
 The line before last is a JSON object listing the kernels; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import importlib
 import json
 import os
 import statistics
@@ -3314,6 +3329,192 @@ def bench_path(dev, iters=3):
     return dict(cb.LAUNCHES)
 
 
+# The functions that evaluation replays as CUDA graphs (``utils/graphs.py``),
+# in the order they were graphed: (module of the port, name).
+GRAPHED = (("models.roi_heads", "_postproc_outputs"), ("ops.nms", "_pruned_keep"),
+           ("ops.nms", "nms_mask"), ("models.roi_heads", "_postproc_groups"),
+           ("models.rpn", "filter_proposals"))
+
+
+@contextlib.contextmanager
+def eager_functions(graphed=GRAPHED):
+    """The originals (``__wrapped__``) of the graphed functions ``graphed``
+    in their modules' place while the block runs, restored after: with all
+    five, evaluation launches its box postprocess op by op, as before it was
+    graphed. Every caller looks them up in their modules when it calls."""
+    mods = [importlib.import_module(f"snn_automotive_object_detection_tpu_torch.{m}")
+            for m, _ in graphed]
+    saved = [(mod, name, getattr(mod, name)) for mod, (_, name) in zip(mods, graphed)]
+    for mod, name, fn in saved:
+        setattr(mod, name, fn.__wrapped__)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _host_calls(run):
+    """(kernel launches, CUDA graph launches, synchronisations) the host
+    made in one ``run()``, from ``torch.profiler``, the closing
+    synchronise left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bench_torch.profile import LAUNCH_EVENTS
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    host = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
+    return (sum(n in LAUNCH_EVENTS for n in host),
+            sum(n.startswith("cudaGraphLaunch") for n in host),
+            sum("Synchronize" in n for n in host) - 1)
+
+
+def _segment_ms(run, n):
+    """Medians over ``run(i)``, i < n, called back to back as the benchmark
+    calls them, of the host's ms in each of detector_apply's segments (the
+    backbone, the RPN, the RoI heads with the branch test's host sync, the
+    outputs) and the device's ms from the end of the previous segment's
+    work to the end of this one's: a CUDA event and the host clock at each
+    boundary, one synchronise after the last call. A batch's first event
+    is reached when the device has finished the batch before. Where the
+    device's ms of a segment are about the host's, the host paces the
+    device there."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.models import detector as detector_mod
+    from snn_automotive_object_detection_tpu_torch.models import roi_heads as roi_mod
+    from snn_automotive_object_detection_tpu_torch.models import rpn as rpn_mod
+
+    marks = []
+
+    def mark():
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append((time.perf_counter(), event))
+
+    def marked(fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            mark()
+            return out
+        return call
+
+    saved = [(detector_mod, "backbone_features"), (rpn_mod, "rpn_forward"),
+             (roi_mod, "roi_heads_forward")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+    for mod, name, fn in saved:
+        setattr(mod, name, marked(fn))
+    try:
+        torch.cuda.synchronize()
+        batches = []
+        for i in range(n):
+            mark()
+            run(i)
+            mark()
+            batches.append(marks[-5:])
+        torch.cuda.synchronize()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    host = [[(b[0] - a[0]) * 1e3 for a, b in zip(m, m[1:])] for m in batches]
+    dev = [[a[1].elapsed_time(b[1]) for a, b in zip(m, m[1:])] for m in batches]
+    return ([statistics.median(h[k] for h in host) for k in range(4)],
+            [statistics.median(d[k] for d in dev) for k in range(4)])
+
+
+def graphs_path(dev, n_batches=4):
+    """Phase 17: evaluation's box postprocess as CUDA graph replays. On the
+    flagship with rates on and off, on MobileNet and on the float32 route
+    (rates on), ``n_batches`` seeded batches in turn, twice: each turn once
+    with the graphed functions' originals patched in (:func:`eager_functions`)
+    and once as the port runs. Every output of every batch must be the
+    same bits either way, and so must the kernel launches counted a turn.
+    Prints the wall ms a batch of both (host clock, the second turns), the
+    host's and the device's ms a batch in each of detector_apply's segments
+    (:func:`_segment_ms`) both ways and, from one profiled batch each way,
+    the host's kernel launches, CUDA graph launches and synchronisations;
+    the graphed batch must make at
+    least 300 fewer kernel launches. Returns the launches of the graphed
+    turns."""
+    import torch
+
+    from bench_torch.cells import outputs_equal
+    from snn_automotive_object_detection_tpu_torch.models.detector import detector_apply
+    from snn_automotive_object_detection_tpu_torch.models.factory import (
+        DetectorConfig, init_params)
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+
+    routes = (("flagship, rates on", {}, True), ("flagship, rates off", {}, False),
+              ("MobileNet, rates off", {"backbone": "mobilenet_v3_large_fpn"}, False),
+              ("float32, rates on", {"compute_dtype": torch.float32}, True))
+    total = {k: 0 for k in cb.KERNELS}
+    for name, fields, rates in routes:
+        cfg = DetectorConfig(num_classes=9, t_rpn=8, t_det=12, **fields)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        if cfg.backbone != "resnet50_fpn":      # the gain of eval_path's MobileNet
+            for layer in params["backbone"]["fpn"]["layer"]:
+                layer["w"].mul_(6.0)
+        n, (h, w) = 2, cfg.bucket
+        g = torch.Generator(device=dev).manual_seed(1)
+        batches = [{"images": torch.rand((n, h, w, 3), generator=g, device=dev),
+                    "image_sizes": torch.tensor([[h, w]] * n, device=dev),
+                    "original_sizes": torch.tensor([[1024, 2048]] * n, device=dev)}
+                   for _ in range(n_batches)]
+
+        def run(i):
+            return detector_apply(params, batches[i], cfg, collect_rates=rates)[0]
+
+        def turn():
+            torch.cuda.synchronize()
+            cb.reset_counts()
+            t0 = time.perf_counter()
+            outs = [run(i) for i in range(n_batches)]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / n_batches
+            return outs, dict(cb.LAUNCHES), dict(cb.PLAIN_CUDA_CALLS), ms
+
+        for rep in range(2):
+            with eager_functions():
+                eager = turn()
+            graphed = turn()
+            for i, (a, b) in enumerate(zip(eager[0], graphed[0])):
+                if not (outputs_equal(a, b) and outputs_equal(b, a)):
+                    differ = {k: int((v != b[k]).sum()) if v.shape == b[k].shape
+                              else "shape" for k, v in a.items() if torch.is_tensor(v)}
+                    _fail(f"graphs: {name}, batch {i} of turn {rep}: the graphed outputs "
+                          f"differ from the eager ones (elements {differ})")
+            if eager[1:3] != graphed[1:3]:
+                _fail(f"graphs: {name}: launches {graphed[1]} and plain calls {graphed[2]} "
+                      f"graphed, {eager[1]} and {eager[2]} eager")
+            print(f"graphs: {name}, turn {rep}: {n_batches} batches bit-equal to eager; "
+                  f"wall ms a batch {eager[3]:.3f} eager, {graphed[3]:.3f} graphed; "
+                  f"kernel launches {graphed[1]}")
+            for k, v in graphed[1].items():
+                total[k] += v
+        for how, ctx in (("eager", eager_functions), ("graphed", contextlib.nullcontext)):
+            with ctx():
+                host, device = _segment_ms(lambda i: run(i % n_batches), 2 * n_batches)
+            print(f"graphs: {name}, {how}, ms a batch (host launching / device) of the backbone "
+                  f"{host[0]:.3f} / {device[0]:.3f}, the RPN {host[1]:.3f} / {device[1]:.3f}, "
+                  f"the RoI heads with the sync {host[2]:.3f} / {device[2]:.3f}, the outputs "
+                  f"{host[3]:.3f} / {device[3]:.3f}")
+        with eager_functions():
+            le, ge, se = _host_calls(lambda: run(0))
+        lg, gg, sg = _host_calls(lambda: run(0))
+        print(f"graphs: {name}, one batch: host kernel launches {le} eager, {lg} graphed; "
+              f"CUDA graph launches {ge} eager, {gg} graphed; synchronisations {se} eager, "
+              f"{sg} graphed")
+        if lg > le - 300:
+            _fail(f"graphs: {name}: the graphed batch made {lg} kernel launches, the "
+                  f"eager one {le}")
+    return total
+
+
 def reference_numerics():
     """f32 products and convolutions run in full f32, not TF32: the plain
     versions are the references the kernels are held against, and the f32
@@ -3365,7 +3566,8 @@ def main() -> int:
                "bench_weights": bench_weights_path(dev),
                "joint": joint_path(dev),
                "chain": chain_path(dev),
-               "bench": bench_path(dev)}
+               "bench": bench_path(dev),
+               "graphs": graphs_path(dev)}
     for r in results:
         r["launches_by_path"] = {k: v[r["name"]] for k, v in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())

@@ -42,6 +42,7 @@ from snn_automotive_object_detection_tpu_torch.parallel.collectives import (
     sum_over_ranks,
 )
 from snn_automotive_object_detection_tpu_torch.utils.constants import device_constant
+from snn_automotive_object_detection_tpu_torch.utils.graphs import graphed
 
 # Per-class NMS over the top-K rows when no foreground class has more than
 # K valid rows (exact: greedy NMS only looks at valid rows); otherwise the
@@ -157,6 +158,7 @@ def _class_boxes(box_regression, proposals, image_sizes, c: int, cfg: RoIConfig)
                                        image_sizes[:, 1, None, None])
 
 
+@graphed
 def _postproc_groups(class_logits, box_regression, proposals, prop_valid,
                      image_sizes, cfg: RoIConfig):
     """Softmax, decode and clip, then the G = (C-1) FG + 1 BG NMS groups.
@@ -211,6 +213,7 @@ def _batched_group_nms(gb, gs, gv, nms_thresh: float):
     return torch.cat([keep_fg, keep_bg[:, None]], dim=1), order_bg
 
 
+@graphed
 def _postproc_outputs(inter, keep_all, bg_order, cfg: RoIConfig):
     """Top-k after NMS and the fixed-size outputs: D FG detections then P
     BG slots per image."""

@@ -33,6 +33,7 @@ from snn_automotive_object_detection_tpu_torch.parallel.collectives import (
     rank_rows,
     sum_over_ranks,
 )
+from snn_automotive_object_detection_tpu_torch.utils.graphs import graphed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +84,7 @@ def select_pre_nms(objectness: torch.Tensor, counts: List[int], top_n: int):
     return torch.cat(obj_sel, 1), torch.cat(idx_sel, 1)
 
 
+@graphed
 def filter_proposals(proposals: torch.Tensor, objectness: torch.Tensor,
                      level_sizes: List[int], image_sizes: torch.Tensor,
                      cfg: RPNConfig, training: bool = False) -> Dict[str, torch.Tensor]:

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from snn_automotive_object_detection_tpu_torch.ops.boxes import box_iou
+from snn_automotive_object_detection_tpu_torch.utils.graphs import graphed
 
 NEG_INF = torch.finfo(torch.float32).min
 BLOCK = 256
@@ -44,6 +45,7 @@ def _self_suppress_fixpoint(sup: torch.Tensor) -> torch.Tensor:
     return (sup & alive[:, :, None]).any(dim=1)
 
 
+@graphed
 def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
              iou_threshold: float, groups: torch.Tensor | None = None,
              block_size: int | None = None, presorted: bool = False):
@@ -110,7 +112,16 @@ def nms_mask_pruned(boxes, scores, valid, iou_threshold: float, k: int):
     """NMS over [B, N] rows of which AT MOST ``k`` per row are valid (the
     caller guarantees it): only the top-k masked scores can keep or
     suppress, so one presorted block of k replaces the full sweep.
-    Returns keep [B, N] bool."""
+    Returns keep [B, N] bool.
+
+    The body is :func:`_pruned_keep`, a CUDA graph replay in evaluation;
+    this call stays a Python call, which the caller's branch counts."""
+    return _pruned_keep(boxes, scores, valid, iou_threshold, k)
+
+
+@graphed
+def _pruned_keep(boxes, scores, valid, iou_threshold: float, k: int):
+    """The body of :func:`nms_mask_pruned`."""
     bsz, n = scores.shape
     masked = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     vals, idx = stable_sort_desc(masked)
