@@ -231,8 +231,30 @@ Phases, in order; any failure exits non-zero and prints no result line:
                one profiled batch each, the host's kernel launches, CUDA
                graph launches and synchronisations.
 
+ 18. shapes  - the main path at the shapes the JAX package runs beyond a
+               batch of two in the landscape bucket: the flagship at batch 1,
+               4 and 8 and at batch 2 in the portrait bucket 1536 x 768, the
+               320 MobileNet preset (320 x 640, RPN budgets 150 / 150, score
+               threshold 0.05) at batch 2, rates on and off: launches per
+               batch against the table, every kernel held to its plain
+               version on the inputs of that batch (the kernel phase's
+               checks and tolerances), well-formed finite outputs, the
+               heads' readouts and the mean spike rates against the float32
+               route (bench_torch's limits), graphed outputs equal to eager
+               ones, images/s, the device's busy ms a batch, peak memory and
+               each kernel's ms; from one shared set of flagship levels each
+               image of a batch of 4 and 8 against itself alone (differing
+               elements counted, none allowed); K8's bits equal to K1's with
+               the pairing switch on at batch 4 and 8; a mixed-orientation
+               dataset pass through DetectionLoader with one graph per
+               distinct key of each graphed function (at most one per
+               bucket), its detections equal to those of the batches built
+               without the loader, and the 12 stats. Each kernel's JSON
+               entry gets its ms at these shapes (``ms_at_shapes``).
+
 The line before last is a JSON object listing the kernels; the last line is
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}; the line before the JSON lines gives the
+seconds the whole script took.
 """
 
 from __future__ import annotations
@@ -451,6 +473,29 @@ def check_kernels(dev, results):
         check(dev, g, results)
 
 
+def _hold_roi_align(feats, boxes, size, what):
+    """K2 on (feats, boxes) of an image bucket ``size`` against its plain
+    version, within 1e-5, the count of differing elements printed. Returns
+    (the kernel's output, max |diff|)."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.ops import cuda_roi_align as k2
+    from snn_automotive_object_detection_tpu_torch.ops.roi_align import level_geometry
+
+    got = k2._launch(feats, boxes, size)
+    want = k2.plain(feats, boxes, size)
+    err = (got - want).abs().max().item()
+    diff = int((got != want).sum())
+    lv, _ = level_geometry(feats, boxes, size)
+    per_level = torch.bincount(lv.flatten().long(), minlength=len(feats)).tolist()
+    print(f"K2 roi_align {what}: max|diff| {err:.3g} (tol 1e-5) at max|out| "
+          f"{want.abs().max().item():.4g}, {diff} of {want.numel()} elements differ; "
+          f"boxes per level {per_level}")
+    if err > 1e-5 or not torch.isfinite(got).all():
+        _fail(f"K2 disagrees with its plain version ({what})")
+    return got, err
+
+
 def check_roi_align(dev, g, results):
     """K2: RoIAlign of 2 x 1000 boxes over P2..P5, with boxes on the level
     mapper's borders among them; and two levels of one stride, as the
@@ -459,7 +504,7 @@ def check_roi_align(dev, g, results):
 
     from snn_automotive_object_detection_tpu_torch.ops import cuda_roi_align as k2
     from snn_automotive_object_detection_tpu_torch.ops.roi_align import (
-        assign_fpn_levels, level_geometry, rows_read)
+        assign_fpn_levels, rows_read)
     from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
     from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
 
@@ -476,26 +521,12 @@ def check_roi_align(dev, g, results):
     boxes[:, :border.shape[0]] = border
     boxes = boxes.contiguous()
 
-    def hold(feats, bxs, what):
-        got = k2._launch(feats, bxs, size)
-        want = k2.plain(feats, bxs, size)
-        err = (got - want).abs().max().item()
-        diff = int((got != want).sum())
-        lv, _ = level_geometry(feats, bxs, size)
-        per_level = torch.bincount(lv.flatten().long(), minlength=len(feats)).tolist()
-        print(f"K2 roi_align {what}: max|diff| {err:.3g} (tol 1e-5) at max|out| "
-              f"{want.abs().max().item():.4g}, {diff} of {want.numel()} elements differ; "
-              f"boxes per level {per_level}")
-        if err > 1e-5 or not torch.isfinite(got).all():
-            _fail(f"K2 disagrees with its plain version ({what})")
-        return got, err
-
-    got, err = hold(pooled_feats, boxes, "P2..P5")
+    got, err = _hold_roi_align(pooled_feats, boxes, size, "P2..P5")
     # The same-stride pair draws from a generator of its own, so that the
     # phases after this one keep their inputs.
     g2 = torch.Generator(device=dev).manual_seed(5)
     top = [torch.randn((2, 24, 48, 256), generator=g2, device=dev).to(bf) for _ in range(2)]
-    hold(top, boxes, "two levels of stride 32")
+    _hold_roi_align(top, boxes, size, "two levels of stride 32")
     kernels = _device_kernels(lambda: k2.roi_align(pooled_feats, boxes, size))
     print(f"K2 roi_align: one call runs {kernels}")
     if len(kernels) != 1:
@@ -674,6 +705,56 @@ def check_box_tail(dev, g, results):
             product_only_ms=product_ms, long_t=long_t)
 
 
+def _hold_fpn_level(c, m_next, inner, layer, label, store_merged):
+    """K5 on one level (the backbone stage ``c``, the coarser merged map
+    ``m_next`` or None, the lateral ``inner`` and output ``layer`` weights)
+    against its plain version: the merged map against the plain lateral +
+    top-down on the same inputs and P against the plain 3x3 on the kernel's
+    own merged map, each within ``kc.chain_excess``'s bound with at most
+    ``kc.MAX_DIFFERING`` of the elements differing; timed as the FPN
+    launches it (``store_merged``). Returns (the kernel's P, the plain
+    merged map, max |diff|, the worst share of the bound)."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.ops import cuda_fpn as k5
+    from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
+
+    n, h, w, cin = c.shape
+    ops = k5.kernel_weights(inner["w"], inner["b"], layer["w"], layer["b"])
+    got_p, got_m = k5._launch(c, m_next, *ops, True)
+    want_m = k5.lateral_plain(c, m_next, inner["w"], inner["b"])
+    addends = [ops[1]]
+    if m_next is not None:
+        up = m_next.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)[:, :h, :w]
+        addends += [up, up]
+    # The magnitudes each sum adds up: on a model's own levels (C5: 2048
+    # products whose magnitudes sum to thousands) sums near zero move with
+    # the order by more than kc.ATOL.
+    terms_m = k5.lateral_plain(c.abs(), None, inner["w"].abs(), torch.zeros_like(inner["b"]))
+    ex_m = kc.chain_excess(got_m, want_m, 2 if m_next is None else 3, addends, terms_m)
+    # P from the kernel's own merged map: the 3x3 alone, same inputs.
+    want_p = k5.outer_plain(got_m, layer["w"], layer["b"])
+    terms_p = k5.outer_plain(got_m.abs(), layer["w"].abs(), torch.zeros_like(layer["b"]))
+    ex_p = kc.chain_excess(got_p, want_p, 2, (ops[3],), terms_p)
+    dm, dp = kc.differing(got_m, want_m), kc.differing(got_p, want_p)
+    # ... and from the plain merged map: the flips of the merged map reach P.
+    full_p = k5.outer_plain(want_m, layer["w"], layer["b"])
+    out1 = int(((got_p.float() - full_p.float()).abs()
+                > kc.BF16_REL * full_p.float().abs() + kc.ATOL).sum())
+    e = max((got_m.float() - want_m.float()).abs().max().item(),
+            (got_p.float() - want_p.float()).abs().max().item())
+    lvl_ms = _median_ms(lambda: k5._launch(c, m_next, *ops, store_merged), 10)
+    print(f"K5 fpn_level {label} [{n}, {h}, {w}, {cin}], {k5.tile_rows(c)} x 16 pixels per "
+          f"block: {lvl_ms:.3f} ms; merged {ex_m:.3g} of its bound, {dm} of {want_m.numel()} "
+          f"differ, max |merged| {want_m.float().abs().max().item():.4g}; P {ex_p:.3g} of its "
+          f"bound, {dp} differ, max |P| {want_p.float().abs().max().item():.4g}; max |diff| "
+          f"{e:.3g}; against the whole plain level {out1} P elements outside one ulp")
+    if ex_m > 1 or ex_p > 1 or max(dm, dp) > kc.MAX_DIFFERING * want_m.numel() \
+            or not torch.isfinite(got_p.float()).all():
+        _fail(f"K5 disagrees with its plain version on {label} [{n}, {h}, {w}, {cin}]")
+    return got_p, want_m, e, max(ex_m, ex_p)
+
+
 def check_fpn(dev, g, results):
     """K5: the four FPN levels at flagship shapes, each level on the plain
     version's coarser merged map so that both sides get the same inputs."""
@@ -715,43 +796,16 @@ def check_fpn(dev, g, results):
     err = worst = top = 0.0
     m_next = None
     for i in (3, 2, 1, 0):
-        h, w, _ = shapes[i]
-        inner, layer = fpn["inner"][i], fpn["layer"][i]
-        got_p, got_m = launch(i, m_next, True)
-        want_m = k5.lateral_plain(cs[i], m_next, inner["w"], inner["b"])
-        addends = [ops[i]["blat"]]
-        if m_next is not None:
-            up = m_next.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)[:, :h, :w]
-            addends += [up, up]
-        ex_m = kc.chain_excess(got_m, want_m, 2 if m_next is None else 3, addends)
-        # P from the kernel's own merged map: the 3x3 alone, same inputs.
-        want_p = k5.outer_plain(got_m, layer["w"], layer["b"])
-        ex_p = kc.chain_excess(got_p, want_p, 2, (ops[i]["bout"],))
-        dm, dp = kc.differing(got_m, want_m), kc.differing(got_p, want_p)
-        # ... and from the plain merged map: the flips of the merged map reach P.
-        full_p = k5.outer_plain(want_m, layer["w"], layer["b"])
-        out1 = int(((got_p.float() - full_p.float()).abs()
-                    > kc.BF16_REL * full_p.float().abs() + kc.ATOL).sum())
-        e = max((got_m.float() - want_m.float()).abs().max().item(),
-                (got_p.float() - want_p.float()).abs().max().item())
-        lvl_ms = _median_ms(lambda: launch(i, m_next, i > 0), 10)
+        got_p, want_m, e, ex = _hold_fpn_level(cs[i], m_next, fpn["inner"][i],
+                                               fpn["layer"][i], f"C{i + 2}", i > 0)
         lib_ms = _median_ms(lambda: library_level(i, m_next), 10)
-        print(f"K5 fpn_level C{i + 2} [2, {h}, {w}, {shapes[i][2]}], {k5.tile_rows(cs[i])} x 16 "
-              f"pixels per block: {lvl_ms:.3f} ms, "
-              f"unfused cuDNN chain {lib_ms:.3f} ms; merged "
-              f"{ex_m:.3g} of its bound, {dm} of {want_m.numel()} differ, max |merged| "
-              f"{want_m.float().abs().max().item():.4g}; P {ex_p:.3g} of its bound, "
-              f"{dp} differ, max |P| {want_p.float().abs().max().item():.4g}; max |diff| "
-              f"{e:.3g}; against the whole plain level {out1} P elements outside one ulp")
-        if ex_m > 1 or ex_p > 1 or max(dm, dp) > kc.MAX_DIFFERING * want_m.numel() \
-                or not torch.isfinite(got_p.float()).all():
-            _fail(f"K5 disagrees with its plain version on C{i + 2}")
+        print(f"K5 fpn_level C{i + 2}: unfused cuDNN chain {lib_ms:.3f} ms")
         if i == 0:   # the finest level stores no merged map: same P
             only_p, none = launch(0, m_next, False)
             if none is not None or not torch.equal(only_p, got_p):
                 _fail("K5 without the merged output gives another P")
-        err, worst = max(err, e), max(worst, ex_m, ex_p)
-        top = max(top, want_p.float().abs().max().item())
+        err, worst = max(err, e), max(worst, ex)
+        top = max(top, got_p.float().abs().max().item())
         m_next = want_m
     print(f"K5 fpn_level: max |diff| {err:.3g} at max |P| {top:.4g}, {worst:.3g} of the "
           f"bound 2^-7 (roundings |want| + |addends|) + {kc.ATOL}")
@@ -776,6 +830,40 @@ def check_fpn(dev, g, results):
             _bound(n_bytes, flops), lms)
 
 
+def _hold_stem(images, stem, mean, std, what):
+    """K6 on ``images`` [N, H, W, 3] with the stem's weights ``stem`` against
+    its plain version (the same folded weights): within
+    ``kc.chain_excess``'s bound, at most ``kc.MAX_DIFFERING`` of the
+    elements differing, [N, H / 4, W / 4, 64] bf16 with some output above
+    zero. Returns (the kernel's output, the plain one, max |diff|, (the
+    folded weights, the kernel's weights, the bias))."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.ops import cuda_stem as k6
+    from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
+
+    n, h, w, _ = images.shape
+    wf, bias = k6.fold_stem_weights(stem["w"], stem["bn"]["scale"], stem["bn"]["bias"],
+                                    mean, std)
+    wk, bias = k6.kernel_weights(wf), bias.contiguous()
+    got = k6._launch(images, wk, bias, mean)
+    want = k6._folded_plain(images, wf, bias, mean)
+    err = (got.float() - want.float()).abs().max().item()
+    worst = kc.chain_excess(got, want, 2, (bias,))
+    diff = kc.differing(got, want)
+    out1 = int(((got.float() - want.float()).abs()
+                > kc.BF16_REL * want.float().abs() + kc.ATOL).sum())
+    print(f"K6 stem {what} [{n}, {h}, {w}, 3]: max |diff| {err:.3g} at max |out| "
+          f"{want.float().abs().max().item():.4g}, {worst:.3g} of the bound 2^-7 (2 |want| + "
+          f"|bias|) + {kc.ATOL}; {diff} of {want.numel()} elements differ, {out1} by more "
+          f"than one ulp of the value; {(want == 0).float().mean().item():.3f} of the outputs "
+          f"are zero")
+    if worst > 1 or diff > kc.MAX_DIFFERING * want.numel() or got.dtype != torch.bfloat16 \
+            or tuple(got.shape) != (n, h // 4, w // 4, 64) or not (want > 0).any():
+        _fail(f"K6 disagrees with its plain version {what}")
+    return got, want, err, (wf, wk, bias)
+
+
 def check_stem(dev, g, results):
     """K6: the fused stem on a flagship image pair."""
     import torch
@@ -791,23 +879,7 @@ def check_stem(dev, g, results):
     stem = {"w": torch.randn((7, 7, 3, 64), generator=g, device=dev) * (2.0 / (49 * 64)) ** 0.5,
             "bn": {"scale": torch.rand(64, generator=g, device=dev) + 0.5,
                    "bias": torch.randn(64, generator=g, device=dev) * 0.2}}
-    wf, bias = k6.fold_stem_weights(stem["w"], stem["bn"]["scale"], stem["bn"]["bias"],
-                                    mean, std)
-    wk, bias = k6.kernel_weights(wf), bias.contiguous()
-    got = k6._launch(images, wk, bias, mean)
-    want = k6._folded_plain(images, wf, bias, mean)
-    err = (got.float() - want.float()).abs().max().item()
-    worst = kc.chain_excess(got, want, 2, (bias,))
-    diff = kc.differing(got, want)
-    out1 = int(((got.float() - want.float()).abs()
-                > kc.BF16_REL * want.float().abs() + kc.ATOL).sum())
-    print(f"K6 stem: max |diff| {err:.3g} at max |out| {want.float().abs().max().item():.4g}, "
-          f"{worst:.3g} of the bound 2^-7 (2 |want| + |bias|) + {kc.ATOL}; {diff} of "
-          f"{want.numel()} elements differ, {out1} by more than one ulp of the value; "
-          f"{(want == 0).float().mean().item():.3f} of the outputs are zero")
-    if worst > 1 or diff > kc.MAX_DIFFERING * want.numel() or got.dtype != torch.bfloat16 \
-            or tuple(got.shape) != (2, 192, 384, 64) or not (want > 0).any():
-        _fail("K6 disagrees with its plain version")
+    got, want, err, (wf, wk, bias) = _hold_stem(images, stem, mean, std, "on two flagship images")
     # The check instance loads each window only at its own tile: it gives
     # these results only if every block waits for each window on its
     # barrier (in the production instance the windows land early anyway).
@@ -3515,6 +3587,455 @@ def graphs_path(dev, n_batches=4):
     return total
 
 
+# The configurations of the shapes phase beyond a batch of two in the
+# landscape bucket: (name, DetectorConfig fields, batch, portrait bucket).
+SHAPE_RUNS = (("flagship, batch 1", {}, 1, False),
+              ("flagship, batch 4", {}, 4, False),
+              ("flagship, batch 8", {}, 8, False),
+              ("flagship portrait, batch 2", {}, 2, True),
+              ("320 MobileNet preset, batch 2", {"preset": "mobilenet_320"}, 2, False))
+# Launches of one evaluation batch, by backbone family.
+SHAPE_LAUNCHES = {"resnet50_fpn": _EVAL_KERNELS,
+                  "mobilenet": {"rpn_head": 3, "roi_align": 1, "encoder_fc6": 1, "box_tail": 1}}
+# The kernel wrappers the detector calls, by (module of the port, name):
+# what :class:`_KernelInputs` records.
+KERNEL_WRAPPERS = (("snn.cuda_rpn", "rpn_level", "rpn_head"),
+                   ("snn.cuda_rpn", "rpn_level_x2", "rpn_head_x2"),
+                   ("models.roi_heads", "roi_align", "roi_align"),
+                   ("models.heads", "encoder_fc6", "encoder_fc6"),
+                   ("models.heads", "box_tail", "box_tail"),
+                   ("ops.cuda_fpn", "fpn_level", "fpn_level"),
+                   ("models.detector", "stem_apply", "stem"))
+
+
+class _KernelInputs:
+    """The arguments each kernel wrapper of the detector got while the block
+    ran, by kernel: {name: [(args, kwargs), ...]} in call order (K1 and K5
+    once per level). The wrappers run as they are."""
+
+    def __enter__(self):
+        self.calls = {name: [] for _, _, name in KERNEL_WRAPPERS}
+        self._saved = []
+        for mod_name, attr, name in KERNEL_WRAPPERS:
+            mod = importlib.import_module(f"snn_automotive_object_detection_tpu_torch.{mod_name}")
+            fn = getattr(mod, attr)
+            self._saved.append((mod, attr, fn))
+
+            def recorded(*args, _fn=fn, _name=name, **kwargs):
+                self.calls[_name].append((args, kwargs))
+                return _fn(*args, **kwargs)
+
+            setattr(mod, attr, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+
+
+def _hold_kernels_at(calls, label):
+    """Every kernel of one detector batch held to its plain version on the
+    inputs that batch gave it (``calls`` of :class:`_KernelInputs`), with
+    the checks and tolerances of the kernel phase, and timed there with
+    CUDA events. Returns {kernel: ms}."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.ops import cuda_fpn as k5
+    from snn_automotive_object_detection_tpu_torch.ops import cuda_roi_align as k2
+    from snn_automotive_object_detection_tpu_torch.ops import cuda_stem as k6
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_tail as k4
+
+    bf = torch.bfloat16
+    ms = {}
+    if calls["stem"]:
+        (stem, images, mean, std), _ = calls["stem"][0]
+        _, _, _, (_, wk, bias) = _hold_stem(images, stem, mean, std, label)
+        ms["stem"] = _median_ms(lambda: k6._launch(images, wk, bias, mean), 10)
+    if calls["fpn_level"]:
+        levels = []
+        for i, ((c, m_next, wlat, blat, wout, bout), kw) in enumerate(calls["fpn_level"]):
+            store = kw["store_merged"]
+            _hold_fpn_level(c, m_next, {"w": wlat, "b": blat}, {"w": wout, "b": bout},
+                            f"{label}, C{5 - i}", store)
+            levels.append((c, m_next, k5.kernel_weights(wlat, blat, wout, bout), store))
+        ms["fpn_level"] = _median_ms(
+            lambda: [k5._launch(c, m, *ops, st) for c, m, ops, st in levels], 10)
+    (_, w_shared, w_out, t), _ = calls["rpn_head"][0]
+    w9t, wo = k1._taps_t(w_shared), w_out.to(bf).contiguous()
+    feats = [args[0] for args, _ in calls["rpn_head"]]
+    got = [k1._launch(f, w9t, wo, t, True) for f in feats]
+    want = [k1.rpn_level_plain(f, w_shared, w_out, t, True) for f in feats]
+    _hold_rpn_eval(got, want, wo, f"{label}, levels {[tuple(f.shape) for f in feats]}")
+    ms["rpn_head"] = _median_ms(lambda: [k1._launch(f, w9t, wo, t) for f in feats], 10)
+    (features, boxes, size), _ = calls["roi_align"][0]
+    _hold_roi_align(list(features), boxes, size, f"{label}, {tuple(boxes.shape)} boxes")
+    ms["roi_align"] = _median_ms(lambda: k2._launch(list(features), boxes, size), 10)
+    (x, w6, t6), _ = calls["encoder_fc6"][0]
+    print(f"K3 encoder_fc6 {label}: rows {tuple(x.shape)}")
+    ms["encoder_fc6"] = _encoder_fc6_at(x, w6.to(bf).contiguous(), t6)["ms"]
+    (cur6, w7, wc, wb), _ = calls["box_tail"][0]
+    w7b, wro = w7.to(bf).contiguous(), torch.cat([wc, wb], 1).to(bf).contiguous()
+    print(f"K4 box_tail {label}: cur6 {tuple(cur6.shape)}")
+    _hold_box_tail(cur6, w7, wc, wb, w7b, wro)
+    ms["box_tail"] = _median_ms(lambda: k4._launch(cur6, w7b, wro, wc.shape[1]), 10)
+    return ms
+
+
+def _shape_batch(dev, g, n, hw, portrait):
+    import torch
+
+    h, w = (hw[1], hw[0]) if portrait else hw
+    orig = [2048, 1024] if portrait else [1024, 2048]
+    return {"images": torch.rand((n, h, w, 3), generator=g, device=dev),
+            "image_sizes": torch.tensor([[h, w]] * n, device=dev),
+            "original_sizes": torch.tensor([orig] * n, device=dev)}
+
+
+def _image_rows(out, rows, n):
+    """The outputs of images ``rows`` (a slice) of an n-image batch."""
+    part = {k: v[rows] for k, v in out.items() if not isinstance(v, dict)}
+    if "rpn_rates" in out:
+        part["rpn_rates"] = {k: v[:, rows] for k, v in out["rpn_rates"].items()}
+        part["det_rates"] = {k: v.reshape(n, -1)[rows].reshape(-1)
+                             for k, v in out["det_rates"].items()}
+    return part
+
+
+def _differing(a, b):
+    """{output: elements that differ} between two output dicts (rates as
+    "group/key"); a shape that differs counts all its elements."""
+    from bench_torch.cells import _flat
+
+    fa, fb = _flat(a), _flat(b)
+    return {k: (int((v != fb[k]).sum()) if v.shape == fb[k].shape else v.numel())
+            for k, v in fa.items()}
+
+
+def _busy_ms(run):
+    """The device's kernel and copy time of one ``run()``, from the
+    profiler, in ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+    if us <= 0:
+        _fail("the profiler recorded no device time")
+    return us / 1e3
+
+
+def _mixed_coco(n_each, seed):
+    """A COCO dict of ``n_each`` landscape 1024 x 2048 and ``n_each``
+    portrait 2048 x 1024 seeded uint8 images (``synthetic_coco``'s), the
+    portrait ones numbered after the landscape ones, and the pixels."""
+    land, land_px = synthetic_coco(n_each, (1024, 2048), 8, seed)
+    tall, tall_px = synthetic_coco(n_each, (2048, 1024), 8, seed + 1)
+    pixels = dict(land_px)
+    images, anns = list(land["images"]), list(land["annotations"])
+    for img in tall["images"]:
+        images.append({**img, "id": img["id"] + n_each, "file_name": f"{img['id'] + n_each}.npy"})
+        pixels[img["id"] + n_each] = tall_px[img["id"]]
+    for a in tall["annotations"]:
+        anns.append({**a, "id": len(anns) + 1, "image_id": a["image_id"] + n_each})
+    return {**land, "images": images, "annotations": anns}, pixels
+
+
+def _mixed_pass(dev, params, cfg, n_each=6, batch_size=2):
+    """Check (g)'s dataset pass: ``2 n_each`` seeded landscape and portrait
+    images through ``DetectionLoader`` (its plan: orientation-homogeneous
+    batches, the portrait ones in the transposed bucket), the flagship
+    rates-off evaluation and ``CocoEvaluator``, after the graphed functions'
+    graphs are dropped. Each graphed function must then hold one graph per
+    distinct key it was called with, and at most one per bucket; every
+    batch's detections must equal those of the same images resized and
+    padded without the loader; the 12 stats must be finite. Returns the
+    launches of the pass."""
+    import numpy as np
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.data.coco import CocoDataset
+    from snn_automotive_object_detection_tpu_torch.data.loader import (
+        DetectionLoader, resize_image_and_target, to_device_batch)
+    from snn_automotive_object_detection_tpu_torch.evaluation import CocoEvaluator
+    from snn_automotive_object_detection_tpu_torch.models.detector import detector_apply
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+    from snn_automotive_object_detection_tpu_torch.utils import graphs as graphs_mod
+
+    coco, pixels = _mixed_coco(n_each, seed=13)
+
+    class InMemory(CocoDataset):
+        def load_image(self, image_id):
+            return pixels[image_id]
+
+    ds = InMemory(images_dir="", ann_file=coco)
+    loader = DetectionLoader(ds, batch_size, cfg.bucket, min_size=cfg.min_size,
+                             max_size=cfg.max_size, with_targets=False, num_workers=4)
+    graphed = {name: getattr(importlib.import_module(
+        f"snn_automotive_object_detection_tpu_torch.{mod}"), name) for mod, name in GRAPHED}
+    for fn in graphed.values():
+        fn.graphs.clear()
+    keys = {name: set() for name in graphed}
+    real_key = graphs_mod.graph_key
+
+    def recorded_key(fn, args, kwargs):
+        key, tensors = real_key(fn, args, kwargs)
+        keys[fn.__name__].add(key)
+        return key, tensors
+
+    keep = ("boxes", "scores", "labels", "valid")
+    evaluator = CocoEvaluator(ds)
+    host_batches, outs = [], []
+    graphs_mod.graph_key = recorded_key
+    try:
+        cb.reset_counts()
+        t0 = time.perf_counter()
+        for batch in loader:
+            out = detector_apply(params, to_device_batch(batch, dev), cfg)[0]
+            evaluator.update({int(batch["image_ids"][i]): {k: out[k][i] for k in keep}
+                              for i in range(batch_size) if batch["pad_mask"][i]})
+            host_batches.append(batch)
+            outs.append(out)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(cb.LAUNCHES)
+    finally:
+        graphs_mod.graph_key = real_key
+    buckets = [tuple(b["images"].shape[1:3]) for b in host_batches]
+    counts = {name: len(fn.graphs) for name, fn in graphed.items()}
+    print(f"shapes: mixed pass of {2 * n_each} images in {len(host_batches)} batches, buckets "
+          f"in order {buckets}, {2 * n_each / dt:.3f} images/s with loading (host clock); "
+          f"graphs per graphed function {counts}, distinct keys "
+          f"{ {k: len(v) for k, v in keys.items()} }")
+    n_buckets = len(set(buckets))
+    if n_buckets != 2 or len(host_batches) < 6:
+        _fail(f"shapes: the mixed pass planned buckets {buckets}")
+    for name, n in counts.items():
+        if n != len(keys[name]) or not 1 <= n <= n_buckets:
+            _fail(f"shapes: {name} holds {n} graphs after the mixed pass, for "
+                  f"{len(keys[name])} keys and {n_buckets} buckets")
+    want = {k: SHAPE_LAUNCHES["resnet50_fpn"].get(k, 0) * len(host_batches) for k in launches}
+    if launches != want:
+        _fail(f"shapes: the mixed pass launched {launches}, not {want}")
+    for batch, out in zip(host_batches, outs):
+        hb, wb = batch["images"].shape[1:3]
+        imgs = []
+        for i in batch["image_ids"]:
+            img, _, (nh, nw) = resize_image_and_target(ds.load_image(int(i)), None,
+                                                       cfg.min_size, cfg.max_size)
+            padded = np.zeros((hb, wb, 3), np.float32)
+            padded[:nh, :nw] = img
+            imgs.append(padded)
+        direct = {"images": torch.from_numpy(np.stack(imgs)).to(dev),
+                  "image_sizes": torch.from_numpy(batch["image_sizes"]).to(dev),
+                  "original_sizes": torch.from_numpy(batch["original_sizes"]).to(dev)}
+        again = detector_apply(params, direct, cfg)[0]
+        differ = {k: v for k, v in _differing(out, again).items() if v}
+        if differ:
+            _fail(f"shapes: a {hb} x {wb} loader batch's detections differ from those of "
+                  f"the batch built without the loader ({differ})")
+    evaluator.synchronize_between_processes()
+    evaluator.accumulate()
+    stats = np.asarray(evaluator.summarize(verbose=False))
+    print(f"shapes: mixed pass, every batch's detections equal to the batch built without "
+          f"the loader; 12 stats {[round(float(x), 4) for x in stats]}")
+    if stats.shape != (12,) or not np.isfinite(stats).all():
+        _fail("shapes: the mixed pass's stats are not 12 finite numbers")
+    return launches
+
+
+def shapes_path(dev, iters=10):
+    """The main path at the shapes the JAX package runs beyond a batch of two
+    in the landscape bucket (``SHAPE_RUNS``): the flagship at batch 1, 4 and
+    8 and at batch 2 in the portrait bucket 1536 x 768, the 320 MobileNet
+    preset at batch 2, rates on and off, each on seeded batches. For each:
+    (a) the launches of one batch against ``SHAPE_LAUNCHES`` and no plain
+    version on the card; (b) every kernel held to its plain version on the
+    inputs that batch gave it (:func:`_hold_kernels_at`); (c) well-formed
+    finite outputs with a valid row for every image; (d) the heads'
+    readouts against the float32 heads on the same inputs
+    (``bench_torch.cells.heads_gaps``, ``HEAD_TOL``) and the mean spike
+    rates against the float32 route within ``RATE_TOL``; (g) the outputs
+    with the graphed functions' originals patched in equal to the graphed
+    ones; (h) images/s (host clock), the device's busy ms a batch, the peak
+    memory and each kernel's ms. Then (e) from one shared set of flagship
+    backbone levels of a batch of 8, each image's outputs in the batches of
+    4 and 8 against the image alone in a batch of 1, the differing
+    elements counted (none allowed); (f) at batch 4 and 8 with the pairing
+    switch on, K8's readout and spike sums K1's bits on every level and the
+    rates-off outputs the same; (g) the mixed-orientation dataset pass
+    (:func:`_mixed_pass`). Returns the launches of the counted batches."""
+    import torch
+
+    from bench_torch.cells import (HEAD_TOL, RATE_TOL, Taps, float32_config,
+                                   float32_reference, heads_gaps, mean_rates, outputs_equal,
+                                   rates_gap)
+    from snn_automotive_object_detection_tpu_torch.models import detector as detector_mod
+    from snn_automotive_object_detection_tpu_torch.models.factory import (
+        DetectorConfig, init_params, mobilenet_320_preset)
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn as k1
+    from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+
+    detector_apply = detector_mod.detector_apply
+    total = {k: 0 for k in cb.KERNELS}
+
+    def count(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    made = {}
+
+    def model(fields):
+        key = tuple(sorted(fields))
+        if key not in made:
+            extra = mobilenet_320_preset() if fields.get("preset") == "mobilenet_320" else {}
+            cfg = DetectorConfig(num_classes=9, t_rpn=8, t_det=12, **extra)
+            params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+            if cfg.backbone != "resnet50_fpn":      # the gain of eval_path's MobileNet
+                for layer in params["backbone"]["fpn"]["layer"]:
+                    layer["w"].mul_(6.0)
+            made[key] = cfg, params
+        return made[key]
+
+    summary = {}
+    for name, fields, n, portrait in SHAPE_RUNS:
+        t_run = time.perf_counter()
+        cfg, params = model(fields)
+        family = "resnet50_fpn" if cfg.backbone == "resnet50_fpn" else "mobilenet"
+        g = torch.Generator(device=dev).manual_seed(n + 10 * portrait)
+        batches = [_shape_batch(dev, g, n, cfg.bucket, portrait) for _ in range(2)]
+        hw = tuple(batches[0]["images"].shape[1:3])
+        for rates in (True, False):
+            detector_apply(params, batches[0], cfg, collect_rates=rates)    # warm-up
+        # (h), before the checks hold any tensor
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        for i in range(iters):
+            detector_apply(params, batches[i % 2], cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        busy = _busy_ms(lambda: detector_apply(params, batches[0], cfg))
+        # (a), (c)
+        for rates in (True, False):
+            cb.reset_counts()
+            out = detector_apply(params, batches[0], cfg, collect_rates=rates)[0]
+            torch.cuda.synchronize()
+            launches, plain = dict(cb.LAUNCHES), dict(cb.PLAIN_CUDA_CALLS)
+            count(launches)
+            want = {k: SHAPE_LAUNCHES[family].get(k, 0) for k in cb.KERNELS}
+            if launches != want or any(plain.values()):
+                _fail(f"shapes: {name}, rates {'on' if rates else 'off'}: launches {launches}, "
+                      f"plain versions on the card {plain}; want {want}")
+            problems = output_problems(out, cfg, n)
+            if not bool(out["valid"].any(dim=1).all()):
+                problems.append("an image without a valid output row")
+            if problems:
+                _fail(f"shapes: {name}: " + "; ".join(problems))
+            if rates:
+                rated = out
+        # (b)
+        with _KernelInputs() as captured:
+            detector_apply(params, batches[0], cfg, collect_rates=True)
+        kernel_ms = _hold_kernels_at(captured.calls, f"at {name} ({hw[0]} x {hw[1]})")
+        # (d)
+        with Taps() as taps:
+            detector_apply(params, batches[0], cfg, collect_rates=True)
+        with float32_reference():
+            ref = detector_apply(params, batches[0], float32_config(cfg), collect_rates=True)[0]
+        got_rates, want_rates = mean_rates(rated), mean_rates(ref)
+        gaps = {"rates": rates_gap(got_rates, want_rates),
+                **heads_gaps(params, cfg, taps.got)}
+        tols = {"rates": RATE_TOL, **HEAD_TOL.get(cfg.backbone, HEAD_TOL["mobilenet_v3_large_fpn"])}
+        print(f"shapes: {name}: against the float32 route {gaps} (limits {tols})")
+        bad = {k: v for k, v in gaps.items() if k in tols and not v <= tols[k]}
+        if bad:
+            _fail(f"shapes: {name}: the readouts or rates are off the float32 route's: {bad}")
+        # (g) at this shape
+        for rates in (True, False):
+            with eager_functions():
+                eager = detector_apply(params, batches[1], cfg, collect_rates=rates)[0]
+            graphed = detector_apply(params, batches[1], cfg, collect_rates=rates)[0]
+            if not (outputs_equal(eager, graphed) and outputs_equal(graphed, eager)):
+                _fail(f"shapes: {name}: graphed outputs differ from eager ones "
+                      f"({ {k: v for k, v in _differing(eager, graphed).items() if v} })")
+        fg = int((rated["valid"] & (rated["labels"] > 0)).sum())
+        summary[name] = dict(images_per_s=n * iters / dt, ms_per_batch=1e3 * dt / iters,
+                             busy_ms=busy, peak_mem_gib=peak, kernel_ms=kernel_ms)
+        print(f"shapes: {name} ({n} x {hw[0]} x {hw[1]}), rates off: {n * iters / dt:.3f} "
+              f"images/s ({1e3 * dt / iters:.2f} ms a batch, host clock), device busy "
+              f"{busy:.3f} ms a batch, peak memory {peak:.3f} GiB; kernel ms "
+              f"{ {k: round(v, 4) for k, v in kernel_ms.items()} }; {fg} FG detections with "
+              f"rates on; phase time {time.perf_counter() - t_run:.1f} s")
+        del out, rated, ref, taps, captured, eager, graphed, batches
+        torch.cuda.empty_cache()
+
+    # (e) and (f): one shared set of flagship levels of a batch of 8.
+    cfg, params = model({})
+    g = torch.Generator(device=dev).manual_seed(88)
+    batch8 = _shape_batch(dev, g, 8, cfg.bucket, False)
+    with torch.inference_mode():
+        levels = detector_mod.backbone_features(params, batch8["images"], cfg, False)
+
+    def heads_on(rows, rates=True):
+        part = {k: v[rows] for k, v in batch8.items()}
+        real = detector_mod.backbone_features
+        detector_mod.backbone_features = lambda *args, **kw: [f[rows] for f in levels]
+        try:
+            return detector_apply(params, part, cfg, collect_rates=rates)[0]
+        finally:
+            detector_mod.backbone_features = real
+
+    alone = [heads_on(slice(i, i + 1)) for i in range(8)]
+    for n in (4, 8):
+        batch_out = heads_on(slice(0, n))
+        differ = {}
+        for i in range(n):
+            for k, v in _differing(_image_rows(batch_out, slice(i, i + 1), n), alone[i]).items():
+                differ[k] = differ.get(k, 0) + v
+        print(f"shapes: (e) shared levels, each image of a batch of {n} against the image "
+              f"alone: differing elements {differ}")
+        if any(differ.values()):
+            _fail(f"shapes: an image's outputs in a batch of {n} differ from its batch of 1")
+        default = k1.PAIR_IMAGES
+        try:
+            k1.PAIR_IMAGES = False
+            unpaired = heads_on(slice(0, n), rates=False)
+            k1.PAIR_IMAGES = True
+            cb.reset_counts()
+            with _KernelInputs() as captured:
+                paired = heads_on(slice(0, n), rates=False)
+            torch.cuda.synchronize()
+            launches = dict(cb.LAUNCHES)
+        finally:
+            k1.PAIR_IMAGES = default
+        count(launches)
+        if launches["rpn_head_x2"] != 5 or launches["rpn_head"] != 0:
+            _fail(f"shapes: the pairing switch at batch {n} launched {launches}")
+        same = []
+        for (feat, w_shared, w_out, t), _ in captured.calls["rpn_head_x2"]:
+            w9t, wo = k1._taps_t(w_shared), w_out.to(torch.bfloat16).contiguous()
+            pair = k1._launch_x2(feat, w9t, wo, t, True)
+            one = k1._launch(feat, w9t, wo, t, True)
+            same.append(torch.equal(pair[0], one[0]) and torch.equal(pair[1], one[3]))
+        differ = {k: v for k, v in _differing(paired, unpaired).items() if v}
+        print(f"shapes: (f) pairing on at batch {n}: K8 readout and spike sums equal to K1's "
+              f"per level {same}; outputs that differ from pairing off {differ}")
+        if not all(same) or differ:
+            _fail(f"shapes: K8 does not give K1's bits at batch {n}")
+    count(_mixed_pass(dev, params, cfg))
+    return total, summary
+
+
 def reference_numerics():
     """f32 products and convolutions run in full f32, not TF32: the plain
     versions are the references the kernels are held against, and the f32
@@ -3538,6 +4059,7 @@ def main() -> int:
         return _dist_rank(*sys.argv[2:4])
     from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
 
+    t_start = time.perf_counter()
     reference_numerics()
     dev = torch.device("cuda:0")
     print(_smi())
@@ -3568,11 +4090,19 @@ def main() -> int:
                "chain": chain_path(dev),
                "bench": bench_path(dev),
                "graphs": graphs_path(dev)}
+    t_shapes = time.perf_counter()
+    by_path["shapes"], at_shapes = shapes_path(dev)
+    print(f"shapes: phase {time.perf_counter() - t_shapes:.1f} s")
     for r in results:
         r["launches_by_path"] = {k: v[r["name"]] for k, v in by_path.items()}
         r["launches"] = sum(r["launches_by_path"].values())
         if r["launches"] == 0:
             _fail(f"{r['name']} was launched on no path")
+        at = {k: v["kernel_ms"][r["name"]] for k, v in at_shapes.items()
+              if r["name"] in v["kernel_ms"]}
+        if at:
+            r["ms_at_shapes"] = at
+    print(f"chip_smoke: every phase in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,12 @@ import torch
 BF16_REL = 2.0 ** -7
 ATOL = 1e-4
 MAX_DIFFERING = 0.01   # share of elements that may differ at all, see differing()
+# How far an f32 product sum may move with the order, as a share of the sum
+# of its terms' magnitudes (see chain_excess). On a model's own FPN levels
+# (C5: 2048 products whose magnitudes add up to 7600) K5's plain f32 sums
+# came within 2.2e-7 of it of the float64 sum, and the kernel's outputs
+# were as close to float64 as the plain version's (measured on an H100).
+SUM_REL = 2.0 ** -20
 GRAD_REL = 5e-4        # see grad_excess()
 
 
@@ -34,7 +40,7 @@ def bf16_valued(x: torch.Tensor) -> bool:
 
 
 def chain_excess(got: torch.Tensor, want: torch.Tensor, roundings: int,
-                 addends=()) -> float:
+                 addends=(), terms=None) -> float:
     """:func:`excess` for an output that a bf16-rounded product sum reaches
     through bf16 adds (K5's merged map and P, K6's activation).
 
@@ -45,10 +51,15 @@ def chain_excess(got: torch.Tensor, want: torch.Tensor, roundings: int,
     can move the two sides one more ulp of its own result apart, which
     ``roundings`` counts (the sum's own included). The bound per element is
     2^-7 (roundings |want| + sum |addends|) + ATOL; addends broadcast
-    against ``want``."""
+    against ``want``. Where the products are large and cancel to near
+    zero, the f32 sum itself moves with the order by more than ATOL:
+    ``terms``, the sum of the products' magnitudes per element (broadcast
+    against ``want``), adds SUM_REL of itself to the bound."""
     extra = sum((a.float().abs() for a in addends), torch.zeros((), device=want.device))
-    return excess(got.float(), want.float(), atol=ATOL + BF16_REL * extra,
-                  rtol=roundings * BF16_REL)
+    atol = ATOL + BF16_REL * extra
+    if terms is not None:
+        atol = atol + SUM_REL * terms.float()
+    return excess(got.float(), want.float(), atol=atol, rtol=roundings * BF16_REL)
 
 
 def differing(got: torch.Tensor, want: torch.Tensor) -> int:

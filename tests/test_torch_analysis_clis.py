@@ -29,7 +29,6 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -41,16 +40,7 @@ from snn_automotive_object_detection_tpu_torch.cli import train as t_cli
 from snn_automotive_object_detection_tpu_torch.ops.anchors import fpn_feature_shapes
 
 from tests.mini_dataset import make_mini_env
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads: the suite runs these files in parallel
-    workers, where more threads a process only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

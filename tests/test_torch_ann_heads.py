@@ -67,16 +67,8 @@ from snn_automotive_object_detection_tpu_torch.utils.weights import (
 )
 
 from tests.test_torch_train_losses import roi_draws, rpn_draws
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads: the suite runs these files in parallel
-    workers, where more threads a process only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 IMG, N, T = (64, 128), 2, 4
 MEAN, STD = (0.2869, 0.3251, 0.2839), (0.1870, 0.1902, 0.1872)

@@ -42,6 +42,7 @@ from snn_automotive_object_detection_tpu_torch.ops import cuda_fpn, cuda_stem
 from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
 from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
 from snn_automotive_object_detection_tpu_torch.utils.weights import from_numpy_tree
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 MEAN, STD = (0.2869, 0.3251, 0.2839), (0.1870, 0.1902, 0.1872)
 IMG = (64, 256)

@@ -48,6 +48,7 @@ from bench_torch.cells import (
 from snn_automotive_object_detection_tpu_torch.models.factory import DetectorConfig
 from snn_automotive_object_detection_tpu_torch.models.rpn import RPNConfig
 from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 CELLS = ("mnv3_eval_b2", "r50_dataset_eval_b2", "r50_eval_b2", "r50_rates_b2",
@@ -64,15 +65,6 @@ SMALL = {"min_size": 64, "max_size": 128, "t_rpn": 8, "t_det": 12,
                  "batch_size_per_image": 64},
          "roi": {"batch_size_per_image": 32}, "image_hw": (128, 256)}
 SMALL_TRAIN = {**SMALL, "t_det": 4}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads: the suite runs its files in parallel workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_cell_files_load():

@@ -36,6 +36,7 @@ from snn_automotive_object_detection_tpu_torch.snn import cuda_fc6, cuda_tail
 from snn_automotive_object_detection_tpu_torch.snn.cuda_fc6 import encoder_fc6
 from snn_automotive_object_detection_tpu_torch.snn.cuda_tail import box_tail
 from snn_automotive_object_detection_tpu_torch.utils.weights import from_numpy_tree
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -37,6 +37,7 @@ from snn_automotive_object_detection_tpu_torch.snn import cuda_kernels as k9
 from snn_automotive_object_detection_tpu_torch.snn import functional as snnf
 from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
 from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 R, K, H, CLASSES = 160, 12544, 64, 6
 WEIGHTS = ("fc6", "fc7", "cls_score", "bbox_pred")

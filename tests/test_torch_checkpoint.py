@@ -31,6 +31,7 @@ from snn_automotive_object_detection_tpu_torch.utils.weights import (
     tree_leaves,
 )
 from tests.test_checkpoint import _ann_head_state_dict
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 
 def _mirror_sd(backbone, num_classes=5, only_one_bbox=False, seed=0):

@@ -44,16 +44,7 @@ from snn_automotive_object_detection_tpu_torch.cli import train as t_cli
 from tests.mini_dataset import make_mini_env
 from tests.test_checkpoint import _ann_head_state_dict
 from tests.test_torch_checkpoint import _mirror_sd
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads: the suite runs these files in parallel
-    workers, where more threads a process only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

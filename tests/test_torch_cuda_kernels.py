@@ -116,7 +116,9 @@ def _hold_rpn_eval(got, want, w_out):
 @pytest.mark.parametrize("n,h,w,t,n_out", [(2, 3, 45, 8, 15), (2, 2, 7, 4, 15),
                                            (1, 5, 64, 12, 15), (1, 3, 21, 1, 75),
                                            (2, 2, 33, 32, 128), (1, 4, 17, 8, 75),
-                                           (2, 3, 50, 12, 128)])
+                                           (2, 3, 50, 12, 128),
+                                           # P2 of the portrait bucket, of a batch of 8
+                                           (2, 384, 192, 8, 15), (8, 192, 384, 8, 15)])
 def test_rpn_head_kernel_matches_plain(dev, n, h, w, t, n_out):
     g = torch.Generator(device=dev).manual_seed(n * h * w + t + n_out)
     feat = (torch.rand((n, h, w, 256), generator=g, device=dev) * 2).to(BF)
@@ -240,18 +242,22 @@ def _hold_roi_align(feats, boxes, size):
 # float32 below, and the neighbouring widths between which the mapper on
 # this device moves a level), two levels of one stride (the MobileNet
 # route: every box on the first), one RoI and 1000 RoIs per image.
-@pytest.mark.parametrize("case", ["level_borders", "same_stride", "one_roi", "r1000"])
+@pytest.mark.parametrize("case", ["level_borders", "same_stride", "one_roi", "r1000",
+                                  "portrait", "batch8"])
 def test_roi_align_kernel_cases(dev, case):
+    """``portrait``: 2 x 1000 boxes over the levels of the 1536 x 768
+    bucket; ``batch8``: 8 x 1000 boxes over the flagship's levels."""
     from snn_automotive_object_detection_tpu_torch.ops.roi_align import assign_fpn_levels
 
     g = torch.Generator(device=dev).manual_seed(len(case))
-    size = (512, 1024)
-    shapes = [(128, 256), (64, 128), (32, 64), (16, 32)]
+    size = {"portrait": (1536, 768), "batch8": (768, 1536)}.get(case, (512, 1024))
+    shapes = [(size[0] // s, size[1] // s) for s in (4, 8, 16, 32)]
     if case == "same_stride":
         shapes = [(16, 32), (16, 32)]
-    feats = [torch.randn((2, a, b, 256), generator=g, device=dev).to(BF) for a, b in shapes]
-    r = {"one_roi": 1, "r1000": 1000}.get(case, 40)
-    boxes = _roi_boxes(g, dev, 2, r, size, 2.0, 500.0)
+    n = 8 if case == "batch8" else 2
+    feats = [torch.randn((n, a, b, 256), generator=g, device=dev).to(BF) for a, b in shapes]
+    r = {"one_roi": 1, "r1000": 1000, "portrait": 1000, "batch8": 1000}.get(case, 40)
+    boxes = _roi_boxes(g, dev, n, r, size, 2.0, 500.0)
     if case == "level_borders":
         border = kc.level_border_boxes(lambda b: assign_fpn_levels(b, 4), dev)
         boxes[0, :border.shape[0]] = border
@@ -278,7 +284,8 @@ def test_roi_align_kernel_refuses_channels_not_a_multiple_of_8(dev):
                                        (16, 512, 128, 10), (17, 512, 256, 12),
                                        (48, 512, 128, 16), (2000, 512, 128, 12),
                                        (40, 12544, 1024, 12), (150, 512, 128, 20),
-                                       (17, 512, 256, 32), (40, 12544, 1024, 32)])
+                                       (17, 512, 256, 32), (40, 12544, 1024, 32),
+                                       (8000, 12544, 1024, 12)])   # a batch of 8
 def test_encoder_fc6_kernel_matches_plain(dev, r, d, rep, t):
     g = torch.Generator(device=dev).manual_seed(r + t + d)
     x = (torch.rand((r, d), generator=g, device=dev) * 2.5).to(BF)
@@ -297,7 +304,8 @@ def test_encoder_fc6_kernel_matches_plain(dev, r, d, rep, t):
 @pytest.mark.parametrize("r,t,n_cls", [(203, 12, 9), (8, 10, 9), (3, 8, 9), (1, 1, 9),
                                        (15, 4, 9), (16, 10, 9), (17, 12, 9), (48, 16, 9),
                                        (2000, 12, 9), (33, 12, 16), (203, 20, 9),
-                                       (17, 32, 9), (2000, 32, 9), (33, 17, 16)])
+                                       (17, 32, 9), (2000, 32, 9), (33, 17, 16),
+                                       (8000, 12, 9)])   # a batch of 8
 def test_box_tail_kernel_matches_plain(dev, r, t, n_cls):
     g = torch.Generator(device=dev).manual_seed(r * t + n_cls)
     scale = 0.15 if t >= 8 else 2.0
@@ -320,6 +328,9 @@ def test_box_tail_kernel_matches_plain(dev, r, t, n_cls):
     (2, [(24, 48), (12, 24), (6, 12), (3, 6)], (256, 512, 1024, 2048)),   # exact pyramid
     (1, [(17, 33), (9, 17), (5, 9), (3, 5)], (32, 64, 96, 160)),   # Cin below the ring's depth
     (2, [(192, 384), (96, 192), (48, 96), (24, 48)], (256, 512, 1024, 2048)),   # flagship
+    # the portrait bucket (C5 24 wide: a ragged 16-column tile), a batch of 8
+    (2, [(384, 192), (192, 96), (96, 48), (48, 24)], (256, 512, 1024, 2048)),
+    (8, [(192, 384), (96, 192), (48, 96), (24, 48)], (256, 512, 1024, 2048)),
 ])
 def test_fpn_level_kernel_matches_plain(dev, n, shapes, cins):
     """Each level through the entry point (the tile the level's shape
@@ -357,7 +368,8 @@ def test_fpn_level_kernel_matches_plain(dev, n, shapes, cins):
 
 
 @pytest.mark.parametrize("n,h,w", [(1, 68, 132), (3, 36, 76), (2, 64, 256), (1, 4, 4),
-                                   (3, 100, 200), (2, 768, 1536)])
+                                   (3, 100, 200), (2, 768, 1536), (2, 1536, 768),
+                                   (8, 768, 1536)])
 def test_stem_kernel_matches_plain(dev, n, h, w):
     """H and W multiples of 4 but not of 8 or 256; bucket-padding zeros;
     last tiles of 8 x 16 pooled pixels cut in both directions (68 x 132,
@@ -639,7 +651,9 @@ def test_rpn_head_x2_kernel_matches_rpn_head_and_plain(dev, n, h, w, t, n_out):
 @pytest.mark.parametrize("levels,n,n_out", [
     ([(192, 384), (96, 192), (48, 96), (24, 48), (12, 24)], 2, 15),
     ([(24, 48), (24, 48), (12, 24)], 2, 75),
-    ([(48, 96)], 4, 15)])
+    ([(48, 96)], 4, 15),
+    ([(192, 384), (96, 192), (48, 96), (24, 48), (12, 24)], 8, 15),    # a batch of 8
+    ([(384, 192), (24, 12)], 2, 15)])                                    # portrait P2, P6
 def test_rpn_head_x2_equals_rpn_head_bit_for_bit(dev, levels, n, n_out):
     g = torch.Generator(device=dev).manual_seed(len(levels) + n + n_out)
     w_shared = torch.randn((3, 3, 256, 256), generator=g, device=dev) * 0.01

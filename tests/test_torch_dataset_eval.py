@@ -46,9 +46,10 @@ from snn_automotive_object_detection_tpu_torch.utils.config import load_dataset_
 from snn_automotive_object_detection_tpu_torch.utils.weights import from_numpy_tree
 from tests.mini_dataset import make_mini_env
 from tests.test_torch_detector_e2e import MEAN, STD, _scaled_params
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 BUCKET = (64, 128)
-BATCH = 4           # one detector call per stack: each JAX compile costs 25 s
+BATCH = 4           # one detector call per stack, the JAX one jitted
 KEYS = ("boxes", "scores", "labels", "valid")
 
 
@@ -94,11 +95,11 @@ def stats(tmp_path_factory):
     # The JAX pipeline's detections; the ground truth is then placed on
     # some of them.
     jdets = {}
+    j_eval = jax.jit(lambda p, b: j_apply(p, b, jcfg, training=False)[0])
     for b in JLoader(JCoco(cfg["images_dir"], cfg["ann_file_val"]), BATCH, BUCKET, **kw):
-        det = jax.tree.map(np.asarray, j_apply(
+        det = jax.tree.map(np.asarray, j_eval(
             jparams, {k: jnp.asarray(b[k]) for k in ("images", "image_sizes",
-                                                     "original_sizes")},
-            jcfg, training=False)[0])
+                                                     "original_sizes")}))
         jdets.update({int(b["image_ids"][i]): {k: det[k][i] for k in KEYS}
                       for i in range(BATCH) if b["pad_mask"][i]})
     with open(cfg["ann_file_val"]) as f:

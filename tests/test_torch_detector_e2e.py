@@ -37,8 +37,6 @@ import pytest
 import torch
 
 from snn_automotive_object_detection_tpu.models.detector import detector_apply as j_apply
-from snn_automotive_object_detection_tpu.models import resnet_fpn as j_resnet
-from snn_automotive_object_detection_tpu.models import transform as j_transform
 from snn_automotive_object_detection_tpu.models.factory import DetectorConfig as JConfig
 from snn_automotive_object_detection_tpu.models.factory import init_params as j_init
 from snn_automotive_object_detection_tpu.models.roi_heads import RoIConfig as JRoI
@@ -106,25 +104,46 @@ def _run_both():
     sizes = np.asarray([IMG] * N_IMAGES, np.int32)
     orig = np.asarray([[256, 512]] * N_IMAGES, np.int32)
     jparams = jax.tree.map(jnp.asarray, params)
-    jdet, _ = j_apply(jparams,
-                      {"images": jnp.asarray(images), "image_sizes": jnp.asarray(sizes),
-                       "original_sizes": jnp.asarray(orig)},
-                      jcfg, training=False, collect_rates=True)
-    jdet = jax.tree.map(np.asarray, jdet)
+    jbatch = {"images": jnp.asarray(images), "image_sizes": jnp.asarray(sizes),
+              "original_sizes": jnp.asarray(orig)}
+    jdet = jax.tree.map(np.asarray, _jax_eval(jparams, jbatch, jcfg))
     tparams = from_numpy_tree(params, device="cpu")
     tbatch = {"images": torch.from_numpy(images), "image_sizes": torch.from_numpy(sizes),
               "original_sizes": torch.from_numpy(orig)}
     tdet, _ = detector_apply(tparams, tbatch, tcfg, collect_rates=True)
 
     # The same port run on the JAX backbone's features.
-    jfeats = j_resnet.resnet50_fpn_apply(
-        jparams["backbone"], j_transform.normalize_images(jnp.asarray(images), MEAN, STD),
-        jnp.float32)
-    tfeats = [torch.from_numpy(np.array(f)) for f in jfeats]
+    tfeats = [torch.from_numpy(np.array(f)) for f in jdet.pop("features")]
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(t_detector, "resnet50_fpn_apply", lambda *args: tfeats)
         tdet_shared, _ = detector_apply(tparams, tbatch, tcfg, collect_rates=True)
     return jdet, _to_numpy(tdet), _to_numpy(tdet_shared)
+
+
+def _jax_eval(jparams, jbatch, jcfg, module=None, name="resnet50_fpn_apply"):
+    """The JAX package's ``detector_apply`` eval with rates under one
+    ``jax.jit`` (one XLA compile, where op by op XLA compiles some 650
+    small programs), with the levels its backbone gave among the outputs
+    as "features". ``module.name`` is the backbone function the JAX detector
+    looks up (its own module's ``resnet50_fpn_apply`` by default)."""
+    from snn_automotive_object_detection_tpu.models import detector as j_detector
+
+    module = j_detector if module is None else module
+    real = getattr(module, name)
+
+    def run(p, b):
+        feats = []
+
+        def backbone(*args, **kw):
+            feats.extend(real(*args, **kw))
+            return list(feats)
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(module, name, backbone)
+            det, _ = j_apply(p, b, jcfg, training=False, collect_rates=True)
+        return {**det, "features": feats}
+
+    return jax.jit(run)(jparams, jbatch)
 
 
 def _to_numpy(tree):

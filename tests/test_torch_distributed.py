@@ -46,6 +46,7 @@ from snn_automotive_object_detection_tpu_torch.parallel.dryrun import (
     dryrun_multiprocess,
     run_ranks,
 )
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 MODULE = "tests.test_torch_distributed"
 LOSSES = ("loss_objectness", "loss_rpn_box_reg", "loss_classifier", "loss_box_reg")
@@ -228,14 +229,6 @@ def _rank_main(mode, tmp):
 # ------------------------------------------------------------------ tests
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 def test_collectives_logger_loader_and_checkpoint_on_two_ranks(tmp_path):
     _spawn("basics", tmp_path)
 
@@ -258,9 +251,10 @@ def steps(tmp_path_factory):
     from snn_automotive_object_detection_tpu.train import optim as j_optim
     from snn_automotive_object_detection_tpu_torch.utils.weights import flatten_tree
     from tests import test_torch_train_step as ts
-    from tests.test_torch_detector_e2e import IMG, MEAN, STD, T_STEPS, _scaled_params
+    from tests.test_torch_detector_e2e import MEAN, STD, T_STEPS, _scaled_params
     from tests.test_torch_train_losses import roi_draws, rpn_draws
 
+    IMG = ts.IMG
     tmp = tmp_path_factory.mktemp("steps")
     spec = dict(t=T_STEPS, img=list(IMG), mean=MEAN, std=STD, num_classes=5, rpn=ts.RPN_KW,
                 roi=ts.ROI_KW, lr=ts.LR, levels=5)

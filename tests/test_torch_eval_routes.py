@@ -18,6 +18,7 @@ from snn_automotive_object_detection_tpu_torch.models.factory import DetectorCon
 from snn_automotive_object_detection_tpu_torch.models.rpn import RPNConfig
 from snn_automotive_object_detection_tpu_torch.ops import cuda_fpn
 from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 N = 2
 

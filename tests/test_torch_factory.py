@@ -28,16 +28,8 @@ import torch
 from snn_automotive_object_detection_tpu.models import factory as j_factory
 from snn_automotive_object_detection_tpu_torch.models import factory as t_factory
 from snn_automotive_object_detection_tpu_torch.utils.weights import flatten_tree
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads: the suite runs these files in parallel
-    workers, where more threads a process only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 YAML = {"RPN": {"rpn_pre_nms_top_n_test": 500, "rpn_post_nms_top_n_train": 1000,
                 "rpn_nms_thresh": 0.6, "rpn_score_thresh": 0.01,

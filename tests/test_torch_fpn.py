@@ -32,6 +32,7 @@ from snn_automotive_object_detection_tpu.ops.pallas_fpn import (
 from snn_automotive_object_detection_tpu_torch.ops import cuda_fpn
 from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
 from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 CINS = (256, 512, 1024, 2048)
 

@@ -12,6 +12,7 @@ import torch
 
 from snn_automotive_object_detection_tpu.snn import functional as jf
 from snn_automotive_object_detection_tpu_torch.snn import functional as tf
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 
 def _t(a):

@@ -19,7 +19,9 @@ outputs, so that a stale static input fails; a returned tensor is not
 overwritten by the next call; ``filter_proposals`` captures its own
 ``nms_mask`` call; replays of the five leave the launch counters as they
 are, and a replay adds back what a captured kernel counted; a host read in
-a wrapped function raises at capture. The module imports no JAX:
+a wrapped function raises at capture; a landscape and a portrait batch of
+the detector leave each function one graph per distinct key, at most one
+per bucket, and replay to the eager originals' bits. The module imports no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_graphs.py
 
@@ -343,3 +345,50 @@ def test_host_read_raises_at_capture(dev):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "raised:" in out.stdout, out.stdout
+
+
+@pytest.mark.cuda
+def test_two_buckets_graph_count_on_card(dev, monkeypatch):
+    """A landscape and a portrait batch of one configuration, twice each,
+    through ``detector_apply``: every graphed function holds one graph per
+    distinct key it was called with and at most one per bucket (no key
+    varies from batch to batch), and every batch's outputs are the eager
+    originals' bits."""
+    from snn_automotive_object_detection_tpu_torch.models.detector import detector_apply
+    from snn_automotive_object_detection_tpu_torch.models.factory import (
+        DetectorConfig, init_params)
+    from snn_automotive_object_detection_tpu_torch.utils import graphs as graphs_mod
+
+    cfg = DetectorConfig(num_classes=9, t_rpn=8, t_det=12, min_size=128, max_size=256)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    graphed_fns = {(rpn_mod, "filter_proposals"), (nms_ops, "nms_mask"),
+                   (nms_ops, "_pruned_keep"), (roi_mod, "_postproc_groups"),
+                   (roi_mod, "_postproc_outputs")}
+    for mod, name in graphed_fns:
+        getattr(mod, name).graphs.clear()
+    keys = {name: set() for _, name in graphed_fns}
+    real_key = graphs_mod.graph_key
+
+    def recorded(fn, args, kwargs):
+        key, tensors = real_key(fn, args, kwargs)
+        keys[fn.__name__].add(key)
+        return key, tensors
+
+    monkeypatch.setattr(graphs_mod, "graph_key", recorded)
+    g = torch.Generator(device=dev).manual_seed(1)
+    batches = []
+    for h, w in ((128, 256), (256, 128)) * 2:
+        batches.append({"images": torch.rand((2, h, w, 3), generator=g, device=dev),
+                        "image_sizes": torch.tensor([[h, w]] * 2, device=dev),
+                        "original_sizes": torch.tensor([[2 * h, 2 * w]] * 2, device=dev)})
+    outs = [detector_apply(params, b, cfg)[0] for b in batches]
+    counts = {name: len(getattr(mod, name).graphs) for mod, name in graphed_fns}
+    assert counts == {name: len(k) for name, k in keys.items()}
+    assert all(1 <= c <= 2 for c in counts.values()), counts
+    for mod, name in graphed_fns:
+        monkeypatch.setattr(mod, name, getattr(mod, name).__wrapped__)
+    for b, out in zip(batches, outs):
+        eager = detector_apply(params, b, cfg)[0]
+        assert sorted(eager) == sorted(out)
+        for k, v in eager.items():
+            assert torch.equal(v, out[k]), k

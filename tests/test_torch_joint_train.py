@@ -64,15 +64,8 @@ from snn_automotive_object_detection_tpu_torch.utils.weights import (
 )
 
 from tests.test_torch_detector_e2e import MEAN, STD, _scale
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads: the suite runs its files in parallel workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 IMG, T, N = (64, 128), 3, 2
 GRAD_REL = 1e-4

@@ -1,6 +1,7 @@
 """The bounds that hold the CUDA kernels against their plain versions
 (utils/kernel_checks.py): one bf16 ulp passes, the faults they are meant
-to catch do not. Exact checks on seeded values; no tolerance of their own.
+to catch do not, and the sum of terms' magnitudes widens the chain bound
+by SUM_REL of it only. Exact checks on seeded values; no tolerance of their own.
 """
 
 import numpy as np
@@ -38,3 +39,15 @@ def test_bound_catches_faults(fault):
     else:                        # the f32 sum not rounded to bf16
         got = want + want * 2.0 ** -10
         assert not kc.bf16_valued(got)
+
+
+def test_chain_excess_counts_the_sum_of_terms():
+    """Sums near zero of large products: a move of the f32 sum with the
+    order, 2^-21 of the terms' magnitudes, passes only with ``terms``; a
+    missing term of 1% of them fails with it."""
+    want = torch.zeros(64)
+    terms = torch.full((64,), 7600.0)
+    moved = want + 2.0 ** -21 * terms
+    assert kc.chain_excess(moved, want, 2) > 1
+    assert kc.chain_excess(moved, want, 2, terms=terms) <= 1
+    assert kc.chain_excess(want + 0.01 * terms, want, 2, terms=terms) > 1

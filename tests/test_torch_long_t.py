@@ -40,6 +40,7 @@ from snn_automotive_object_detection_tpu_torch.models.factory import DetectorCon
 from snn_automotive_object_detection_tpu_torch.snn import cuda_fc6, cuda_tail
 from snn_automotive_object_detection_tpu_torch.snn import cuda_kernels as k9
 from snn_automotive_object_detection_tpu_torch.snn import functional as snnf
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 LONG_T = (20, 32)
 # K9 takes any T: three code planes at 40.

@@ -33,7 +33,6 @@ import torch
 
 from snn_automotive_object_detection_tpu.models import factory as j_factory
 from snn_automotive_object_detection_tpu.models import mobilenet_fpn as j_mobilenet
-from snn_automotive_object_detection_tpu.models import transform as j_transform
 from snn_automotive_object_detection_tpu.models.detector import detector_apply as j_apply
 from snn_automotive_object_detection_tpu.models.roi_heads import RoIConfig as JRoI
 from snn_automotive_object_detection_tpu.models.rpn import RPNConfig as JRPN
@@ -56,8 +55,9 @@ from snn_automotive_object_detection_tpu_torch.utils.weights import (
     to_numpy_tree,
 )
 
-from tests.test_torch_detector_e2e import IMG, MEAN, STD, T_STEPS, _scaled_params
+from tests.test_torch_detector_e2e import IMG, MEAN, STD, T_STEPS, _jax_eval, _scaled_params
 from tests.test_torch_train_losses import roi_draws, rpn_draws
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 MOBILE = "mobilenet_v3_large_fpn"
 LOSSES = ("loss_objectness", "loss_rpn_box_reg", "loss_classifier", "loss_box_reg")
@@ -103,7 +103,9 @@ def test_mobilenet_anchors_and_config_rules_equal_the_jax_package():
         t_factory.DetectorConfig(backbone="mobilenet_v2")
 
 
-def test_320_preset_equals_create_model():
+def test_320_preset_equals_create_model(monkeypatch):
+    # Only the config is compared: the JAX draws of the weights are stubbed.
+    monkeypatch.setattr(j_factory, "init_params", lambda *args, **kw: None)
     jcfg, _ = j_factory.create_model("cityscapes", 9, True, True,
                                      backbone="mobilenet_v3_large_320_fpn")
     tcfg = t_factory.DetectorConfig(**t_factory.mobilenet_320_preset())
@@ -168,8 +170,8 @@ def test_mobilenet_ops_match(backbone_params):
 def test_mobilenet_v3_fpn_apply_matches_f32(backbone_params):
     rng = np.random.default_rng(2)
     x = rng.normal(0, 1, (2, 128, 256, 3)).astype(np.float32)
-    want = j_mobilenet.mobilenet_v3_fpn_apply(jax.tree.map(jnp.asarray, backbone_params),
-                                              jnp.asarray(x), jnp.float32)
+    want = jax.jit(lambda p, x: j_mobilenet.mobilenet_v3_fpn_apply(p, x, jnp.float32))(
+        jax.tree.map(jnp.asarray, backbone_params), jnp.asarray(x))
     got = t_mobilenet.mobilenet_v3_fpn_apply(from_numpy_tree(backbone_params, device="cpu"),
                                              torch.from_numpy(x), torch.float32)
     assert [tuple(g.shape) for g in got] == [(2, 4, 8, 256), (2, 4, 8, 256), (2, 2, 4, 256)]
@@ -192,8 +194,8 @@ def test_roi_align_over_two_levels_of_one_stride():
     want_levels = j_assign_fpn_levels(jnp.asarray(boxes), 2, k_min=5, k_max=5)
     assert scales == [1 / 32, 1 / 32] and int(levels.abs().sum()) == 0
     np.testing.assert_array_equal(levels.numpy(), np.asarray(want_levels))
-    want = j_multiscale_roi_align([jnp.asarray(f) for f in feats],
-                                            jnp.asarray(boxes), IMG)
+    want = jax.jit(lambda f, b: j_multiscale_roi_align(f, b, IMG))(
+        [jnp.asarray(f) for f in feats], jnp.asarray(boxes))
     got = t_roi_align.multiscale_roi_align(tf, torch.from_numpy(boxes), IMG)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
@@ -247,15 +249,13 @@ def both():
                                             [True, True, False, False]])}}
     jparams = jax.tree.map(jnp.asarray, params)
     jbatch = jax.tree.map(jnp.asarray, batch)
-    jfeats = j_mobilenet.mobilenet_v3_fpn_apply(
-        jparams["backbone"], j_transform.normalize_images(jbatch["images"], MEAN, STD),
-        jnp.float32)
+    jdet = _jax_eval(jparams, jbatch, jcfg, j_mobilenet, "mobilenet_v3_fpn_apply")
+    jfeats = jdet.pop("features")
     tfeats = [torch.from_numpy(np.array(f)) for f in jfeats]
     tparams = from_numpy_tree(params, device="cpu")
     tbatch = {k: ({kk: torch.from_numpy(vv) for kk, vv in v.items()} if isinstance(v, dict)
                   else torch.from_numpy(v)) for k, v in batch.items()}
 
-    jdet, _ = j_apply(jparams, jbatch, jcfg, training=False, collect_rates=True)
     key = jax.random.PRNGKey(11)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(j_mobilenet, "mobilenet_v3_fpn_apply", lambda *a, **kw: list(jfeats))

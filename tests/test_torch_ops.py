@@ -19,6 +19,7 @@ from snn_automotive_object_detection_tpu_torch.models.rpn import select_pre_nms
 from snn_automotive_object_detection_tpu_torch.ops import anchors as tanc
 from snn_automotive_object_detection_tpu_torch.ops import boxes as tbox
 from snn_automotive_object_detection_tpu_torch.ops import nms as tnms
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 
 def _boxes(rng, n, spread=200.0, size=(10, 80)):

@@ -49,6 +49,7 @@ from snn_automotive_object_detection_tpu_torch.utils import checkpoint, config
 from chip_smoke import apply_mirror_gains
 from tests.mini_dataset import make_mini_env
 from tests.test_torch_checkpoint import _mirror_sd
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "snn_automotive_object_detection_tpu_torch"
@@ -56,14 +57,6 @@ PKG = ROOT / "snn_automotive_object_detection_tpu_torch"
 # JAX harness's (float32 ulps flip a few spikes) and its bf16 means 7.82e-4
 # from its fp32 ones (both read on the CPU): the limit lies between the two.
 RATE_GAP_FP32 = 2e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_configs_are_the_ports_own_and_need_no_yaml(monkeypatch):

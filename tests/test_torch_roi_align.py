@@ -22,6 +22,7 @@ from snn_automotive_object_detection_tpu.ops.roi_align import (
     multiscale_roi_align as j_align,
 )
 from snn_automotive_object_detection_tpu_torch.ops.cuda_roi_align import roi_align
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 SHAPES = [(32, 48), (16, 24), (8, 12), (4, 6)]
 SIZE = (128, 192)

@@ -25,6 +25,7 @@ from snn_automotive_object_detection_tpu.snn.pallas_rpn import rpn_head_snn_pall
 from snn_automotive_object_detection_tpu_torch.models import heads as theads
 from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn
 from snn_automotive_object_detection_tpu_torch.utils.weights import from_numpy_tree
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 SHAPES = [(10, 18), (5, 9)]
 T = 8

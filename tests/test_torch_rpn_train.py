@@ -38,6 +38,7 @@ from snn_automotive_object_detection_tpu.snn import pallas_rpn as jk
 from snn_automotive_object_detection_tpu_torch.models import heads as theads
 from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn
 from snn_automotive_object_detection_tpu_torch.utils.weights import from_numpy_tree
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 H = 3
 # (width, steps, anchors per location): 15 and 75 readout channels.

@@ -35,6 +35,7 @@ from snn_automotive_object_detection_tpu.snn import pallas_rpn as jk
 from snn_automotive_object_detection_tpu_torch.models import heads as theads
 from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn
 from snn_automotive_object_detection_tpu_torch.utils.weights import from_numpy_tree
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 SHAPES = [(10, 18), (5, 9)]
 T = 8

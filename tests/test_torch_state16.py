@@ -40,16 +40,8 @@ from snn_automotive_object_detection_tpu_torch.models import heads as theads
 from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn
 from snn_automotive_object_detection_tpu_torch.snn import functional as snnf
 from snn_automotive_object_detection_tpu_torch.utils.weights import from_numpy_tree
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads: the suite runs these files in parallel
-    workers, where more threads a process only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 T = 8
 SHAPE = (2, 10, 18, 256)

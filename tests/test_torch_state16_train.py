@@ -50,22 +50,13 @@ from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn
 from snn_automotive_object_detection_tpu_torch.train import optim as t_optim
 from snn_automotive_object_detection_tpu_torch.train.steps import make_train_step
 from snn_automotive_object_detection_tpu_torch.utils.weights import from_numpy_tree
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 BF = torch.bfloat16
 H = 3
 # (width, steps, anchors per location): 15 and 75 readout channels.
 CASES = [(13, 4, 3), (40, 8, 15), (13, 8, 15), (40, 4, 3)]
 NO_EXCESS = {"xla_allow_excess_precision": False}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads: the suite runs these files in parallel
-    workers, where more threads a process only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _setup(w, anchors, seed=0):

@@ -19,6 +19,9 @@ the port takes the same numpy image as NHWC. Tolerances:
     the 147 terms it sums.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +32,7 @@ from snn_automotive_object_detection_tpu_torch.models import resnet_fpn, transfo
 from snn_automotive_object_detection_tpu_torch.ops import cuda_stem
 from snn_automotive_object_detection_tpu_torch.utils import cuda_build as cb
 from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 MEAN = (0.2869, 0.3251, 0.2839)
 STD = (0.1870, 0.1902, 0.1872)
@@ -41,12 +45,18 @@ def _stem_params(seed):
                    "bias": rng.normal(0, 0.2, 64).astype(np.float32)}}
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_stem_fn(dtype):
+    """The Pallas stem in interpret mode under one ``jax.jit`` per state
+    dtype: the image cases of one shape share its compile."""
+    return jax.jit(lambda jp, x: jstem.stem_pallas_apply(
+        jp, jstem.planarize_image(x, MEAN), MEAN, STD, state_dtype=dtype, interpret=True))
+
+
 def _jax_stem(params, x, dtype):
     jp = {"w": jnp.asarray(params["w"]),
           "bn": {k: jnp.asarray(v) for k, v in params["bn"].items()}}
-    out = jstem.stem_pallas_apply(jp, jstem.planarize_image(jnp.asarray(x), MEAN),
-                                  MEAN, STD, state_dtype=dtype, interpret=True)
-    return np.asarray(out, np.float32)
+    return np.asarray(_jax_stem_fn(dtype)(jp, jnp.asarray(x)), np.float32)
 
 
 def _torch_params(params):

@@ -9,12 +9,15 @@
     key splits, remade here) gives the JAX image within 1e-6 and its boxes
     within 1e-6 relative (XLA may fuse a product and a sum into one
     rounding), labels and validity exactly.
-  * ``make_bench_weights`` for 2 steps at a 64 x 128 bucket, held-out
+  * ``make_bench_weights`` for 2 steps at a 64 x 128 bucket (RPN budgets
+    200 in training and 100 in evaluation, 64 RoIs an image), held-out
     evaluation on 2 images: finite losses (it raises otherwise), 12 finite
     stats, the ``.partial`` file gone after the final save, and the same
     detections from the weights read back from its ``.pth``, whose
     ``--eval-only --load`` gives the same stats.
 """
+
+import dataclasses
 
 import numpy as np
 import jax
@@ -30,14 +33,7 @@ from snn_automotive_object_detection_tpu_torch.utils.checkpoint import (
     load_weights_lenient,
 )
 from tools.synth_shapes import NUM_SHAPE_CLASSES, synth_image
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 
 def test_synth_batch_properties():
@@ -105,7 +101,14 @@ def test_paint_on_the_jax_draws_gives_the_jax_image(seed):
 
 
 def test_make_bench_weights_two_steps_on_the_cpu(tmp_path):
-    config = mbw.bench_config(min_size=64, max_size=128)
+    # The flagship's heads at the small bucket, with a tenth of its RPN and
+    # RoI budgets: the box head runs on 200 rows a batch, not 2000.
+    flagship = mbw.bench_config()
+    config = mbw.bench_config(
+        min_size=64, max_size=128,
+        rpn=dataclasses.replace(flagship.rpn, pre_nms_top_n_train=200, post_nms_top_n_train=200,
+                                pre_nms_top_n_test=100, post_nms_top_n_test=100),
+        roi=dataclasses.replace(flagship.roi, batch_size_per_image=64))
     out = tmp_path / "w.pth"
     argv = ["--out", str(out), "--steps", "2", "--eval-images", "2", "--save-every", "1",
             "--device", "cpu"]

@@ -27,6 +27,7 @@ from snn_automotive_object_detection_tpu_torch.models import roi_heads as t_roi
 from snn_automotive_object_detection_tpu_torch.models import rpn as t_rpn
 
 from tests.test_torch_train_ops import jax_sampler_draws
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 IMG = (128, 256)
 

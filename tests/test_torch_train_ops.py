@@ -29,6 +29,7 @@ from snn_automotive_object_detection_tpu_torch.ops import boxes as t_boxes
 from snn_automotive_object_detection_tpu_torch.ops import matcher as t_matcher
 from snn_automotive_object_detection_tpu_torch.ops import sampler as t_sampler
 from snn_automotive_object_detection_tpu_torch.snn import functional as t_snnf
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 
 def _boxes(rng, n, size=200.0):

@@ -27,6 +27,7 @@ from snn_automotive_object_detection_tpu_torch.utils.weights import (
     to_numpy_tree,
     tree_leaves,
 )
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 SCHEDULES = [
     dict(),

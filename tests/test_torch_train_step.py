@@ -1,9 +1,11 @@
 """Port vs JAX: one training step of the slice as a whole, in float32.
 
-Setup of tests/test_torch_detector_e2e.py (128x256 bucket, T_rpn = T_det =
-6, 5 classes, the weights scaled so that every spiking layer fires), two
-images with seeded targets (one of them padded), RPN 100/100 proposals and
-64 sampled anchors, 32 sampled RoIs. Both stacks get the same weights
+Setup of tests/test_torch_detector_e2e.py at the 64x128 bucket (T_rpn =
+T_det = 6, 5 classes, the weights scaled so that every spiking layer
+fires; every layer's mean training rate stays above 0.005 there, as
+``test_training_forward_spike_rates`` asserts), two images with seeded
+targets of 8-30 pixels (one of them padded), RPN 100/100 proposals and 64
+sampled anchors, 32 sampled RoIs. Both stacks get the same weights
 through ``utils/weights.py``, the same numpy images and targets, and the
 same sampler draws: the JAX package's own, remade from its key as
 ``detector_apply`` splits it (tests/test_torch_train_losses.py).
@@ -14,12 +16,13 @@ shared (both stacks run on one jitted run of the JAX backbone, as
 ``test_outputs_exact_on_shared_backbone_features`` shares them), since the
 two libraries' float32 convolutions differ by ulps there, which flips
 encoder spikes downstream. From the features on nothing is shared. The RPN
-head's own float32 conv sums differ by ulps too, and on most image seeds
-that moves one to four LIF spikes of level 0 by a step (3 million
-neuron-steps, weights scaled up sixfold), each of which moves one pixel's
-objectness by 1e-3 and ``loss_objectness`` by 5e-5. The seed used is one of
-those without such a spike (8 and 16 of 7..18); ``test_no_spike_moved``
-counts them first, so a failure there says why the others fail.
+head's own float32 conv sums differ by ulps too, and at the 128x256 bucket
+on most image seeds that moved one to four LIF spikes of level 0 by a step
+(3 million neuron-steps, weights scaled up sixfold), each of which moves
+one pixel's objectness by 1e-3 and ``loss_objectness`` by 5e-5. The seed
+used (8, one of those without such a spike there) moves none at 64x128
+either; ``test_no_spike_moved`` counts them first, so a failure there says
+why the others fail.
 
 Tolerances: the four losses 1e-5 relative; every gradient of ``rpn_head``
 and ``box_head`` within 1e-4 of its largest element; the parameters after
@@ -61,9 +64,11 @@ from snn_automotive_object_detection_tpu_torch.utils.weights import (
     tree_leaves,
 )
 
-from tests.test_torch_detector_e2e import IMG, MEAN, STD, T_STEPS, _scaled_params
+from tests.test_torch_detector_e2e import MEAN, STD, T_STEPS, _scaled_params
 from tests.test_torch_train_losses import roi_draws, rpn_draws
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
+IMG = (64, 128)
 N_IMAGES, N_GT, LR = 2, 4, 0.01
 LOSSES = ("loss_objectness", "loss_rpn_box_reg", "loss_classifier", "loss_box_reg")
 RPN_KW = dict(pre_nms_top_n_train=100, post_nms_top_n_train=100, batch_size_per_image=64)
@@ -74,7 +79,7 @@ def _batch():
     rng = np.random.default_rng(8)
     images = rng.uniform(0, 1, (N_IMAGES, *IMG, 3)).astype(np.float32)
     ctr = rng.uniform(0.25, 0.75, (N_IMAGES, N_GT, 2)) * np.array([IMG[1], IMG[0]])
-    half = rng.uniform(8, 30, (N_IMAGES, N_GT, 2))
+    half = rng.uniform(4, 15, (N_IMAGES, N_GT, 2))
     targets = {"boxes": np.concatenate([ctr - half, ctr + half], -1).astype(np.float32),
                "labels": rng.integers(1, 5, (N_IMAGES, N_GT)),
                "valid": np.array([[True, True, True, False], [True, True, False, False]])}

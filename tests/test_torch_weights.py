@@ -18,6 +18,7 @@ from snn_automotive_object_detection_tpu_torch.utils.weights import (
     flatten_tree,
     from_numpy_tree,
 )
+from tests.torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 
 def test_bridge_round_trips_every_leaf():
