@@ -1,0 +1,6 @@
+"""The share of the traced window of training steps in which no operation ran on the device:
+1 - the union of the device's operation intervals over the window."""
+
+
+def read(ctx):
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
