@@ -179,7 +179,8 @@ def get_args_parser(add_help: bool = True):
                         "in bf16 too; --fp32 overrides both")
     p.add_argument("--profile", default="", type=str,
                    help="write a torch.profiler trace of the first evaluation or "
-                        "training epoch to this directory")
+                        "training epoch to this directory; it carries the port's "
+                        "spans (utils/spans.py) around each layer of every batch")
     p.add_argument("--device", default="cuda", type=str,
                    help="the device to run on: the CUDA device unless 'cpu' is asked for")
     p.add_argument("--seed", type=int, default=0)
@@ -188,7 +189,10 @@ def get_args_parser(add_help: bool = True):
 
 class _Profile:
     """A ``torch.profiler`` trace of the block into ``log_dir`` (none
-    without one), written as a Chrome trace when the block ends."""
+    without one), written as a Chrome trace when the block ends. The
+    profiler switches on the port's spans (``utils/spans.py``): each batch
+    shows as a ``detector`` or ``train.step`` range with a range for each
+    layer inside it, on the host's timeline and the device's."""
 
     def __init__(self, log_dir: str, device: torch.device):
         self.log_dir = log_dir

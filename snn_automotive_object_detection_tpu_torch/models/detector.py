@@ -62,6 +62,7 @@ from snn_automotive_object_detection_tpu_torch.models.transform import (
 from snn_automotive_object_detection_tpu_torch.ops.anchors import generate_anchors
 from snn_automotive_object_detection_tpu_torch.ops.cuda_stem import stem_apply
 from snn_automotive_object_detection_tpu_torch.snn.cuda_fc6 import MAX_T as BOX_KERNEL_MAX_T
+from snn_automotive_object_detection_tpu_torch.utils.spans import span
 
 
 @functools.lru_cache(maxsize=8)
@@ -162,12 +163,13 @@ def detector_apply(params: Dict, batch: Dict[str, torch.Tensor], config,
     rates only (when collected) and losses the four of loss_objectness,
     loss_rpn_box_reg, loss_classifier and loss_box_reg.
     """
-    if training:
-        return _detector_apply(params, batch, config, True, generator,
-                               collect_rates, draws or {})
-    with torch.inference_mode():
-        return _detector_apply(params, batch, config, False, None,
-                               collect_rates, {})
+    with span("detector"):
+        if training:
+            return _detector_apply(params, batch, config, True, generator,
+                                   collect_rates, draws or {})
+        with torch.inference_mode():
+            return _detector_apply(params, batch, config, False, None,
+                                   collect_rates, {})
 
 
 def backbone_features(params, images, config, training):
@@ -201,7 +203,8 @@ def _detector_apply(params, batch, config, training, generator, collect_rates,
                     draws):
     images = batch["images"]
     _, hb, wb, _ = images.shape
-    feats = backbone_features(params, images, config, training)
+    with span("detector.backbone"):
+        feats = backbone_features(params, images, config, training)
 
     shapes = tuple((f.shape[1], f.shape[2]) for f in feats)
     anchors, anchor_counts = _anchors(shapes, (hb, wb), config.anchor_spec,
@@ -227,21 +230,22 @@ def _detector_apply(params, batch, config, training, generator, collect_rates,
         return out, losses
 
     orig_sizes = batch["original_sizes"]
-    out = {
-        "boxes": rescale_boxes(det["boxes"], img_sizes, orig_sizes),
-        "scores": det["scores"],
-        "labels": det["labels"],
-        "valid": det["valid"],
-        "proposals": rescale_boxes(proposals["pre_nms_proposals"], img_sizes,
-                                   orig_sizes),
-        "objectness": proposals["pre_nms_objectness"],
-    }
-    # The ANN detector's postprocess has no per-class pre-NMS outputs, and
-    # its heads no rates: the keys are left out, or None, as the JAX
-    # package's det.get gives them.
-    if "all_boxes" in det:
-        out["all_scores"] = det["all_scores"]
-        out["all_boxes"] = rescale_boxes(det["all_boxes"], img_sizes, orig_sizes)
+    with span("detector.outputs"):
+        out = {
+            "boxes": rescale_boxes(det["boxes"], img_sizes, orig_sizes),
+            "scores": det["scores"],
+            "labels": det["labels"],
+            "valid": det["valid"],
+            "proposals": rescale_boxes(proposals["pre_nms_proposals"], img_sizes,
+                                       orig_sizes),
+            "objectness": proposals["pre_nms_objectness"],
+        }
+        # The ANN detector's postprocess has no per-class pre-NMS outputs,
+        # and its heads no rates: the keys are left out, or None, as the JAX
+        # package's det.get gives them.
+        if "all_boxes" in det:
+            out["all_scores"] = det["all_scores"]
+            out["all_boxes"] = rescale_boxes(det["all_boxes"], img_sizes, orig_sizes)
     if collect_rates:
         out["rpn_rates"] = proposals["rates"]
         out["det_rates"] = det["rates"]

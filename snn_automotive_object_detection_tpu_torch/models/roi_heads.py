@@ -43,6 +43,7 @@ from snn_automotive_object_detection_tpu_torch.parallel.collectives import (
 )
 from snn_automotive_object_detection_tpu_torch.utils.constants import device_constant
 from snn_automotive_object_detection_tpu_torch.utils.graphs import graphed
+from snn_automotive_object_detection_tpu_torch.utils.spans import span
 
 # Per-class NMS over the top-K rows when no foreground class has more than
 # K valid rows (exact: greedy NMS only looks at valid rows); otherwise the
@@ -306,28 +307,34 @@ def roi_heads_forward(box_head_apply: Callable, features, proposals: torch.Tenso
     if training:
         if targets is None or (generator is None and draws is None):
             raise ValueError("training needs targets and a generator for the sampler")
-        boxes, labels, reg_targets, valid = select_training_samples(
-            proposals, prop_valid, targets["boxes"], targets["labels"],
-            targets["valid"], cfg, generator, draws)
-        pooled = multiscale_roi_align(features, boxes, image_bucket)
-        cls, reg, rates = box_head_apply(pooled.reshape(n * boxes.shape[1], -1))
-        loss_cls, loss_box = fastrcnn_loss(cls, reg, labels.reshape(-1),
-                                           reg_targets.reshape(-1, 4),
-                                           valid.reshape(-1))
+        with span("detector.roi_sample"):
+            boxes, labels, reg_targets, valid = select_training_samples(
+                proposals, prop_valid, targets["boxes"], targets["labels"],
+                targets["valid"], cfg, generator, draws)
+        with span("detector.roi_align"):
+            pooled = multiscale_roi_align(features, boxes, image_bucket)
+        with span("detector.box_head"):
+            cls, reg, rates = box_head_apply(pooled.reshape(n * boxes.shape[1], -1))
+        with span("detector.roi_loss"):
+            loss_cls, loss_box = fastrcnn_loss(cls, reg, labels.reshape(-1),
+                                               reg_targets.reshape(-1, 4),
+                                               valid.reshape(-1))
         return {"rates": rates}, {"loss_classifier": loss_cls,
                                   "loss_box_reg": loss_box}
     align = roi_align if features[0].dtype == torch.bfloat16 else multiscale_roi_align
-    pooled = align(features, proposals.contiguous(), image_bucket)
-    cls, reg, rates = box_head_apply(pooled.reshape(n * p, -1))
-    if not open_set:
-        det = postprocess_detections_ann(cls.reshape(n, p, -1), reg.reshape(n, p, -1),
-                                         proposals, prop_valid, image_sizes, cfg)
-        det["rates"] = rates
-        return det, {}
-    (gb, gs, gv), inter = _postproc_groups(
-        cls.reshape(n, p, -1), reg.reshape(n, p, -1), proposals, prop_valid,
-        image_sizes, cfg)
-    keep_all, bg_order = _batched_group_nms(gb, gs, gv, cfg.nms_thresh)
-    det = _postproc_outputs(inter, keep_all, bg_order, cfg)
+    with span("detector.roi_align"):
+        pooled = align(features, proposals.contiguous(), image_bucket)
+    with span("detector.box_head"):
+        cls, reg, rates = box_head_apply(pooled.reshape(n * p, -1))
+    with span("detector.postprocess"):
+        if open_set:
+            (gb, gs, gv), inter = _postproc_groups(
+                cls.reshape(n, p, -1), reg.reshape(n, p, -1), proposals, prop_valid,
+                image_sizes, cfg)
+            keep_all, bg_order = _batched_group_nms(gb, gs, gv, cfg.nms_thresh)
+            det = _postproc_outputs(inter, keep_all, bg_order, cfg)
+        else:
+            det = postprocess_detections_ann(cls.reshape(n, p, -1), reg.reshape(n, p, -1),
+                                             proposals, prop_valid, image_sizes, cfg)
     det["rates"] = rates
     return det, {}

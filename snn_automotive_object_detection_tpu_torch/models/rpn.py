@@ -34,6 +34,7 @@ from snn_automotive_object_detection_tpu_torch.parallel.collectives import (
     sum_over_ranks,
 )
 from snn_automotive_object_detection_tpu_torch.utils.graphs import graphed
+from snn_automotive_object_detection_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,29 +199,32 @@ def rpn_forward(head_apply: Callable, features: List[torch.Tensor],
     loss's sampler draws from ``generator`` or takes ``draws`` (see
     :func:`rpn_loss`). Returns (the :func:`filter_proposals` dict plus
     "rates", losses): losses is empty outside training."""
-    obj_maps, bbox_maps, rates = head_apply(features)
-    objectness, deltas, counts = flatten_head_outputs(obj_maps, bbox_maps)
-    if counts != list(level_counts):
-        raise ValueError(f"head outputs {counts} do not match anchors "
-                         f"{list(level_counts)}")
-    top_n = cfg.pre_nms_top_n(training)
-    # Proposals are selected from detached outputs: no gradient flows
-    # through the selection or the decoded boxes.
-    obj_sel, idx_sel = select_pre_nms(objectness.detach(), counts, top_n)
-    takes = [min(top_n, k) for k in counts]
-    deltas_sel = torch.gather(deltas.detach(), 1,
-                              idx_sel[..., None].expand(-1, -1, 4))
-    props = box_ops.decode_boxes(deltas_sel, anchors[idx_sel])
-    out = filter_proposals(props, obj_sel, takes, image_sizes, cfg, training)
+    with span("detector.rpn_head"):
+        obj_maps, bbox_maps, rates = head_apply(features)
+    with span("detector.rpn_select"):
+        objectness, deltas, counts = flatten_head_outputs(obj_maps, bbox_maps)
+        if counts != list(level_counts):
+            raise ValueError(f"head outputs {counts} do not match anchors "
+                             f"{list(level_counts)}")
+        top_n = cfg.pre_nms_top_n(training)
+        # Proposals are selected from detached outputs: no gradient flows
+        # through the selection or the decoded boxes.
+        obj_sel, idx_sel = select_pre_nms(objectness.detach(), counts, top_n)
+        takes = [min(top_n, k) for k in counts]
+        deltas_sel = torch.gather(deltas.detach(), 1,
+                                  idx_sel[..., None].expand(-1, -1, 4))
+        props = box_ops.decode_boxes(deltas_sel, anchors[idx_sel])
+        out = filter_proposals(props, obj_sel, takes, image_sizes, cfg, training)
     out["rates"] = rates
 
     losses: Dict[str, torch.Tensor] = {}
     if training:
         if targets is None or (generator is None and draws is None):
             raise ValueError("training needs targets and a generator for the sampler")
-        labels, reg_targets = assign_targets_to_anchors(
-            anchors, targets["boxes"], targets["valid"], cfg)
-        loss_obj, loss_box = rpn_loss(objectness, deltas, labels, reg_targets,
-                                      cfg, generator, draws)
+        with span("detector.rpn_loss"):
+            labels, reg_targets = assign_targets_to_anchors(
+                anchors, targets["boxes"], targets["valid"], cfg)
+            loss_obj, loss_box = rpn_loss(objectness, deltas, labels, reg_targets,
+                                          cfg, generator, draws)
         losses = {"loss_objectness": loss_obj, "loss_rpn_box_reg": loss_box}
     return out, losses

@@ -26,6 +26,7 @@ from snn_automotive_object_detection_tpu_torch.parallel.collectives import (
 )
 from snn_automotive_object_detection_tpu_torch.parallel.mesh import group_active
 from snn_automotive_object_detection_tpu_torch.train.optim import merge_params
+from snn_automotive_object_detection_tpu_torch.utils.spans import span
 from snn_automotive_object_detection_tpu_torch.utils.weights import tree_leaves
 
 
@@ -51,17 +52,23 @@ def make_train_step(config, optimizer: torch.optim.Optimizer, scheduler=None):
     the global batch's (``parallel/collectives.py``)."""
 
     def step(trainable, frozen, batch, generator, draws=None):
-        params = merge_params(trainable, frozen)
-        optimizer.zero_grad(set_to_none=True)
-        _, losses = detector_apply(params, batch, config, training=True,
-                                   generator=generator, draws=draws)
-        total = sum(losses.values())
-        total.backward()
-        sum_grads_over_ranks(tree_leaves(trainable))
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
-        return _global_losses(losses, total)
+        with span("train.step"):
+            params = merge_params(trainable, frozen)
+            optimizer.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                _, losses = detector_apply(params, batch, config, training=True,
+                                           generator=generator, draws=draws)
+                total = sum(losses.values())
+            with span("train.backward"):
+                total.backward()
+            with span("train.grad_allreduce"):
+                sum_grads_over_ranks(tree_leaves(trainable))
+            with span("train.optimizer"):
+                optimizer.step()
+                if scheduler is not None:
+                    scheduler.step()
+            with span("train.losses"):
+                return _global_losses(losses, total)
 
     return step
 
