@@ -195,6 +195,17 @@ MUTANTS = [
     ("K3: the code's step bit one step late (spikes at t + 1 = p, 2p, ... moved to t + 2)",
      "encoder_fc6.cu", "for (int k = p; k <= T; k += p) bits |= 1u << (k - 1);",
      "for (int k = p; k <= T; k += p) bits |= 1u << k;", "check_encoder_fc6", "encoder_fc6"),
+    ("K3 train: the carried membrane spiking at v = 0.25 (one step early at x = 2.5)",
+     "encoder_fc6.cu", "if (v - 0.25f > 0.0f) {", "if (v - 0.25f >= 0.0f) {",
+     "check_encoder_fc6_train", "encoder_fc6_train or encoder_train"),
+    ("fc6 wgrad: each step's spikes built from the next step's code bit",
+     "encoder_fc6_wgrad.cu", "a[kk][i] = ((pair[kk][i] >> bit) & 0x10001u) * 0x3F80u;",
+     "a[kk][i] = ((pair[kk][i] >> (bit + 1)) & 0x10001u) * 0x3F80u;",
+     "check_encoder_fc6_train", "wgrad"),
+    ("fc6 wgrad: a cotangent stage read from the ring slot before its own",
+     "encoder_fc6_wgrad.cu", "desc_mn_sw128(ring + slot * kBBytes, kChunkBytes);",
+     "desc_mn_sw128(ring + ((slot + kStages - 1) % kStages) * kBBytes, kChunkBytes);",
+     "check_encoder_fc6_train", "wgrad"),
     ("K4: LIF6's last step left out of the scan",
      "box_tail.cu", "        if (t0 + t < T) {\n          const bf16* cv",
      "        if (t0 + t < T - 1) {\n          const bf16* cv", "check_box_tail", "box_tail"),

@@ -626,6 +626,97 @@ def check_encoder_fc6(dev, g, results):
             product_only_ms=product_ms, long_t=long_t)
 
 
+def check_encoder_fc6_train(dev, g, results):
+    """The box head's training route at the flagship training step's shape
+    (R = 8192 RoIs, a batch of 16 frames; 7*7*256 features, T = 12): K3's
+    training instance (codes equal to its plain version's, currents within
+    one bf16 ulp), then the fc6 weight-gradient kernel on its codes and a
+    seeded bf16 cotangent against its plain version (1e-4 of the largest
+    element), the same bits on a second run, timed beside the plain version
+    and cuBLAS's product alone on materialised spikes; then the whole box
+    head forward and backward on this route and on the scan under autograd,
+    in turns."""
+    import torch
+
+    from snn_automotive_object_detection_tpu_torch.models import heads
+    from snn_automotive_object_detection_tpu_torch.snn import cuda_fc6 as k3
+    from snn_automotive_object_detection_tpu_torch.utils import kernel_checks as kc
+
+    bf = torch.bfloat16
+    r, d, rep, t = 8192, 12544, 1024, 12
+    x = (torch.rand((r, d), generator=g, device=dev) * 2.5).to(bf)
+    w6 = ((torch.rand((d, rep), generator=g, device=dev) * 2 - 1) / 112.0).to(bf).contiguous()
+    cur6, codes = k3._launch_train(x, w6, t)
+    want, want_codes = k3.encoder_fc6_train_plain(x, w6, t)
+    same = bool(torch.equal(codes, want_codes))
+    fwd_excess = kc.excess(cur6.float(), want.float())
+    del want, want_codes
+    fwd_ms = _median_ms(lambda: k3._launch_train(x, w6, t), 10)
+    eval_ms = _median_ms(lambda: k3._launch(x, w6, t), 10)
+    print(f"K3 training instance: codes equal {same}, currents {fwd_excess:.3g} of one bf16 "
+          f"ulp; {fwd_ms:.3f} ms (the evaluation instance {eval_ms:.3f} ms on the same rows)")
+    if not same or fwd_excess > 1:
+        _fail("K3's training instance disagrees with its plain version")
+
+    dc = (torch.randn((t, r, rep), generator=g, device=dev) * 1e-3).to(bf)
+    dw = k3._launch_wgrad(codes, dc, t)
+    again = k3._launch_wgrad(codes, dc, t)
+    want = k3.encoder_fc6_wgrad_plain(codes, dc, t)
+    worst = kc.grad_excess(dw, want, rel=1e-4)
+    err = (dw - want).abs().max().item()
+    print(f"fc6 weight gradient: max|diff| {err:.3g} at max|dW6| {want.abs().max().item():.4g} "
+          f"({worst:.3g} of the bound 1e-4 of it); the same bits on a second run "
+          f"{bool(torch.equal(dw, again))}")
+    if worst > 1 or not torch.equal(dw, again):
+        _fail("the fc6 weight-gradient kernel disagrees with its plain version")
+    del want, again
+    ms = _median_ms(lambda: k3._launch_wgrad(codes, dc, t), 10)
+    pms = _median_ms(lambda: k3.encoder_fc6_wgrad_plain(codes, dc, t), 3)
+    z = torch.cat([k3.step_spikes(codes, s).to(bf) for s in range(t)])
+    dcf = dc.reshape(t * r, rep)
+    product_ms = _median_ms(lambda: torch.matmul(z.t(), dcf), 10)
+    del z
+    dense = 2.0 * d * rep * t * r
+    print(f"fc6 weight gradient: {dense / ms / 1e9:.1f} dense TFLOP/s")
+    bound = _bound(_nbytes(codes, dc, dw), dense)
+
+    # The whole box head, forward then backward, on both training routes.
+    scale = {"fc7": 1.0 / 32.0, "cls_score": 1.0 / 32.0, "bbox_pred": 1.0 / 32.0}
+    params = {"fc6": {"w": w6.float().requires_grad_()}}
+    for k, n in (("fc7", rep), ("cls_score", 9), ("bbox_pred", 36)):
+        params[k] = {"w": ((torch.rand((rep, n), generator=g, device=dev) * 2 - 1)
+                           * scale[k]).requires_grad_()}
+    routes = {"route": heads.fastrcnn_snn_train_apply, "scan": heads.fastrcnn_snn_scan_apply}
+    times = {k: [] for k in routes}
+    fwd = {k: [] for k in routes}
+    peak = {}
+    for k, apply in list(routes.items()) * 4:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        a, m, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        a.record()
+        cls, box, _ = apply(params, x, t)
+        m.record()
+        (cls.sum() + box.sum()).backward()
+        b.record()
+        b.synchronize()
+        times[k].append(a.elapsed_time(b))
+        fwd[k].append(a.elapsed_time(m))
+        peak[k] = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 30
+        for v in params.values():
+            v["w"].grad = None
+    box_ms = {k: statistics.median(v[1:]) for k, v in times.items()}
+    box_fwd = {k: statistics.median(v[1:]) for k, v in fwd.items()}
+    print(f"box head forward + backward at R = {r}, T = {t}: this route {box_ms['route']:.2f} "
+          f"ms (forward {box_fwd['route']:.2f}), the scan {box_ms['scan']:.2f} ms (forward "
+          f"{box_fwd['scan']:.2f}); peak above the inputs {peak['route']:.2f} and "
+          f"{peak['scan']:.2f} GiB")
+    _record(results, "encoder_fc6_wgrad", "models/heads.py:327 (XLA autodiff of the scan)",
+            err, ms, pms, bound, product_only_ms=product_ms, train_forward_ms=fwd_ms,
+            box_head_ms=box_ms, box_head_forward_ms=box_fwd, box_head_peak_gib=peak)
+
+
 def _hold_box_tail(cur6, w7, wc, wb, w7b, wro):
     """K4 on (cur6, w7b, wro) held to its plain version: logits within
     ``kc.excess``'s bound, fc6 counts equal, fc7 counts within 1e-3 of the
@@ -1570,7 +1661,8 @@ def check_rpn_x2_s16(dev, g, results):
 # The kernel phases in the order they draw from one generator.
 KERNEL_CHECKS = (check_rpn_head, check_roi_align, check_encoder_fc6, check_box_tail, check_fpn,
                  check_stem, check_rpn_bwd, check_wide_readout, check_rpn_x2,
-                 check_box_head_fused, check_rpn_s16, check_rpn_s16_train, check_rpn_x2_s16)
+                 check_box_head_fused, check_rpn_s16, check_rpn_s16_train, check_rpn_x2_s16,
+                 check_encoder_fc6_train)
 
 
 def output_problems(out, config, n):
@@ -2519,6 +2611,8 @@ def train_path(dev, steps=2, bf16_states=False):
     fwd, bwd = ("rpn_head_s16_save", "rpn_head_bwd_s16") if bf16_states else ("rpn_head",
                                                                               "rpn_head_bwd")
     want = {**{k: 0 for k in cb.KERNELS}, "stem": steps, fwd: 5 * steps, bwd: 5 * steps}
+    if not bf16_states:   # the box head: K3's training instance, fc6's weight gradient
+        want.update(encoder_fc6=steps, encoder_fc6_wgrad=steps)
     if launches != want:
         _fail(f"the {what} path's launches are not {want}")
     if any(v != 0 for v in plain_calls.values()):
@@ -2819,7 +2913,7 @@ def dist_path(dev):
               f"({abs(got - own[k]) / abs(own[k]):.3g})")
     if not worst <= DIST_LOSS_RTOL:
         _fail(f"dist: the ranks' losses are {worst:.3g} from one process's (relative)")
-    per_step = {**{k: 0 for k in cb.KERNELS}, "stem": 1, "rpn_head": 5, "rpn_head_bwd": 5}
+    per_step = {**{k: 0 for k in cb.KERNELS}, **TRAIN_STEP_KERNELS}
     for r, rk in enumerate(ranks):
         got = {k: v // DIST_STEPS for k, v in rk["launches"].items()}
         print(f"dist (i): rank {r} launches per step {got}; {rk['steps_per_s']:.3f} steps/s, "
@@ -2948,8 +3042,7 @@ def bench_weights_path(dev, steps=700, eval_images=8):
     per_batch = {"rpn_head": 5, "roi_align": 1, "encoder_fc6": 1, "box_tail": 1,
                  "fpn_level": 4, "stem": 1}
     want_eval = {k: batches * per_batch.get(k, 0) for k in cb.KERNELS}
-    want = {k: v + {"stem": steps, "rpn_head": 5 * steps, "rpn_head_bwd": 5 * steps}.get(k, 0)
-            for k, v in want_eval.items()}
+    want = {k: v + steps * TRAIN_STEP_KERNELS.get(k, 0) for k, v in want_eval.items()}
     print(f"bench_weights: {steps} steps of 2 x 768 x 1536 and {eval_images} held-out images "
           f"in {secs:.1f} s ({_smi()}); launches {launches}")
     print(f"bench_weights: held-out mAP@[.5:.95] {stats[0]:.4f}, AP50 {stats[1]:.4f}, per "
@@ -3138,6 +3231,11 @@ def apply_mirror_gains(sd):
     """``sd`` (a mirror state dict) with ``MIRROR_GAINS`` applied."""
     return {k: v * next((f for key, f in MIRROR_GAINS.items() if k.startswith(key)), 1)
             for k, v in sd.items()}
+
+
+# A frozen-backbone training step with f32 neuron states, by kernel.
+TRAIN_STEP_KERNELS = {"stem": 1, "rpn_head": 5, "rpn_head_bwd": 5, "encoder_fc6": 1,
+                      "encoder_fc6_wgrad": 1}
 _EVAL_KERNELS = {"stem": 1, "fpn_level": 4, "rpn_head": 5, "roi_align": 1, "encoder_fc6": 1,
                  "box_tail": 1}
 ABLATION_LAUNCHES = {
@@ -3254,10 +3352,10 @@ def chain_path(dev):
                     "--save-every", "1000"], {}),
             ("p2", ["--out", f"{out}_p2.pth", "--lr", "2e-3", "--load", f"{out}_p1.pth",
                     "--save-every", "1000"],
-             {"stem": 1, "rpn_head": 5, "rpn_head_bwd": 5}),
+             TRAIN_STEP_KERNELS),
             ("p3", ["--out", f"{out}.pth", "--lr", "1e-3", "--load", f"{out}_p2.pth",
                     "--save-every", "1000"],
-             {"stem": 1, "rpn_head": 5, "rpn_head_bwd": 5}))
+             TRAIN_STEP_KERNELS))
         before = None
         mbw.make_eval_step = counting_step
         try:

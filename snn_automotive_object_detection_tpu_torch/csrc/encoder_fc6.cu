@@ -25,6 +25,11 @@
 // code pass writes two code planes (steps 0-15 and 16-31) and the GEMM
 // runs once per plane (sgemm_host::launch_steps), the second half's sums
 // into cur6[16:].
+//
+// Training instance (encoder_fc6_train_bf16): the code pass carries the
+// encoder's membrane as the training scan does (encoder_code_train_kernel)
+// and writes no counts; the GEMM rounds its sums to bf16 as it stores them
+// (StoreBF16); the codes are its output too, for the weight gradient.
 
 #include "spike_gemm.cuh"
 
@@ -82,6 +87,44 @@ encoder_code_kernel(const bf16* __restrict__ x,       // [R, D]
   }
 }
 
+// The training instance's code pass: one block per row, no counts. An
+// element's first spike from the encoder membrane carried in f32 as
+// lif_current_encoder carries it (v += 0.1 ((0 - v) + x), a spike where
+// v - 0.25 > 0), the same operations in the same order (--fmad=false); the
+// reset leaves exactly 0, so the train repeats with that period. The
+// threshold count above differs from it at x = 2.5 alone, where the
+// membrane reaches 0.25 exactly after one step and spikes after two.
+template <int kPlanes>
+__global__ void __launch_bounds__(kCodeThreads)
+encoder_code_train_kernel(const bf16* __restrict__ x,   // [R, D]
+                          uint16_t* __restrict__ code,  // [kPlanes, R, D]
+                          int D, int T) {
+  const int64_t row = blockIdx.x;
+  for (int q = threadIdx.x; q < D / 8; q += kCodeThreads) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(x + row * D + 8 * q);
+    const bf16* xv = reinterpret_cast<const bf16*>(&raw);
+    uint32_t c[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float xf = __bfloat162float(xv[j]);
+      int p = T + 1;
+      float v = 0.0f;
+      for (int m = 1; m <= T; ++m) {
+        v = v + 0.1f * ((0.0f - v) + xf);
+        if (v - 0.25f > 0.0f) {
+          p = m;
+          break;
+        }
+      }
+      uint32_t bits = 0u;
+      for (int t = p - 1; t < T; t += p) bits |= 1u << t;   // steps p - 1, 2p - 1, ...
+      c[j] = bits;
+    }
+    sgemm::store_codes8<kPlanes>(c, code + row * D + 8 * q,
+                                 code + (gridDim.x + row) * D + 8 * q);
+  }
+}
+
 }  // namespace
 
 // x [R, D] bf16; w6 [D, rep] bf16; thr [T] f32 (thresholds 1 - a^m); out
@@ -106,4 +149,27 @@ extern "C" int encoder_fc6_bf16(const void* x, const void* w6, const float* thr,
   if (err != cudaSuccess) return (int)err;
   return sgemm_host::launch_steps<128, 8, sgemm::StoreF32T>(w6, rep, codes, R, D, T,
                                                             sgemm::StoreF32::Params{out, rep}, s);
+}
+
+// The training instance: x [R, D] bf16; w6 [D, rep] bf16; out [T, R, rep]
+// bf16, the f32 sums of the carried encoder's spikes rounded once; codes
+// [R, D] uint16, [2, R, D] for T > 16, which the weight gradient
+// (encoder_fc6_wgrad.cu) reads. Requires what encoder_fc6_bf16 does.
+extern "C" int encoder_fc6_train_bf16(const void* x, const void* w6, void* out, void* codes,
+                                      int R, int D, int rep, int T, void* stream) {
+  if (R <= 0 || D % sgemm::kK != 0 || rep % 128 != 0 || T < 1 || T > kMaxSteps) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bf16* xb = reinterpret_cast<const bf16*>(x);
+  uint16_t* code = reinterpret_cast<uint16_t*>(codes);
+  if (T <= sgemm::kMaxT) {
+    encoder_code_train_kernel<1><<<R, kCodeThreads, 0, s>>>(xb, code, D, T);
+  } else {
+    encoder_code_train_kernel<2><<<R, kCodeThreads, 0, s>>>(xb, code, D, T);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return sgemm_host::launch_steps<128, 8, sgemm::StoreBF16T>(
+      w6, rep, codes, R, D, T, sgemm::StoreBF16::Params{reinterpret_cast<bf16*>(out), rep}, s);
 }

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the kernels written for warpgroup
-// matrix multiplies (fpn_level.cu, rpn_head.cu, rpn_head_bwd.cu, and
-// through spike_gemm.cuh encoder_fc6.cu, box_tail.cu and box_head_fused.cu)
+// matrix multiplies (fpn_level.cu, rpn_head.cu, rpn_head_bwd.cu,
+// encoder_fc6_wgrad.cu, and through spike_gemm.cuh encoder_fc6.cu,
+// box_tail.cu and box_head_fused.cu)
 // and by the stem's TMA ring (stem.cu): mbarriers, TMA tile loads
 // (multicast to a thread-block cluster too), the wgmma descriptors and
 // instructions, register reallocation between warpgroups, named and
@@ -76,6 +77,11 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// Arrives once on a barrier of this block.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // ---- thread-block clusters
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
@@ -109,6 +115,18 @@ __device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorM
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The same for a 3-D box (the box head's fc6 cotangent: columns, RoIs, steps).
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, uint16_t mask, int c0,
+                                                      int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1),
+      "r"(c2)
       : "memory");
 }
 

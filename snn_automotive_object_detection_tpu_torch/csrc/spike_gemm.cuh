@@ -43,8 +43,9 @@
 // the bf16 pair of two elements is ((code pair >> t) & 0x10001) * 0x3F80,
 // three integer operations, then wgmma m64nNk16 with A from registers.
 //
-// The epilogue is a template parameter: store the f32 sums (K3); round
-// them to bf16, stage them in shared memory and run the LIF (K4's fc7) or
+// The epilogue is a template parameter: store the f32 sums (K3), or store
+// them rounded to bf16 (K3's training instance); round them to bf16, stage
+// them in shared memory and run the LIF (K4's fc7) or
 // LI (K4's readout) scan over t per (row, column); or stage them as they
 // are, in f32, and run the same scans (K9). The f32 staging of 16 rows x
 // 16 steps x 128 columns (139 KB) does not fit beside an 8-stage ring (147
@@ -393,6 +394,45 @@ struct StoreF32 {
   }
 };
 
+// K3's training instance: the sums rounded to bf16, to out [T, R, n_total];
+// plane h's to out[16 h:].
+struct StoreBF16 {
+  struct Params {
+    bf16* out;
+    int n_total;
+    Params at_plane(int h, int R) const {
+      return {out + (int64_t)h * kMaxT * R * n_total, n_total};
+    }
+  };
+  static constexpr int kStageBytes = 0;
+  static constexpr bool kInRing = false;
+
+  template <int kN>
+  static __device__ __forceinline__ void run(const float (&acc)[2][kN / 2], int mine,
+                                             const Ctx& c, unsigned char*, const Params& p) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int t = c.step(j);
+      if (j < mine && t < c.T) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = c.row0 + c.g + 8 * h;
+          if (row < c.R) {
+            bf16* o = p.out + ((int64_t)t * c.R + row) * p.n_total + c.col0 + 2 * c.t4;
+#pragma unroll
+            for (int q = 0; q < kN / 8; ++q) {
+              __nv_bfloat162 v;
+              v.x = __float2bfloat16_rn(acc[j][4 * q + 2 * h]);
+              v.y = __float2bfloat16_rn(acc[j][4 * q + 2 * h + 1]);
+              *reinterpret_cast<__nv_bfloat162*>(o + 8 * q) = v;
+            }
+          }
+        }
+      }
+    }
+  }
+};
+
 // K4's fc7: LIF7 on bf16(s6 @ w7) over the steps; emits the spike codes
 // and adds the spikes per row to counts[2 r + 1].
 template <int kCarry>
@@ -625,6 +665,8 @@ using LiOutF32 = LiOutF32T<kWhole>;
 
 template <int>
 using StoreF32T = StoreF32;   // K3's epilogue scans nothing: every carry is the same
+template <int>
+using StoreBF16T = StoreBF16;
 
 }  // namespace sgemm
 

@@ -35,7 +35,10 @@ In training the route changes with what needs a gradient (see
 while the stem is frozen, the FPN runs unfused, the RPN head is K1's
 training instance with K7 as its backward while the backbone is frozen
 (their bf16-state instances with bf16 neuron states), RoIAlign is the
-gather version and the box head the scan under autograd.
+gather version, and the box head K3's training instance with the
+spike-code weight-gradient kernel as its backward, then the tail as a scan
+under autograd, while the backbone is frozen and the states are float32;
+otherwise the box head is the scan under autograd.
 """
 
 from __future__ import annotations
@@ -94,12 +97,18 @@ def make_head_applies(config, params, collect_rates: bool, training: bool = Fals
         head on K1's instance for bf16 states (K8's where the pairing switch
         pairs a level), the box head on K3 then :func:`heads.box_tail_scan`
         with bf16 states, as the reference runs its kernels there.
-      * training: the box head is the scan under autograd; the RPN head is
-        K1's training instance with K7 as its backward for bf16 compute, a
-        frozen backbone (that gradient is for the weights only) and no rate
-        collection, their bf16-state instances with bf16 states, as the
-        reference takes its training VJP with either state dtype; otherwise
-        the scan too.
+      * training: the RPN head is K1's training instance with K7 as its
+        backward for bf16 compute, a frozen backbone (that gradient is for
+        the weights only) and no rate collection, their bf16-state
+        instances with bf16 states, as the reference takes its training VJP
+        with either state dtype; otherwise the scan. The box head is K3's
+        training instance with the spike-code weight-gradient kernel as its
+        backward, then the tail as a scan under autograd
+        (:func:`heads.fastrcnn_snn_train_apply`), for bf16 compute, float32
+        states, features that need no gradient (a frozen backbone), no rate
+        collection and ``t_det`` <= 32; otherwise the scan under autograd
+        (bf16 states keep it: the JAX package's training encoder then
+        carries a bf16 membrane).
 
     A box head of more steps than K3 and K4 take (``t_det`` > 32) is the
     scan on either device, as the reference's gate sends such a ``t_det`` to
@@ -130,9 +139,13 @@ def make_head_applies(config, params, collect_rates: bool, training: bool = Fals
             rep = heads.two_mlp_head_apply(params["box_head"], flat, cd)
             cls, reg = heads.fastrcnn_predictor_apply(params["box_predictor"], rep)
             return cls, reg, None
-        if kernels and not training and config.t_det <= BOX_KERNEL_MAX_T:
-            return heads.fastrcnn_snn_apply(params["box_head"], flat, config.t_det,
-                                            collect_rates, cd, sd)
+        if kernels and config.t_det <= BOX_KERNEL_MAX_T:
+            if not training:
+                return heads.fastrcnn_snn_apply(params["box_head"], flat, config.t_det,
+                                                collect_rates, cd, sd)
+            if sd == torch.float32 and not flat.requires_grad and not collect_rates:
+                return heads.fastrcnn_snn_train_apply(params["box_head"], flat,
+                                                      config.t_det, cd)
         return heads.fastrcnn_snn_scan_apply(params["box_head"], flat, config.t_det,
                                              collect_rates, cd, state_dtype=sd)
 

@@ -21,12 +21,19 @@ For training:
     the per-step currents, and K7 backward on them
     (``snn/cuda_rpn.RpnLevelTrain``), for bf16 with a frozen backbone, with
     f32 or (their bf16-state instances) bf16 neuron states.
+  * :func:`fastrcnn_snn_train_apply` is the box head made differentiable
+    for its weights on the same condition with f32 neuron states: K3's
+    training instance (the encoder's membrane carried as the scan carries
+    it) with the spike-code weight-gradient kernel as its backward
+    (``snn/cuda_fc6.EncoderFc6Train``), then the tail as a scan under
+    autograd (:func:`box_tail_scan`).
   * :func:`rpn_head_snn_scan_apply` and :func:`fastrcnn_snn_scan_apply` are
     the reference's scans written as Python loops of PyTorch ops under
     autograd, with the SuperSpike surrogate in every spike. Training uses
-    them for the box head, for float32, for trainable backbone stages and
-    for rate collection, and evaluation for float32, on either device;
-    they are no kernel's plain version.
+    them for float32, for trainable backbone stages and for rate
+    collection, and the box head's also for bf16 states and above 32
+    steps; evaluation uses them for float32, on either device; they are no
+    kernel's plain version.
 
 The ANN heads (reference rpn.py:203-245, faster_rcnn.py:320-411: a 3x3
 conv with ReLU and two 1x1 convs; TwoMLPHead and FastRCNNPredictor) are
@@ -51,7 +58,7 @@ import torch
 
 from snn_automotive_object_detection_tpu_torch.models.resnet_fpn import conv_nhwc
 from snn_automotive_object_detection_tpu_torch.snn import functional as snnf
-from snn_automotive_object_detection_tpu_torch.snn.cuda_fc6 import encoder_fc6
+from snn_automotive_object_detection_tpu_torch.snn.cuda_fc6 import EncoderFc6Train, encoder_fc6
 from snn_automotive_object_detection_tpu_torch.snn import cuda_rpn
 from snn_automotive_object_detection_tpu_torch.snn.cuda_rpn import RpnLevelTrain
 from snn_automotive_object_detection_tpu_torch.snn.cuda_tail import box_tail
@@ -225,13 +232,16 @@ def fastrcnn_snn_scan_apply(params: Dict, x: torch.Tensor, num_steps: int,
 
 
 def box_tail_scan(cur6: torch.Tensor, w7: torch.Tensor, wc: torch.Tensor, wb: torch.Tensor,
-                  compute_dtype=torch.bfloat16, state_dtype=torch.bfloat16):
+                  compute_dtype=torch.bfloat16, state_dtype=torch.bfloat16,
+                  counts: bool = True):
     """The box head's LIF6, fc7, LIF7 and LI readouts step by step over the
     fc6 currents cur6 [T, R, rep] (in the compute dtype), neuron states in
     ``state_dtype``: the JAX package's ``_fastrcnn_snn_from_cur6``, which
     the reference's kernel route runs after its fc6 kernel where the states
-    are bf16. Returns (class logits [R, C] f32, box deltas [R, B] f32, fc6
-    and fc7 spike counts [R] f32)."""
+    are bf16. Differentiable under autograd; the steps are ``cur6``'s
+    ``unbind``, whose backward stacks their gradients once. Returns (class
+    logits [R, C] f32, box deltas [R, B] f32, fc6 and fc7 spike counts [R]
+    f32, or None for both without ``counts``)."""
     cd, sd = compute_dtype, state_dtype
     _, r, rep = cur6.shape
     dev = cur6.device
@@ -239,16 +249,35 @@ def box_tail_scan(cur6: torch.Tensor, w7: torch.Tensor, wc: torch.Tensor, wb: to
     l7 = snnf.zeros_lif_state((r, rep), sd, dev)
     li_c = snnf.zeros_li_state((r, wc.shape[1]), sd, dev)
     li_b = snnf.zeros_li_state((r, wb.shape[1]), sd, dev)
-    c6 = torch.zeros(r, device=dev)
-    c7 = torch.zeros(r, device=dev)
+    c6 = torch.zeros(r, device=dev) if counts else None
+    c7 = torch.zeros(r, device=dev) if counts else None
     for cur in cur6:
         s6, l6 = snnf.lif_feed_forward_step(cur.to(sd), l6)
         s7, l7 = snnf.lif_feed_forward_step(_linear(s6.to(cd), w7).to(sd), l7)
         _, li_c = snnf.li_feed_forward_step(_linear(s7.to(cd), wc).to(sd), li_c)
         _, li_b = snnf.li_feed_forward_step(_linear(s7.to(cd), wb).to(sd), li_b)
-        c6 = c6 + s6.float().sum(dim=1)
-        c7 = c7 + s7.float().sum(dim=1)
+        if counts:
+            c6 = c6 + s6.float().sum(dim=1)
+            c7 = c7 + s7.float().sum(dim=1)
     return li_c.v.float(), li_b.v.float(), c6, c7
+
+
+def fastrcnn_snn_train_apply(params: Dict, x: torch.Tensor, num_steps: int,
+                             compute_dtype=torch.bfloat16):
+    """The spiking box head made differentiable for its four weights, with
+    float32 neuron states: the encoder and fc6 as one node
+    (``snn/cuda_fc6.EncoderFc6Train``: K3's training instance forward,
+    whose encoder carries its membrane as the scan's does, and the
+    spike-code weight-gradient kernel backward; on the CPU their plain
+    versions), then :func:`box_tail_scan` under autograd on its currents.
+    The features get no gradient; no spikes are counted. Returns (class
+    logits [R, C] f32, box deltas [R, B] f32, None)."""
+    x = x.detach().to(compute_dtype).contiguous()
+    cur6 = EncoderFc6Train.apply(x, params["fc6"]["w"], num_steps)
+    cls, box, _, _ = box_tail_scan(cur6, params["fc7"]["w"], params["cls_score"]["w"],
+                                   params["bbox_pred"]["w"], compute_dtype, torch.float32,
+                                   counts=False)
+    return cls, box, None
 
 
 def fastrcnn_snn_apply(params: Dict, x: torch.Tensor, num_steps: int,

@@ -40,7 +40,7 @@ BUILD_DIR = PKG_DIR / "_build"
 
 KERNELS = ("rpn_head", "roi_align", "encoder_fc6", "box_tail", "fpn_level",
            "stem", "rpn_head_bwd", "rpn_head_x2", "box_head_fused", "rpn_head_s16",
-           "rpn_head_s16_save", "rpn_head_bwd_s16", "rpn_head_x2_s16")
+           "rpn_head_s16_save", "rpn_head_bwd_s16", "rpn_head_x2_s16", "encoder_fc6_wgrad")
 # The source csrc/<source>.cu, and library, of each kernel: the paired RPN
 # head (K8) and the RPN head's instances for bf16 neuron states (evaluation,
 # training, pair) are instances of K1's kernel and live in K1's source; the

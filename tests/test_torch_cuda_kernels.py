@@ -26,7 +26,13 @@ Tolerances, on identical bf16 inputs:
   * K2: 1e-5 absolute on N(0, 1) features (the same f32 operations on the
     same bf16 values, the level mapper's too; measured bit-equal on an
     H100), boxes on the mapper's level borders included;
-  * K3: 1e-3 absolute (sums of 0/1 x bf16 weights in another order);
+  * K3: 1e-3 absolute (sums of 0/1 x bf16 weights in another order); its
+    training instance: codes equal to the plain version's (for every bf16
+    value too), currents within one bf16 ulp + 1e-4 (both sides round f32
+    sums of the same spikes once);
+  * the fc6 weight gradient from those codes: within 1e-4 of its largest
+    element (f32 sums of the same exact products in another order), the
+    same bits on a second run;
   * K5 merged map and P, K6: ``kernel_checks.chain_excess``: a product sum
     taken in another order may round one bf16 ulp apart, by 2^-7 of its own
     magnitude, which the bf16 adds after it (bias, upsample) can largely
@@ -295,6 +301,83 @@ def test_encoder_fc6_kernel_matches_plain(dev, r, d, rep, t):
     assert cur6.shape == (t, r, rep)
     assert torch.equal(cnt, want_cnt) and int(cnt.sum()) > 0
     assert float((cur6 - want).abs().max()) <= 1e-3
+
+
+# K3's training instance: ragged rows, two column tiles, one and two code
+# planes (T = 20: steps 16-19 in the second), the flagship width; the value
+# 2.5, where the carried encoder and the threshold count part, in every row.
+@pytest.mark.parametrize("r,d,rep,t", [(150, 512, 128, 12), (17, 512, 256, 20), (7, 512, 128, 1),
+                                       (40, 12544, 1024, 12), (40, 12544, 1024, 32)])
+def test_encoder_fc6_train_kernel_matches_plain(dev, r, d, rep, t):
+    g = torch.Generator(device=dev).manual_seed(r + t + d)
+    x = (torch.rand((r, d), generator=g, device=dev) * 3).to(BF)
+    x[:, 0] = 2.5
+    w6 = ((torch.rand((d, rep), generator=g, device=dev) * 2 - 1) / d ** 0.5).to(BF)
+    before = cb.LAUNCHES[k3.NAME]
+    cur6, codes = k3.encoder_fc6_train(x, w6, t)
+    want, want_codes = k3.encoder_fc6_train_plain(x, w6, t)
+    assert cb.LAUNCHES[k3.NAME] == before + 1
+    assert cur6.dtype == BF and cur6.shape == (t, r, rep)
+    assert torch.equal(codes, want_codes)
+    # Both sides round f32 sums of the same spikes once to bf16.
+    assert kc.excess(cur6.float(), want.float()) <= 1
+
+
+@pytest.mark.parametrize("t", [8, 12, 20, 32])
+def test_encoder_train_codes_for_every_bf16_value(dev, t):
+    """The training instance's code pass on all 32,640 finite non-negative
+    bf16 values, laid out as 255 rows of 128: its plain version's codes."""
+    x = torch.arange(0x7F80, dtype=torch.int32).to(torch.int16).view(BF).reshape(255, 128)
+    x = x.to(dev)
+    w6 = torch.full((128, 128), 2.0 ** -10, device=dev, dtype=BF)
+    _, codes = k3.encoder_fc6_train(x, w6, t)
+    assert torch.equal(codes, k3.encoder_codes_train_plain(x, t))
+
+
+# The weight gradient of fc6 from the training instance's codes: the
+# flagship width at 40 and 8192 RoIs (a batch of 16), one and two code
+# planes; ragged: RoIs that end inside a 64-RoI stage, features that end
+# inside a 128-feature tile (576), a column tile half past rep (384).
+@pytest.mark.parametrize("r,d,rep,t", [(40, 12544, 1024, 8), (40, 12544, 1024, 12),
+                                       (40, 12544, 1024, 20), (8192, 12544, 1024, 8),
+                                       (8192, 12544, 1024, 12), (8192, 12544, 1024, 20),
+                                       (33, 576, 384, 12), (100, 512, 128, 17)])
+def test_encoder_fc6_wgrad_kernel_matches_plain(dev, r, d, rep, t):
+    g = torch.Generator(device=dev).manual_seed(r + t + d)
+    x = (torch.rand((r, d), generator=g, device=dev) * 3).to(BF)
+    w6 = torch.zeros((d, rep), device=dev, dtype=BF)
+    _, codes = k3.encoder_fc6_train(x, w6, t)
+    dcur6 = (torch.randn((t, r, rep), generator=g, device=dev) * 1e-3).to(BF)
+    before = cb.LAUNCHES[k3.WGRAD_NAME]
+    dw = k3.encoder_fc6_wgrad(codes, dcur6, t)
+    again = k3.encoder_fc6_wgrad(codes, dcur6, t)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES[k3.WGRAD_NAME] == before + 2
+    want = k3.encoder_fc6_wgrad_plain(codes, dcur6, t)
+    assert dw.shape == (d, rep) and float(want.abs().max()) > 0
+    # f32 sums of the same exact products in another order.
+    assert kc.grad_excess(dw, want, rel=1e-4) <= 1
+    assert torch.equal(dw, again)
+
+
+def test_encoder_fc6_train_backward_is_the_kernel(dev):
+    """``EncoderFc6Train`` under autograd on the card: the training
+    instance forward, the weight-gradient kernel's bits backward, no
+    gradient for x, no plain version."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = (torch.rand((300, 12544), generator=g, device=dev) * 3).to(BF)
+    w6 = (torch.randn((12544, 1024), generator=g, device=dev) * 0.01).requires_grad_()
+    cot = torch.randn((12, 300, 1024), generator=g, device=dev).to(BF)
+    cb.reset_counts()
+    cur6 = k3.EncoderFc6Train.apply(x, w6, 12)
+    (codes,) = cur6.grad_fn.saved_tensors     # freed by the backward
+    cur6.backward(cot)
+    torch.cuda.synchronize()
+    assert cb.LAUNCHES[k3.NAME] == 1 and cb.LAUNCHES[k3.WGRAD_NAME] == 1
+    assert all(v == 0 for v in cb.PLAIN_CUDA_CALLS.values())
+    assert torch.equal(cur6, k3.encoder_fc6_train(x, w6.detach(), 12)[0])
+    assert torch.equal(w6.grad, k3.encoder_fc6_wgrad(codes, cot, 12))
+    assert x.grad is None
 
 
 # The same row tiles and steps for K4, and a readout of 16 classes (80
@@ -731,6 +814,48 @@ def test_bf16_state_training_step_launches(dev):
     for k in ("shared_conv", "conv_cls", "conv_bbox"):
         gr = trainable["rpn_head"][k]["w"].grad
         assert bool(torch.isfinite(gr).all()) and bool((gr != 0).any()), k
+
+
+def test_training_step_launches(dev):
+    """One frozen-backbone training step with float32 states at 64 x 128:
+    per step the stem once, K1's training instance and K7 once per level,
+    K3's training instance and the fc6 weight-gradient kernel once, no other
+    kernel and no plain version; finite losses, nonzero box-head
+    gradients."""
+    from snn_automotive_object_detection_tpu_torch.models.factory import (
+        DetectorConfig, init_params)
+    from snn_automotive_object_detection_tpu_torch.models.roi_heads import RoIConfig
+    from snn_automotive_object_detection_tpu_torch.models.rpn import RPNConfig
+    from snn_automotive_object_detection_tpu_torch.train import optim
+    from snn_automotive_object_detection_tpu_torch.train.steps import make_train_step
+
+    cfg = DetectorConfig(num_classes=4, t_rpn=8, t_det=12, min_size=64, max_size=128,
+                         rpn=RPNConfig(pre_nms_top_n_train=64, post_nms_top_n_train=32,
+                                       batch_size_per_image=64),
+                         roi=RoIConfig(batch_size_per_image=16))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    trainable, frozen = optim.split_trainable(params)
+    opt, sched = optim.build_optimizer(trainable, "SGD", 0.01, momentum=0.9)
+    g = torch.Generator(device=dev).manual_seed(4)
+    batch = {"images": torch.rand((2, 64, 128, 3), generator=g, device=dev),
+             "image_sizes": torch.tensor([[64, 128]] * 2, device=dev),
+             "original_sizes": torch.tensor([[64, 128]] * 2, device=dev),
+             "targets": {"boxes": torch.tensor([[[10.0, 8.0, 50.0, 40.0], [60.0, 20.0, 110.0,
+                                                                          60.0]]] * 2,
+                                               device=dev),
+                         "labels": torch.tensor([[1, 2]] * 2, device=dev),
+                         "valid": torch.tensor([[True, True]] * 2, device=dev)}}
+    cb.reset_counts()
+    losses = make_train_step(cfg, opt, sched)(trainable, frozen, batch, g)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cb.LAUNCHES.items() if v} == {
+        "stem": 1, k1.NAME: 5, k1.BWD_NAME: 5, k3.NAME: 1, k3.WGRAD_NAME: 1}
+    assert all(v == 0 for v in cb.PLAIN_CUDA_CALLS.values())
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
+    for k in ("fc6", "fc7", "cls_score", "bbox_pred"):
+        gr = trainable["box_head"][k]["w"].grad
+        assert bool(torch.isfinite(gr).all()), k
+    assert bool((trainable["box_head"]["fc6"]["w"].grad != 0).any())
 
 
 @pytest.mark.parametrize("overrides,want", [(dict(trainable_backbone_layers=3), {"stem": 1}),
